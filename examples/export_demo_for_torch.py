@@ -1,0 +1,100 @@
+"""Export the committed demo checkpoints for the PyTorch port.
+
+Runs where JAX runs (the CPU is enough):
+
+    python examples/export_demo_for_torch.py
+
+and writes, under examples/checkpoints/demo/torch/:
+
+  * acoustic.npz, vocoder.npz: the orbax parameter trees of
+    examples/checkpoints/demo/{acoustic,vocoder}, keyed by '/'-joined flax
+    path, which `visual_onoma_to_wave_tpu_torch.bridge` maps onto the port's
+    modules (the port does not read orbax);
+  * golden.npz: four fixed requests from the demo test split served by the
+    JAX `Synthesizer` (mixed lengths and audiotypes, per-item e/d controls):
+    the exact padded inputs of its fused acoustic + vocoder step (audiotypes,
+    texts, src_lens, image_cells from its renderer, e_control, d_control)
+    and the outputs duration_rounded, mel_lens, postnet_mel and wav.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+
+import numpy as np
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+DEMO = pathlib.Path(__file__).resolve().parent / "checkpoints" / "demo"
+OUT = DEMO / "torch"
+
+# (text, audiotype, width_rates, e_control, d_control) from preprocessed/test.txt
+GOLDEN_REQUESTS = [
+    ("バウバウ", "bell", [1.0, 0.6, 1.0, 0.6], 1.0, 1.0),
+    ("チパチパチパ", "drum", None, 1.0, 1.0),
+    ("パシウドパシウド", "bell", None, 1.2, 1.0),
+    ("シトパリ", "drum", None, 1.0, 1.5),
+]
+GOLDEN_INPUTS = ("audiotypes", "texts", "src_lens", "image_cells", "e_control", "d_control")
+GOLDEN_OUTPUTS = ("duration_rounded", "mel_lens", "postnet_mel", "wav")
+
+
+def demo_config():
+    """The demo config with its paths pointed at this checkout."""
+    from visual_onoma_to_wave_tpu.cli import load_config
+
+    cfg = load_config(str(DEMO / "config.json"))
+    return cfg.replace(path=cfg.path.__class__(
+        corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
+        ckpt=str(DEMO / "preprocessed"), log="", result=""))
+
+
+def weight_trees() -> dict[str, dict]:
+    """{"acoustic": {...}, "vocoder": {...}} as nested dicts of numpy arrays."""
+    import jax
+
+    from visual_onoma_to_wave_tpu.utils.checkpoint import load_params
+
+    return {name: jax.tree.map(np.asarray, load_params(DEMO / name))
+            for name in ("acoustic", "vocoder")}
+
+
+def golden() -> dict[str, np.ndarray]:
+    """Serve GOLDEN_REQUESTS through the JAX Synthesizer (single device) and
+    capture the inputs and outputs of its fused step."""
+    from visual_onoma_to_wave_tpu.synthesis import Synthesizer
+
+    synth = Synthesizer.from_checkpoint(demo_config(), acoustic=str(DEMO / "acoustic"),
+                                        vocoder=str(DEMO / "vocoder"), mesh=None)
+    step = synth._get_fused_step()
+    captured: dict[str, np.ndarray] = {}
+
+    def spy(state, vocoder_params, batch, e_control, d_control):
+        out = step(state, vocoder_params, batch, e_control=e_control, d_control=d_control)
+        captured.update({k: np.asarray(v) for k, v in batch.items()})
+        captured.update(e_control=np.asarray(e_control), d_control=np.asarray(d_control))
+        captured.update({k: np.asarray(out[k]) for k in GOLDEN_OUTPUTS})
+        return out
+
+    synth._fused_step = spy
+    texts, types, rates, e, d = zip(*GOLDEN_REQUESTS)
+    synth.synthesize_batch(list(texts), list(types), width_rates=list(rates),
+                           e_control=list(e), d_control=list(d))
+    return captured
+
+
+def main() -> None:
+    from visual_onoma_to_wave_tpu_torch.bridge import save_npz
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    for name, tree in weight_trees().items():
+        save_npz(OUT / f"{name}.npz", tree)
+    g = golden()
+    np.savez_compressed(OUT / "golden.npz", **g)
+    print(json.dumps({k: list(v.shape) for k, v in g.items()}))
+    print(f"wrote {sorted(p.name for p in OUT.iterdir())} to {OUT}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,94 @@
+"""The PyTorch port never imports JAX.
+
+In a fresh interpreter with jax, flax, optax, orbax (and, for the compute
+core, yaml and PIL) made unimportable, the port's modules import; without
+yaml and PIL blocked, the Synthesizer serves the demo checkpoint on the
+CPU. `chip_smoke.py` and `tools/profile_torch.py` also run with the JAX
+package (`visual_onoma_to_wave_tpu`) itself unimportable. A source scan of
+the package and those scripts backs this up for imports inside functions.
+"""
+from __future__ import annotations
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "visual_onoma_to_wave_tpu_torch"
+SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py")
+JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
+JAX_PACKAGE = "visual_onoma_to_wave_tpu"
+
+CORE = """
+import visual_onoma_to_wave_tpu_torch.ops
+import visual_onoma_to_wave_tpu_torch.models
+import visual_onoma_to_wave_tpu_torch.bridge
+from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+"""
+
+SERVED = """
+from visual_onoma_to_wave_tpu.cli import load_config
+import visual_onoma_to_wave_tpu_torch.cli
+from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+demo = "examples/checkpoints/demo"
+synth = Synthesizer.from_checkpoint(load_config(demo + "/config.json"),
+                                    demo + "/torch/acoustic.npz", demo + "/torch/vocoder.npz",
+                                    device="cpu")
+r = synth.synthesize("パンパン", "drum")
+assert r.wav.shape == (r.mel_len * 256,)
+"""
+
+# what chip_smoke's phases and the profiler build, on the CPU (phase 3's
+# models run on the golden inputs; phase 4's full-width models are only built)
+SMOKE = """
+import numpy as np, torch
+sys.path.insert(0, "tools")
+import chip_smoke, profile_torch
+from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+model, gen = chip_smoke.demo_models("cpu")
+g = np.load(chip_smoke.DEMO / "torch" / "golden.npz")
+out = make_fused_infer(model, gen)(
+    {k: torch.from_numpy(g[k]) for k in ("audiotypes", "texts", "src_lens", "image_cells")},
+    e_control=torch.from_numpy(g["e_control"]), d_control=torch.from_numpy(g["d_control"]))
+assert np.array_equal(out["mel_lens"].numpy(), g["mel_lens"])
+model, gen, batch = chip_smoke.icassp_b16("cpu")
+assert batch["image_cells"].shape == (16, 8, 24, 102)
+"""
+
+
+def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
+    prelude = ("import sys\n"
+               f"for name in {tuple(blocked)!r}:\n"
+               "    sys.modules[name] = None   # import raises ImportError\n")
+    epilogue = (f"\nleaked = [m for m in sys.modules if m.split('.')[0] in {tuple(blocked)!r}"
+                " and sys.modules[m] is not None]\nassert not leaked, leaked\n")
+    return subprocess.run([sys.executable, "-c", prelude + code + epilogue], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("blocked,code", [
+    (JAX_STACK + ("yaml", "PIL"), CORE),
+    (JAX_STACK, SERVED),
+    (JAX_STACK + ("yaml", "PIL", JAX_PACKAGE), SMOKE),
+], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
+        "chip-smoke-without-the-jax-package"])
+def test_port_imports_without(blocked, code):
+    proc = run_blocked(blocked, code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_no_jax_import_in_port_sources():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), *SCRIPTS]
+                 if pattern.search(p.read_text(encoding="utf-8"))]
+    assert not offenders
+
+
+def test_no_jax_package_import_in_scripts():
+    pattern = re.compile(rf"^\s*(import|from)\s+{JAX_PACKAGE}\b", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in SCRIPTS
+                 if pattern.search(p.read_text(encoding="utf-8"))]
+    assert not offenders

@@ -1,0 +1,175 @@
+"""Weight bridge: JAX/flax parameter trees (as numpy) -> PyTorch state_dicts.
+
+The inverse of the reference converters
+`visual_onoma_to_wave_tpu/models/convert_acoustic.py::convert_vtts_state_dict`
+and `visual_onoma_to_wave_tpu/models/hifigan.py::convert_torch_state_dict`:
+those read the reference PyTorch layout into flax trees, these write flax
+trees back into it, so `convert(bridge(tree)) == tree`.
+
+    flax nn.Dense kernel (in, out)         -> Linear.weight (out, in)
+    flax nn.Conv kernel (K, Cin, Cout)     -> Conv1d.weight (Cout, Cin, K)
+    VFE conv kernel (kh, kw, Cin, Cout)    -> Conv2d.weight (Cout, Cin, kh, kw)
+    VFE bridge kernel, rows in (h, w, c)   -> Linear.weight, columns in (c, h, w)
+    BatchNorm scale/bias + batch_stats     -> weight/bias, running_mean/var
+    LayerNorm scale/bias                   -> weight/bias
+    nn.Embed embedding                     -> Embedding.weight
+    HiFi-GAN up_i_w, flipped (K, Cin, Cout) -> ConvTranspose1d.weight (Cin, Cout, K)
+
+Trees travel between the frameworks as `.npz` files keyed by the
+'/'-joined flax path ("params/encoder/layer_0/slf_attn/w_qs/kernel").
+Every leaf must be consumed; a leaf the bridge does not know raises.
+"""
+from __future__ import annotations
+
+import pathlib
+import re
+
+import numpy as np
+import torch
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dict -> {'a/b/c': array}."""
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, path + "/"))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def unflatten_tree(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def save_npz(path: str | pathlib.Path, tree: dict) -> None:
+    np.savez(path, **flatten_tree(tree))
+
+
+def load_npz(path: str | pathlib.Path) -> dict:
+    with np.load(path) as f:
+        return unflatten_tree({k: f[k] for k in f.files})
+
+
+class _Leaves:
+    """Pops leaves by flax path; `finish` raises on any leaf left over."""
+
+    def __init__(self, tree: dict):
+        self.flat = flatten_tree(tree)
+
+    def take(self, path: str) -> torch.Tensor:
+        try:
+            return torch.from_numpy(np.array(self.flat.pop(path), dtype=np.float32))
+        except KeyError:
+            raise KeyError(f"flax tree has no leaf {path!r}") from None
+
+    def groups(self, root: str) -> list[str]:
+        """Distinct parent paths of the leaves under `root`, in sorted order."""
+        parents = {p.rsplit("/", 1)[0] for p in self.flat if p.startswith(root + "/")}
+        return sorted(parents - {root})
+
+    def finish(self) -> None:
+        if self.flat:
+            raise ValueError(f"bridge left {len(self.flat)} flax leaves unmapped: "
+                             f"{sorted(self.flat)[:8]}")
+
+
+# flax module path (under params/ or batch_stats/) -> reference PyTorch prefix
+_ACOUSTIC_RENAMES = [
+    (r"^(encoder|decoder)/layer_(\d+)/", r"\1.layer_stack.\2."),
+    (r"^vfe/conv_(\d+)$", lambda m: f"encoder.VisualFeatureExtractor.embedder.{3 * int(m[1])}"),
+    (r"^vfe/bn_(\d+)$", lambda m: f"encoder.VisualFeatureExtractor.embedder.{3 * int(m[1]) + 1}"),
+    (r"^vfe/bridge$", "encoder.VisualFeatureExtractor.bridge.0"),
+    (r"^src_word_emb$", "encoder.src_word_emb"),
+    (r"_predictor/(conv1d_\d)$", r"_predictor/conv_layer/\1/conv"),
+    (r"_predictor/(layer_norm_\d)$", r"_predictor/conv_layer/\1"),
+    (r"^postnet/conv_(\d+)$", r"postnet.convolutions.\1.0.conv"),
+    (r"^postnet/bn_(\d+)$", r"postnet.convolutions.\1.1"),
+]
+
+
+def _torch_prefix(flax_path: str) -> str:
+    for pattern, repl in _ACOUSTIC_RENAMES:
+        flax_path = re.sub(pattern, repl, flax_path)
+    return flax_path.replace("/", ".")
+
+
+def vtts_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of the JAX `VTTS` -> state_dict of the port's `VTTS`."""
+    leaves = _Leaves(variables)
+    sd: dict[str, torch.Tensor] = {}
+    conv0 = leaves.flat.get("params/vfe/conv_0/kernel")
+    vfe_channels = conv0.shape[3] if conv0 is not None else 1
+    for group in leaves.groups("params"):
+        module = group.removeprefix("params/")
+        out = _torch_prefix(module)
+        names = {p.rsplit("/", 1)[1] for p in leaves.flat if p.rsplit("/", 1)[0] == group}
+        if "embedding" in names:
+            sd[f"{out}.weight"] = leaves.take(f"{group}/embedding")
+        elif "kernel" in names:
+            k = leaves.take(f"{group}/kernel")
+            if module == "vfe/bridge" and vfe_channels > 1:
+                # rows (h, w, c) -> (c, h, w): the reference flattens NCHW
+                hw = k.shape[0] // vfe_channels
+                k = k.reshape(hw, vfe_channels, -1).transpose(0, 1).reshape(k.shape[0], -1)
+            if k.ndim == 2:      # Dense (in, out) -> Linear (out, in)
+                w = k.T
+            elif k.ndim == 3:    # Conv (K, Cin, Cout) -> Conv1d (Cout, Cin, K)
+                w = k.permute(2, 1, 0)
+            else:                # Conv (kh, kw, Cin, Cout) -> Conv2d (Cout, Cin, kh, kw)
+                w = k.permute(3, 2, 0, 1)
+            sd[f"{out}.weight"] = w.contiguous()
+            sd[f"{out}.bias"] = leaves.take(f"{group}/bias")
+        elif names == {"scale", "bias"}:
+            sd[f"{out}.weight"] = leaves.take(f"{group}/scale")
+            sd[f"{out}.bias"] = leaves.take(f"{group}/bias")
+            stats = f"batch_stats/{module}"
+            if f"{stats}/mean" in leaves.flat:
+                sd[f"{out}.running_mean"] = leaves.take(f"{stats}/mean")
+                sd[f"{out}.running_var"] = leaves.take(f"{stats}/var")
+                sd[f"{out}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            raise ValueError(f"bridge: unknown flax module {group!r} with leaves {sorted(names)}")
+    leaves.finish()
+    return sd
+
+
+def hifigan_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """{"params"} of the JAX `HiFiGANGenerator` -> state_dict of the port's generator."""
+    leaves = _Leaves(variables)
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(flax_prefix: str, out: str) -> None:
+        sd[f"{out}.weight"] = leaves.take(f"{flax_prefix}_w").permute(2, 1, 0).contiguous()
+        sd[f"{out}.bias"] = leaves.take(f"{flax_prefix}_b")
+
+    conv("params/conv_pre", "conv_pre")
+    blocks = [g.removeprefix("params/") for g in leaves.groups("params")]
+    n_kernels = 1 + max(int(b.split("_")[2]) for b in blocks)
+    i = 0
+    while f"params/up_{i}_w" in leaves.flat:
+        # stored flipped as (K, Cin, Cout): un-flip K into (Cin, Cout, K)
+        w = leaves.take(f"params/up_{i}_w")
+        sd[f"ups.{i}.weight"] = w.permute(1, 2, 0).flip(-1).contiguous()
+        sd[f"ups.{i}.bias"] = leaves.take(f"params/up_{i}_b")
+        i += 1
+    for b in blocks:
+        _, si, sj = b.split("_")
+        r = int(si) * n_kernels + int(sj)
+        for leaf in sorted(p for p in list(leaves.flat) if p.startswith(f"params/{b}/")):
+            if not leaf.endswith("_w"):
+                continue
+            name, di, _ = leaf.rsplit("/", 1)[1].rsplit("_", 2)   # convs1_0_w
+            conv(leaf[:-2], f"resblocks.{r}.{name}.{di}")
+    conv("params/conv_post", "conv_post")
+    leaves.finish()
+    return sd

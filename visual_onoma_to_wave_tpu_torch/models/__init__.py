@@ -1,0 +1,5 @@
+from visual_onoma_to_wave_tpu_torch.models.hifigan import HiFiGANGenerator
+from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
+from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
+
+__all__ = ["HiFiGANGenerator", "VTTS", "get_vocoder"]

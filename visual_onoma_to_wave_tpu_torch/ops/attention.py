@@ -1,0 +1,162 @@
+"""Key-masked multi-head attention core: CUDA kernel + plain PyTorch version.
+
+Replaces the TPU kernel `visual_onoma_to_wave_tpu/ops/pallas_attention.py::
+flash_mha`. Per batch item and head:
+
+    logits = Q K^T / sqrt(dk)              (fp32)
+    logits[key is padding] = -inf
+    attn = softmax(logits); fully-masked query rows -> exactly 0
+    ctx = attn V                           (attn re-cast to the input dtype)
+
+For bf16 the plain version rounds the normalised attn, as the TPU kernel
+does; the CUDA kernel rounds the unnormalised probabilities of its online
+softmax and divides by the fp32 sum at the end (see `csrc/flash_mha.cu`).
+
+Q, K, V and ctx are (B, T, H*dk) with heads packed on the feature axis -- the
+raw projection outputs -- and key_pad_mask is (B, T), True = padding.
+
+`attention_core` launches the CUDA kernel (`csrc/flash_mha.cu`) for tensors
+on the card and takes `attention_core_reference` for tensors on the CPU. It
+never falls back: a CUDA tensor the kernel does not take, a failed build or a
+refused launch raises. `attention_core.launches` counts kernel launches.
+
+What bounds the kernel on the card: one (T, T) score tile per (item, head)
+costs 4*T*T*dk FLOPs -- 0.5 GFLOP at the serving decoder's T = 1000, dk = 128
+-- while the unique bytes are Q, K, V and ctx, 4*T*dk*4 = 2 MB: ~256 FLOP per
+byte, so it is bound by arithmetic, not by device memory. The plain version
+instead writes the (B, H, T, T) fp32 logits to device memory (128 MB at
+B = 16, H = 2, T = 1000) and re-reads them through mask, softmax and the
+product with V; the kernel keeps every score on chip (online softmax over
+64-key tiles). This first kernel computes on the CUDA cores (no tensor
+cores), so its bound is the fp32 FMA rate; see PERF.md for its time on the
+card beside the plain version's.
+
+The kernel is built with nvcc for sm_90a into `build/kernels/` under the
+repository root, keyed by a hash of its source, at first use, and loaded
+with ctypes (a plain C entry point; no PyTorch headers).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "flash_mha.cu"
+_BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC"]
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def attention_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             key_pad_mask: torch.Tensor | None,
+                             n_head: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (the JAX module's XLA path)."""
+    B, T, HD = q.shape
+    dk = HD // n_head
+    qh, kh, vh = (x.reshape(B, T, n_head, dk).float() for x in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (1.0 / dk ** 0.5)
+    if key_pad_mask is not None:
+        logits = logits.masked_fill(key_pad_mask[:, None, None, :], -torch.inf)
+    attn = torch.nan_to_num(torch.softmax(logits, dim=-1)).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), vh)
+    return out.reshape(B, T, HD).to(q.dtype)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_pad_mask: torch.Tensor | None,
+                   n_head: int) -> torch.Tensor:
+    """Masked softmax attention on packed (B, T, H*dk) heads.
+
+    CPU tensors take `attention_core_reference`; CUDA tensors launch the
+    kernel (fp32 or bf16, dk 64 or 128, any T) or raise.
+    """
+    if q.device.type == "cpu":
+        return attention_core_reference(q, k, v, key_pad_mask, n_head)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_core: unsupported device {q.device}")
+    B, T, HD = q.shape
+    if HD % n_head:
+        raise ValueError(f"H*dk={HD} not divisible by n_head={n_head}")
+    dk = HD // n_head
+    if dk not in _HEAD_DIMS:
+        raise ValueError(f"attention_core kernel takes dk in {_HEAD_DIMS}; got {dk}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"attention_core kernel takes float32/bfloat16; got {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"attention_core: {name} {tuple(x.shape)} {x.dtype} "
+                             f"{x.device} does not match q")
+    mask = None
+    if key_pad_mask is not None:
+        if key_pad_mask.shape != (B, T) or key_pad_mask.device != q.device:
+            raise ValueError(f"attention_core: key_pad_mask must be ({B}, {T}) "
+                             f"on {q.device}")
+        mask = key_pad_mask.to(torch.uint8).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = _load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_mha_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            B, T, n_head, dk, _DTYPE_CODES[q.dtype], 1.0 / dk ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_mha kernel launch failed: CUDA error {err}")
+    attention_core.launches += 1
+    return out
+
+
+attention_core.launches = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+        nvcc = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda); "
+                           "the attention kernel is built from source at first use")
+    return nvcc
+
+
+def build_library() -> pathlib.Path:
+    """Compile `csrc/flash_mha.cu` for sm_90a (cached by a hash of source + flags)."""
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_ROOT / key / "libflash_mha.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _load_library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            fn = lib.flash_mha_fwd
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
