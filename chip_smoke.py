@@ -3,18 +3,33 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure raises and exits non-zero:
+Phases, each printing one or two lines; any failure raises and exits non-zero:
 
   1. probe: torch / CUDA versions, the card and its power limit, TF32 flags;
-  2. kernel: builds `csrc/flash_mha.cu` (nvcc, sm_90a) and holds the
-     attention kernel against its plain PyTorch version at the path's shapes;
-     times both at the serving decoder shape;
+     then every kernel source (`csrc/flash_mha.cu`, `csrc/convnext.cu`) is
+     built with nvcc for sm_90a, one nvcc process each, all at once;
+  2. kernel: holds the attention kernel against its plain PyTorch version at
+     the path's shapes; times both at the serving decoder shape;
+  2b. convnext: holds the ConvNeXt block and trunk kernels against their
+     plain versions (fp32 and bf16, tanh and erf GELU, T 20 / 512 / 1000,
+     demo and full widths, L 4 and 8) and the trunk against L block
+     launches; times block vs plain and trunk vs 8 blocks vs plain at the
+     full served shape;
   3. golden: the committed demo weights (`examples/checkpoints/demo/torch/`)
      through the port's fused acoustic + vocoder step, against the JAX
      package's outputs stored in `golden.npz`;
   4. full width: the ICASSP configuration (hidden 256, 4 + 6 layers, dk 128,
      max_mel_len 1000) with HiFi-GAN V1, random weights from a seed, serving
-     one padded batch of 16 requests; prints acoustic and synthesis rates.
+     one padded batch of 16 requests; prints acoustic and synthesis rates;
+  5. vocos golden: phase 3 with the demo Vocos (`config_vocos.json`,
+     `vocoder_vocos.npz`) against `golden_vocos.npz`, and `apply_fused`
+     (one trunk launch) against the served waveform;
+  6. vocos full width: phase 4's acoustic model and batch with the published
+     mel-Vocos widths (dim 512, intermediate 1536, 8 blocks, n_fft 1024),
+     random weights from a seed, beside phase 4's HiFi-GAN numbers.
+
+Each path (phases 4, 5, 6) is driven with every launch count set to 0 just
+before it and read just after.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX and nothing of the
@@ -44,6 +59,16 @@ B, C, MAX_MEL, HOP, SR, FRAMES = 16, 8, 1000, 256, 22050, 60
 # (one bf16 ulp relative = 2**-7)
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+# ConvNeXt kernels vs plain, block and trunk: fp32 differs in summation
+# order over the C and M products, 5e-5 absolute for |y| up to ~6; bf16
+# rounds h, a and y to bf16 in both, where an order difference can flip a
+# rounding that later layers carry on, so bf16 is held to the JAX package's
+# own bound for this kernel: max error within 0.03 of max |plain|
+# (tests/test_pallas_convnext.py:49)
+CONVNEXT_ATOL = {torch.float32: 5e-5}
+CONVNEXT_BF16_OF_SCALE = 0.03
+# ConvNeXt widths (C, M): the demo Vocos and the published mel-Vocos
+CONVNEXT_WIDTHS = ((128, 384), (512, 1536))
 
 
 def say(phase: str, **fields) -> None:
@@ -65,6 +90,9 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
 
 
 def phase_probe() -> dict:
+    import time
+
+    from visual_onoma_to_wave_tpu_torch.ops.cuda_build import build_libraries
     from visual_onoma_to_wave_tpu_torch.precision import pin_fp32
 
     if not torch.cuda.is_available():
@@ -74,10 +102,35 @@ def phase_probe() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     flags = pin_fp32()
+    t0 = time.perf_counter()
+    libs = build_libraries()
     say("1 probe", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-        count=torch.cuda.device_count(), nvidia_smi=smi, **flags)
+        count=torch.cuda.device_count(), nvidia_smi=smi, **flags,
+        build_s=time.perf_counter() - t0,
+        libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
     return {"smi": smi}
+
+
+def zero_launch_counts() -> None:
+    from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+    from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
+
+    for kernel in (attention_core, convnext_block, convnext_trunk):
+        kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+    from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
+
+    return {"flash_mha": attention_core.launches, "convnext_block": convnext_block.launches,
+            "convnext_trunk": convnext_trunk.launches}
+
+
+def expect_launches(phase: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{phase}: kernel launches {got}, expected {want}")
 
 
 def _attn_inputs(B, T, H, dk, dtype, mask_kind, gen, dev):
@@ -146,13 +199,121 @@ def phase_kernel(dev, card: str) -> dict:
     return {"max_abs_err": worst[torch.float32], "ms": ms, "plain_ms": plain_ms}
 
 
-def demo_models(dev):
+def convnext_weights(L, C, M, gen, dev):
+    """Stacked (L, ...) ConvNeXt weights at a scale that keeps every stage
+    O(1) (the layer outputs reach |y| ~ 6), so that errors show."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    return (r(L, 7, 1, C, scale=0.3), r(L, C, scale=0.1), 1 + r(L, C, scale=0.1),
+            r(L, C, scale=0.1), r(L, C, M, scale=C ** -0.5), r(L, M, scale=0.1),
+            r(L, M, C, scale=M ** -0.5), r(L, C, scale=0.1), r(L, C, scale=0.5))
+
+
+def convnext_atol(ref: torch.Tensor) -> float:
+    """The ConvNeXt kernels' absolute tolerance against the plain `ref`."""
+    if ref.dtype == torch.bfloat16:
+        return CONVNEXT_BF16_OF_SCALE * max(ref.float().abs().max().item(), 1e-3)
+    return CONVNEXT_ATOL[ref.dtype]
+
+
+def _check_close(what: str, out, ref) -> float:
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{what}: kernel {tuple(out.shape)} {out.dtype} != "
+                             f"plain {tuple(ref.shape)} {ref.dtype}")
+    err = (out.float() - ref.float()).abs().max().item()
+    if not bool(torch.isfinite(out.float()).all()) or err > convnext_atol(ref):
+        raise AssertionError(f"{what}: kernel != plain, max abs err {err:.3e} "
+                             f"> {convnext_atol(ref):.3e}")
+    return err
+
+
+def phase_convnext(dev, card: str) -> dict:
+    from visual_onoma_to_wave_tpu_torch.ops.convnext import (
+        convnext_block, convnext_block_reference, convnext_trunk, convnext_trunk_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = {(k, d): 0.0 for k in ("block", "trunk") for d in (torch.float32, torch.bfloat16)}
+    cases = 0
+    for C, M in CONVNEXT_WIDTHS:
+        for T in (20, 512, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                for tanh in (True, False):
+                    x = torch.randn(2, T, C, generator=gen, device=dev).to(dtype)
+                    for L in (4, 8):
+                        ws = convnext_weights(L, C, M, gen, dev)
+                        what = f"C={C} M={M} T={T} {dtype} gelu={'tanh' if tanh else 'erf'}"
+                        if L == 4:
+                            w0 = [w[0] for w in ws]
+                            out = convnext_block(x, *w0, gelu_approximate=tanh)
+                            ref = convnext_block_reference(x, *w0, gelu_approximate=tanh)
+                            torch.cuda.synchronize()
+                            err = _check_close(f"convnext_block {what}", out, ref)
+                            worst["block", dtype] = max(worst["block", dtype], err)
+                            cases += 1
+                        out = convnext_trunk(x, *ws, gelu_approximate=tanh)
+                        ref = convnext_trunk_reference(x, *ws, gelu_approximate=tanh)
+                        blocks = x
+                        for layer in zip(*ws):
+                            blocks = convnext_block(blocks, *layer, gelu_approximate=tanh)
+                        torch.cuda.synchronize()
+                        err = _check_close(f"convnext_trunk L={L} {what}", out, ref)
+                        worst["trunk", dtype] = max(worst["trunk", dtype], err)
+                        if not torch.equal(out, blocks):
+                            raise AssertionError(f"convnext_trunk L={L} {what} differs from "
+                                                 f"{L} convnext_block launches")
+                        cases += 1
+
+    # time at the full served shape: B 16, T 1000 (ICASSP max_mel_len), the
+    # published widths, 8 blocks, fp32; alternate kernel and plain
+    L, (C, M) = 8, CONVNEXT_WIDTHS[-1]
+    x = torch.randn(B, MAX_MEL, C, generator=gen, device=dev)
+    ws = convnext_weights(L, C, M, gen, dev)
+    w0 = [w[0] for w in ws]
+
+    def eight_blocks():
+        y = x
+        for layer in zip(*ws):
+            y = convnext_block(y, *layer)
+        return y
+
+    runs = {"block": lambda: convnext_block(x, *w0),
+            "block_plain": lambda: convnext_block_reference(x, *w0),
+            "trunk": lambda: convnext_trunk(x, *ws),
+            "eight_blocks": eight_blocks,
+            "trunk_plain": lambda: convnext_trunk_reference(x, *ws)}
+    full_err = {"block": _check_close("convnext_block full shape", runs["block"](),
+                                      runs["block_plain"]()),
+                "trunk": _check_close("convnext_trunk full shape", runs["trunk"](),
+                                      runs["trunk_plain"]())}
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            times[k].append(time_cuda(runs[k], 5, warmup=2))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    worst["block", torch.float32] = max(worst["block", torch.float32], full_err["block"])
+    worst["trunk", torch.float32] = max(worst["trunk", torch.float32], full_err["trunk"])
+    faster = min(("trunk", "eight_blocks", "trunk_plain"), key=ms.get)
+    say("2b convnext", card=card, cases=cases,
+        max_abs_err={f"{k}_{str(d).split('.')[-1]}": v for (k, d), v in worst.items()},
+        tol={"fp32_atol": CONVNEXT_ATOL[torch.float32], "bf16_of_max_abs": CONVNEXT_BF16_OF_SCALE},
+        trunk_equals_block_launches=True,
+        shape_timed=f"B={B} T={MAX_MEL} C={C} M={M} L={L} fp32", ms=ms, ms_runs=times,
+        fastest_of_trunk_forms=faster)
+    return {"block": {"max_abs_err": worst["block", torch.float32], "ms": ms["block"],
+                      "plain_ms": ms["block_plain"]},
+            "trunk": {"max_abs_err": worst["trunk", torch.float32], "ms": ms["trunk"],
+                      "plain_ms": ms["trunk_plain"]}}
+
+
+def demo_models(dev, config: str = "config.json", vocoder: str = "vocoder.npz"):
     """The demo acoustic model and vocoder from the committed `.npz` trees,
-    sized from the demo's JSON files (torch and numpy only: no config module)."""
-    from visual_onoma_to_wave_tpu_torch.bridge import hifigan_state_dict, load_npz, vtts_state_dict
+    sized from the demo's JSON files (torch and numpy only: no config module).
+    The vocoder family and widths come from `config` (config.json: HiFi-GAN;
+    config_vocos.json: Vocos), its weights from `torch/<vocoder>`."""
+    from visual_onoma_to_wave_tpu_torch.bridge import load_npz, vocoder_state_dict, vtts_state_dict
     from visual_onoma_to_wave_tpu_torch.models import VTTS, get_vocoder
 
-    cfg = json.loads((DEMO / "config.json").read_text())
+    cfg = json.loads((DEMO / config).read_text())
     pre = DEMO / "preprocessed"
     meta = {n: json.loads((pre / f"{n}.json").read_text())
             for n in ("symbols", "audiotype", "stats", "visual_text")}
@@ -168,31 +329,35 @@ def demo_models(dev):
         energy_stats=tuple(meta["stats"]["energy"]),
         kurtosis_stats=tuple(meta["stats"]["kurtosis"]), postnet_dim=m["postnet_channels"])
     model.load_state_dict(vtts_state_dict(load_npz(DEMO / "torch" / "acoustic.npz")))
-    gen = get_vocoder("HiFi-GAN", **m["vocoder_kwargs"])
-    gen.load_state_dict(hifigan_state_dict(load_npz(DEMO / "torch" / "vocoder.npz")))
+    family = m.get("vocoder_model", "HiFi-GAN")
+    gen = get_vocoder(family, **m["vocoder_kwargs"])
+    gen.load_state_dict(vocoder_state_dict(family, load_npz(DEMO / "torch" / vocoder)))
     return model.to(dev).eval(), gen.to(dev).eval()
 
 
-def phase_golden(dev) -> None:
-    from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+def convnext_blocks(gen) -> int:
+    """ConvNeXt block launches per vocoder call (0 for HiFi-GAN)."""
+    return len(getattr(gen, "blocks", ()))
+
+
+def phase_golden(dev, phase: str = "3 golden", config: str = "config.json",
+                 vocoder: str = "vocoder.npz", golden: str = "golden.npz") -> dict:
     from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
 
-    model, gen = demo_models(dev)
+    model, gen = demo_models(dev, config, vocoder)
     fused = make_fused_infer(model, gen)
-    g = dict(np.load(DEMO / "torch" / "golden.npz"))
+    g = dict(np.load(DEMO / "torch" / golden))
     batch = {k: torch.from_numpy(g[k]).to(dev)
              for k in ("audiotypes", "texts", "src_lens", "image_cells")}
     ctl = {k: torch.from_numpy(g[k]).to(dev) for k in ("e_control", "d_control")}
     calls = 2
-    before = attention_core.launches
+    per_call = {"flash_mha": len(model.encoder.layer_stack) + len(model.decoder.layer_stack),
+                "convnext_block": convnext_blocks(gen), "convnext_trunk": 0}
+    zero_launch_counts()
     for _ in range(calls):
         out = fused(batch, **ctl)
     torch.cuda.synchronize()
-    launches = attention_core.launches - before
-    per_call = len(model.encoder.layer_stack) + len(model.decoder.layer_stack)
-    if launches != per_call * calls:
-        raise AssertionError(f"attention kernel launched {launches} times in {calls} "
-                             f"calls; expected {per_call} per call")
+    expect_launches(phase, launch_counts(), {k: n * calls for k, n in per_call.items()})
     durations = out["duration_rounded"].cpu().numpy()
     mel_lens = out["mel_lens"].cpu().numpy()
     if not np.array_equal(durations, g["duration_rounded"]):
@@ -207,15 +372,37 @@ def phase_golden(dev) -> None:
     for k, tol in (("postnet_mel", 1e-3), ("wav", 1e-3)):
         if errs[k] > tol:
             raise AssertionError(f"{k} differs from the JAX golden by {errs[k]:.3e} > {tol}")
-    say("3 golden", items=int(len(mel_lens)), mel_lens=mel_lens.tolist(),
-        durations_exact=True, max_abs_err=errs, atol=1e-3,
-        kernel_launches_per_call=launches // calls)
+    say(phase, items=int(len(mel_lens)), mel_lens=mel_lens.tolist(),
+        durations_exact=True, max_abs_err=errs, atol=1e-3, kernel_launches_per_call=per_call)
+    return {"gen": gen, "out": out}
 
 
-def icassp_b16(dev):
+def phase_vocos_golden(dev) -> None:
+    """Phase 3 on the demo Vocos, then the whole trunk as one launch
+    (`apply_fused`) on the same mel, against the served waveform."""
+    from visual_onoma_to_wave_tpu_torch.models.vocos import apply_fused
+
+    phase = "5 vocos golden"
+    served = phase_golden(dev, phase, "config_vocos.json", "vocoder_vocos.npz",
+                          "golden_vocos.npz")
+    zero_launch_counts()
+    wav = apply_fused(served["gen"], served["out"]["postnet_mel"])
+    torch.cuda.synchronize()
+    expect_launches(f"{phase} apply_fused", launch_counts(),
+                    {"flash_mha": 0, "convnext_block": 0, "convnext_trunk": 1})
+    # the trunk runs the block kernel's code per tile: the same waveform
+    err = (wav - served["out"]["wav"]).abs().max().item()
+    if err > 1e-6:
+        raise AssertionError(f"{phase}: apply_fused differs from the served vocoder by {err:.3e}")
+    say(phase + " apply_fused", trunk_launches=1, max_abs_err_vs_served=err, atol=1e-6)
+
+
+def icassp_b16(dev, vocoder: str = "HiFi-GAN"):
     """ICASSP acoustic model (the `Config()` defaults = configs/icassp.yaml)
-    and HiFi-GAN V1, random weights from seed 0, and one padded batch of 16
-    requests of 8 characters. Returns (model, vocoder, batch) on `dev`."""
+    and a vocoder at its published widths (HiFi-GAN V1, or Vocos: dim 512,
+    intermediate 1536, 8 blocks), random weights from seed 0, and one padded
+    batch of 16 requests of 8 characters. Returns (model, vocoder, batch) on
+    `dev`; the acoustic model and batch do not depend on the vocoder."""
     from visual_onoma_to_wave_tpu_torch.models import VTTS, get_vocoder
 
     torch.manual_seed(0)
@@ -226,7 +413,7 @@ def icassp_b16(dev):
     with torch.no_grad():
         dur.weight.mul_(0.01)
         dur.bias.fill_(float(np.log(FRAMES + 1)))
-    gen = get_vocoder("HiFi-GAN")
+    gen = get_vocoder(vocoder)
     for mod in gen.modules():
         if isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
             torch.nn.init.normal_(mod.weight, 0.0, 0.01)  # the reference's init
@@ -240,20 +427,23 @@ def icassp_b16(dev):
     return model.to(dev).eval(), gen.to(dev).eval(), {k: v.to(dev) for k, v in batch.items()}
 
 
-def phase_full(dev, card: str) -> dict:
-    from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+def phase_full(dev, card: str, phase: str = "4 full width", vocoder: str = "HiFi-GAN",
+               beside: dict | None = None) -> tuple[dict, tuple]:
+    """Serve one padded ICASSP batch of 16 through the fused step with
+    `vocoder` at full width; check each item's audio; time it. Returns the
+    numbers and (vocoder module, outputs of the checked call)."""
     from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
 
-    model, gen, batch = icassp_b16(dev)
+    torch.cuda.reset_peak_memory_stats()
+    model, gen, batch = icassp_b16(dev, vocoder)
     fused = make_fused_infer(model, gen)
-    attention_core.launches = 0
+    per_call = {"flash_mha": len(model.encoder.layer_stack) + len(model.decoder.layer_stack),
+                "convnext_block": convnext_blocks(gen), "convnext_trunk": 0}
+    zero_launch_counts()
     out = fused(batch)
     torch.cuda.synchronize()
-    launches = attention_core.launches
-    per_call = len(model.encoder.layer_stack) + len(model.decoder.layer_stack)
-    if launches != per_call:
-        raise AssertionError(f"attention kernel launched {launches} times in one call; "
-                             f"expected {per_call}")
+    launches = launch_counts()
+    expect_launches(phase, launches, per_call)
     wav, mel_lens = out["wav"], out["mel_lens"].cpu().numpy()
     if tuple(wav.shape) != (B, MAX_MEL * HOP) or not bool(torch.isfinite(wav).all()):
         raise AssertionError(f"waveform {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())}")
@@ -275,32 +465,75 @@ def phase_full(dev, card: str) -> dict:
     fused_ms = time_cuda(lambda: fused(batch), 5, warmup=2)
     frames = int(mel_lens.sum())
     audio_s = frames * HOP / SR
-    say("4 full width", card=card, config="ICASSP (Config() defaults) + HiFi-GAN V1, random seed 0",
+    result = {"acoustic_ms": acoustic_ms, "synthesis_ms": fused_ms,
+              "acoustic_mel_frames_per_s": frames / (acoustic_ms / 1e3),
+              "synthesis_x_realtime": audio_s / (fused_ms / 1e3),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    extra = {}
+    if beside is not None:
+        extra["hifigan_v1"] = {k: beside[k] for k in ("acoustic_ms", "synthesis_ms",
+                                                      "synthesis_x_realtime", "peak_mem_gib")}
+    say(phase, card=card,
+        config=f"ICASSP (Config() defaults) + {vocoder} at published widths, random seed 0",
         batch=B, chars=C, max_mel_len=MAX_MEL, mel_lens=mel_lens.tolist(),
-        kernel_launches_per_call=launches, acoustic_ms=acoustic_ms, synthesis_ms=fused_ms,
-        acoustic_mel_frames_per_s=frames / (acoustic_ms / 1e3),
-        synthesis_x_realtime=audio_s / (fused_ms / 1e3),
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return {"launches": launches}
+        kernel_launches_per_call=launches, **result, **extra)
+    return {"launches": launches, **result}, (gen, out)
+
+
+def phase_vocos_full(dev, card: str, hifigan: dict) -> dict:
+    """Phase 4 with Vocos at the published widths, then `apply_fused` (one
+    trunk launch) on the same mel against the served waveform, and the two
+    vocoder forms timed in turns."""
+    from visual_onoma_to_wave_tpu_torch.models.vocos import apply_fused
+
+    phase = "6 vocos full width"
+    served, (gen, out) = phase_full(dev, card, phase, "Vocos", beside=hifigan)
+    mel = out["postnet_mel"]
+    zero_launch_counts()
+    wav = apply_fused(gen, mel)
+    torch.cuda.synchronize()
+    trunk = launch_counts()
+    expect_launches(f"{phase} apply_fused", trunk,
+                    {"flash_mha": 0, "convnext_block": 0, "convnext_trunk": 1})
+    err = (wav - out["wav"]).abs().max().item()
+    if err > 1e-6:
+        raise AssertionError(f"{phase}: apply_fused differs from the served vocoder by {err:.3e}")
+    runs = {"blocks": lambda: gen(mel), "trunk": lambda: apply_fused(gen, mel)}
+    times = {k: [] for k in runs}
+    with torch.inference_mode():
+        for order in (("blocks", "trunk"), ("trunk", "blocks")):
+            for k in order:
+                times[k].append(time_cuda(runs[k], 5, warmup=2))
+    say(phase + " apply_fused", card=card, trunk_launches=trunk["convnext_trunk"],
+        max_abs_err_vs_served=err, atol=1e-6,
+        vocoder_ms={k: float(np.mean(v)) for k, v in times.items()}, vocoder_ms_runs=times)
+    return {"block_launches": served["launches"]["convnext_block"],
+            "trunk_launches": trunk["convnext_trunk"]}
 
 
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
-    kern = phase_kernel(dev, probe["smi"])
+    attn = phase_kernel(dev, probe["smi"])
+    convnext = phase_convnext(dev, probe["smi"])
     phase_golden(dev)
-    full = phase_full(dev, probe["smi"])
+    full, _ = phase_full(dev, probe["smi"])
+    phase_vocos_golden(dev)
+    vocos = phase_vocos_full(dev, probe["smi"], full)
 
-    record = {"kernels": [{
-        "name": "flash_mha",
-        "route": "cuda",
-        "source": "visual_onoma_to_wave_tpu_torch/csrc/flash_mha.cu",
-        "replaces": "visual_onoma_to_wave_tpu/ops/pallas_attention.py:130",
-        "launches": full["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}
+    source = "visual_onoma_to_wave_tpu_torch/csrc/"
+    tpu = "visual_onoma_to_wave_tpu/ops/"
+    record = {"kernels": [
+        {"name": "flash_mha", "route": "cuda", "source": source + "flash_mha.cu",
+         "replaces": tpu + "pallas_attention.py:130",
+         "launches": full["launches"]["flash_mha"], **attn},
+        {"name": "convnext_block", "route": "cuda", "source": source + "convnext.cu",
+         "replaces": tpu + "pallas_convnext.py:138",
+         "launches": vocos["block_launches"], **convnext["block"]},
+        {"name": "convnext_trunk", "route": "cuda", "source": source + "convnext.cu",
+         "replaces": tpu + "pallas_convnext.py:230",
+         "launches": vocos["trunk_launches"], **convnext["trunk"]},
+    ]}
     print(probe["smi"])
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

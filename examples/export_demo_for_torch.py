@@ -4,7 +4,9 @@ Runs where JAX runs (the CPU is enough):
 
     python examples/export_demo_for_torch.py
 
-and writes, under examples/checkpoints/demo/torch/:
+and writes, under examples/checkpoints/demo/torch/, each of these files that
+is not there yet (it never rewrites one: after the demo checkpoints change,
+delete the files to export them again):
 
   * acoustic.npz, vocoder.npz: the orbax parameter trees of
     examples/checkpoints/demo/{acoustic,vocoder}, keyed by '/'-joined flax
@@ -14,7 +16,11 @@ and writes, under examples/checkpoints/demo/torch/:
     JAX `Synthesizer` (mixed lengths and audiotypes, per-item e/d controls):
     the exact padded inputs of its fused acoustic + vocoder step (audiotypes,
     texts, src_lens, image_cells from its renderer, e_control, d_control)
-    and the outputs duration_rounded, mel_lens, postnet_mel and wav.
+    and the outputs duration_rounded, mel_lens, postnet_mel and wav;
+  * vocoder_vocos.npz: the orbax tree of examples/checkpoints/demo/vocoder_vocos;
+  * golden_vocos.npz: the same four requests served by the JAX `Synthesizer`
+    on config_vocos.json (same acoustic checkpoint, the demo Vocos vocoder
+    on its plain block path), with the same inputs and outputs.
 """
 from __future__ import annotations
 
@@ -40,33 +46,35 @@ GOLDEN_INPUTS = ("audiotypes", "texts", "src_lens", "image_cells", "e_control", 
 GOLDEN_OUTPUTS = ("duration_rounded", "mel_lens", "postnet_mel", "wav")
 
 
-def demo_config():
-    """The demo config with its paths pointed at this checkout."""
+def demo_config(name: str = "config.json"):
+    """A demo config (config.json: HiFi-GAN; config_vocos.json: Vocos) with
+    its paths pointed at this checkout."""
     from visual_onoma_to_wave_tpu.cli import load_config
 
-    cfg = load_config(str(DEMO / "config.json"))
+    cfg = load_config(str(DEMO / name))
     return cfg.replace(path=cfg.path.__class__(
         corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
         ckpt=str(DEMO / "preprocessed"), log="", result=""))
 
 
-def weight_trees() -> dict[str, dict]:
-    """{"acoustic": {...}, "vocoder": {...}} as nested dicts of numpy arrays."""
+def weight_trees(names=("acoustic", "vocoder")) -> dict[str, dict]:
+    """{name: {...}} for the demo checkpoint directories `names`, as nested
+    dicts of numpy arrays."""
     import jax
 
     from visual_onoma_to_wave_tpu.utils.checkpoint import load_params
 
-    return {name: jax.tree.map(np.asarray, load_params(DEMO / name))
-            for name in ("acoustic", "vocoder")}
+    return {name: jax.tree.map(np.asarray, load_params(DEMO / name)) for name in names}
 
 
-def golden() -> dict[str, np.ndarray]:
-    """Serve GOLDEN_REQUESTS through the JAX Synthesizer (single device) and
-    capture the inputs and outputs of its fused step."""
+def golden(config: str = "config.json", vocoder: str = "vocoder") -> dict[str, np.ndarray]:
+    """Serve GOLDEN_REQUESTS through the JAX Synthesizer (single device) with
+    the demo config `config` and vocoder checkpoint `vocoder`, and capture
+    the inputs and outputs of its fused step."""
     from visual_onoma_to_wave_tpu.synthesis import Synthesizer
 
-    synth = Synthesizer.from_checkpoint(demo_config(), acoustic=str(DEMO / "acoustic"),
-                                        vocoder=str(DEMO / "vocoder"), mesh=None)
+    synth = Synthesizer.from_checkpoint(demo_config(config), acoustic=str(DEMO / "acoustic"),
+                                        vocoder=str(DEMO / vocoder), mesh=None)
     step = synth._get_fused_step()
     captured: dict[str, np.ndarray] = {}
 
@@ -84,16 +92,32 @@ def golden() -> dict[str, np.ndarray]:
     return captured
 
 
+# file -> how to make it
+EXPORTS = {
+    "acoustic.npz": lambda: weight_trees(("acoustic",))["acoustic"],
+    "vocoder.npz": lambda: weight_trees(("vocoder",))["vocoder"],
+    "golden.npz": golden,
+    "vocoder_vocos.npz": lambda: weight_trees(("vocoder_vocos",))["vocoder_vocos"],
+    "golden_vocos.npz": lambda: golden("config_vocos.json", "vocoder_vocos"),
+}
+
+
 def main() -> None:
     from visual_onoma_to_wave_tpu_torch.bridge import save_npz
 
     OUT.mkdir(parents=True, exist_ok=True)
-    for name, tree in weight_trees().items():
-        save_npz(OUT / f"{name}.npz", tree)
-    g = golden()
-    np.savez_compressed(OUT / "golden.npz", **g)
-    print(json.dumps({k: list(v.shape) for k, v in g.items()}))
-    print(f"wrote {sorted(p.name for p in OUT.iterdir())} to {OUT}")
+    for name, make in EXPORTS.items():
+        path = OUT / name
+        if path.exists():
+            print(f"kept {path}")
+            continue
+        tree = make()
+        if name.startswith("golden"):
+            np.savez_compressed(path, **tree)
+            print(json.dumps({k: list(v.shape) for k, v in tree.items()}))
+        else:
+            save_npz(path, tree)
+        print(f"wrote {path}")
 
 
 if __name__ == "__main__":

@@ -7,16 +7,27 @@ No JAX here, so the file also runs on a machine with a GPU and no JAX:
 On the CPU a wrapper takes its plain PyTorch version and counts no launch;
 on any other non-CUDA device it raises. The tests marked `gpu` compare
 each CUDA kernel with its plain version on the card and skip without one.
-Tolerances: fp32 1e-5 absolute (summation order only); bf16 2e-2 absolute
-plus one bf16 ulp relative (probabilities rounded at other points, both
-results rounded to bf16).
+Attention tolerances: fp32 1e-5 absolute (summation order only); bf16 2e-2
+absolute plus one bf16 ulp relative (probabilities rounded at other points,
+both results rounded to bf16). ConvNeXt tolerances are chip_smoke's
+`convnext_atol` (fp32 5e-5 absolute for |y| up to ~6, summation order over
+the C and M products; bf16 within 0.03 of max |plain|, the JAX package's
+bound for this kernel, since rounding flips carry from layer to layer), and
+the trunk must equal L block launches exactly.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+import chip_smoke
 from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core, attention_core_reference
+from visual_onoma_to_wave_tpu_torch.ops.convnext import (
+    convnext_block,
+    convnext_block_reference,
+    convnext_trunk,
+    convnext_trunk_reference,
+)
 
 
 def _mask(lens, T, device=None) -> torch.Tensor:
@@ -37,6 +48,32 @@ def test_other_devices_raise_instead_of_falling_back():
     q = torch.empty(2, 10, 128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         attention_core(q, q, q, None, 2)
+
+
+def _convnext(L, C, M, T, device="cpu", seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    ws = chip_smoke.convnext_weights(L, C, M, g, device)
+    return torch.randn(2, T, C, generator=g, device=device), ws
+
+
+def test_convnext_cpu_tensors_take_the_plain_versions():
+    x, ws = _convnext(3, 128, 256, 20)
+    counts = convnext_block.launches, convnext_trunk.launches
+    block = convnext_block(x, *[w[0] for w in ws], gelu_approximate=False)
+    trunk = convnext_trunk(x, *ws)
+    assert (convnext_block.launches, convnext_trunk.launches) == counts
+    assert torch.equal(block, convnext_block_reference(x, *[w[0] for w in ws],
+                                                       gelu_approximate=False))
+    assert torch.equal(trunk, convnext_trunk_reference(x, *ws))
+
+
+def test_convnext_other_devices_raise_instead_of_falling_back():
+    x, ws = _convnext(2, 128, 256, 8)
+    x, ws = x.to("meta"), [w.to("meta") for w in ws]
+    with pytest.raises(ValueError, match="unsupported device"):
+        convnext_block(x, *[w[0] for w in ws])
+    with pytest.raises(ValueError, match="unsupported device"):
+        convnext_trunk(x, *ws)
 
 
 @pytest.fixture
@@ -71,3 +108,50 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
         attention_core(q, q, q, None, 2)                    # dk 32
     with pytest.raises(ValueError, match="float32/bfloat16"):
         attention_core(*(torch.randn(1, 8, 128, device=cuda).half(),) * 3, None, 2)
+    q = torch.randn(1, 8, 128, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        attention_core(q, q, q, None, 2)                    # no backward
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tanh", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("T", [20, 512, 1000])
+@pytest.mark.parametrize("C,M", chip_smoke.CONVNEXT_WIDTHS, ids=["demo", "full"])
+def test_convnext_kernels_match_plain(cuda, C, M, T, tanh, dtype):
+    x, ws = _convnext(8, C, M, T, cuda, seed=T + C)
+    x = x.to(dtype)
+    w0 = [w[0] for w in ws]
+    counts = convnext_block.launches, convnext_trunk.launches
+    block = convnext_block(x, *w0, gelu_approximate=tanh)
+    trunk = {L: convnext_trunk(x, *[w[:L] for w in ws], gelu_approximate=tanh) for L in (4, 8)}
+    torch.cuda.synchronize()
+    assert (convnext_block.launches, convnext_trunk.launches) == (counts[0] + 1, counts[1] + 2)
+    ref = convnext_block_reference(x, *w0, gelu_approximate=tanh)
+    torch.testing.assert_close(block.float(), ref.float(), atol=chip_smoke.convnext_atol(ref),
+                               rtol=0.0)
+    for L, out in trunk.items():
+        layers = [w[:L] for w in ws]
+        ref = convnext_trunk_reference(x, *layers, gelu_approximate=tanh)
+        torch.testing.assert_close(out.float(), ref.float(), atol=chip_smoke.convnext_atol(ref),
+                                   rtol=0.0)
+        blocks = x
+        for layer in zip(*layers):
+            blocks = convnext_block(blocks, *layer, gelu_approximate=tanh)
+        assert torch.equal(out, blocks)
+
+
+@pytest.mark.gpu
+def test_convnext_kernels_reject_what_they_do_not_take(cuda):
+    x, ws = _convnext(1, 128, 256, 8, cuda)
+    w0 = [w[0] for w in ws]
+    with pytest.raises(ValueError, match="C in"):
+        convnext_block(x[..., :64], *[w[..., :64] if w.shape[-1] == 128 else w for w in w0])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        convnext_block(x, *w0[:4], w0[4][:, :200], w0[5][:200], w0[6][:200], *w0[7:])
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        convnext_block(x.half(), *w0)
+    with pytest.raises(ValueError, match="does not fit"):
+        convnext_trunk(x, *ws[:4], ws[4][:, :, :128], *ws[5:])
+    with pytest.raises(RuntimeError, match="inference-only"):
+        convnext_block(x, *w0[:4], w0[4].clone().requires_grad_(), *w0[5:])

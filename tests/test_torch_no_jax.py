@@ -3,8 +3,10 @@
 In a fresh interpreter with jax, flax, optax, orbax (and, for the compute
 core, yaml and PIL) made unimportable, the port's modules import; without
 yaml and PIL blocked, the Synthesizer serves the demo checkpoint on the
-CPU. `chip_smoke.py` and `tools/profile_torch.py` also run with the JAX
-package (`visual_onoma_to_wave_tpu`) itself unimportable. A source scan of
+CPU, with its HiFi-GAN and with its Vocos. `chip_smoke.py` (its demo
+golden phases, HiFi-GAN and Vocos, and its full-width model builders) and
+`tools/profile_torch.py` also run with the JAX package
+(`visual_onoma_to_wave_tpu`) itself unimportable. A source scan of
 the package and those scripts backs this up for imports inside functions.
 """
 from __future__ import annotations
@@ -23,10 +25,15 @@ JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 
 CORE = """
+import torch
 import visual_onoma_to_wave_tpu_torch.ops
 import visual_onoma_to_wave_tpu_torch.models
 import visual_onoma_to_wave_tpu_torch.bridge
 from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator, apply_fused
+gen = VocosGenerator(dim=128, intermediate_dim=128, num_layers=1)
+with torch.no_grad():
+    assert gen(torch.zeros(1, 4, 80)).shape == apply_fused(gen, torch.zeros(1, 4, 80)).shape
 """
 
 SERVED = """
@@ -39,6 +46,11 @@ synth = Synthesizer.from_checkpoint(load_config(demo + "/config.json"),
                                     device="cpu")
 r = synth.synthesize("パンパン", "drum")
 assert r.wav.shape == (r.mel_len * 256,)
+synth = Synthesizer.from_checkpoint(load_config(demo + "/config_vocos.json"),
+                                    demo + "/torch/acoustic.npz", demo + "/torch/vocoder_vocos.npz",
+                                    device="cpu")
+r = synth.synthesize("パンパン", "drum")
+assert type(synth.vocoder).__name__ == "VocosGenerator" and r.wav.shape == (r.mel_len * 256,)
 """
 
 # what chip_smoke's phases and the profiler build, on the CPU (phase 3's
@@ -47,15 +59,21 @@ SMOKE = """
 import numpy as np, torch
 sys.path.insert(0, "tools")
 import chip_smoke, profile_torch
+from visual_onoma_to_wave_tpu_torch.models.vocos import apply_fused
 from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
-model, gen = chip_smoke.demo_models("cpu")
-g = np.load(chip_smoke.DEMO / "torch" / "golden.npz")
-out = make_fused_infer(model, gen)(
-    {k: torch.from_numpy(g[k]) for k in ("audiotypes", "texts", "src_lens", "image_cells")},
-    e_control=torch.from_numpy(g["e_control"]), d_control=torch.from_numpy(g["d_control"]))
-assert np.array_equal(out["mel_lens"].numpy(), g["mel_lens"])
-model, gen, batch = chip_smoke.icassp_b16("cpu")
-assert batch["image_cells"].shape == (16, 8, 24, 102)
+for config, vocoder, golden in (("config.json", "vocoder.npz", "golden.npz"),
+                                ("config_vocos.json", "vocoder_vocos.npz", "golden_vocos.npz")):
+    model, gen = chip_smoke.demo_models("cpu", config, vocoder)
+    g = np.load(chip_smoke.DEMO / "torch" / golden)
+    out = make_fused_infer(model, gen)(
+        {k: torch.from_numpy(g[k]) for k in ("audiotypes", "texts", "src_lens", "image_cells")},
+        e_control=torch.from_numpy(g["e_control"]), d_control=torch.from_numpy(g["d_control"]))
+    assert np.array_equal(out["mel_lens"].numpy(), g["mel_lens"])
+assert torch.equal(apply_fused(gen, out["postnet_mel"]), out["wav"])
+for vocoder in ("HiFi-GAN", "Vocos"):
+    model, gen, batch = chip_smoke.icassp_b16("cpu", vocoder)
+    assert batch["image_cells"].shape == (16, 8, 24, 102)
+assert chip_smoke.convnext_blocks(gen) == 8
 """
 
 

@@ -1,10 +1,13 @@
 """The port's `Synthesizer` on the card, served by the reused HTTP server.
 
-The demo checkpoint (`examples/checkpoints/demo/torch/*.npz`) is loaded with
+The demo checkpoint (`examples/checkpoints/demo/torch/*.npz`), with its
+HiFi-GAN (config.json) or its Vocos (config_vocos.json), is loaded with
 `device="cuda"` and put behind `visual_onoma_to_wave_tpu.serve.BatchingServer`
 (a host-only module: it imports no JAX). Four concurrent `/v1/synthesize`
 requests must each answer HTTP 200 with the expected frame count and
-nonzero audio, and every waveform the port hands the server must be finite.
+nonzero audio, every waveform the port hands the server must be finite, and
+the path's kernels must have launched (attention; for Vocos also the
+ConvNeXt block).
 Needs an NVIDIA GPU; on the card:
 
     python -m pytest tests/test_torch_served_cuda.py -q
@@ -31,20 +34,24 @@ REQUESTS = [{"text": "バウバウ", "audiotype": "bell"},
 
 
 @pytest.mark.gpu
-def test_batching_server_serves_the_port_on_the_card():
+@pytest.mark.parametrize("config,vocoder", [("config.json", "vocoder.npz"),
+                                            ("config_vocos.json", "vocoder_vocos.npz")],
+                         ids=["hifigan", "vocos"])
+def test_batching_server_serves_the_port_on_the_card(config, vocoder):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the port's Synthesizer runs on the card here")
     from visual_onoma_to_wave_tpu.cli import load_config
     from visual_onoma_to_wave_tpu.serve import BatchingServer
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+    from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block
     from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
-    cfg = load_config(str(DEMO / "config.json"))
+    cfg = load_config(str(DEMO / config))
     cfg = cfg.replace(path=cfg.path.__class__(
         corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
         ckpt=str(DEMO / "preprocessed"), log="", result=""))
     synth = Synthesizer.from_checkpoint(cfg, str(DEMO / "torch" / "acoustic.npz"),
-                                        str(DEMO / "torch" / "vocoder.npz"), device="cuda")
+                                        str(DEMO / "torch" / vocoder), device="cuda")
     served = []   # the PCM in the HTTP answers cannot show NaN: check the floats
     batch_fn = synth.synthesize_batch
 
@@ -69,7 +76,7 @@ def test_batching_server_serves_the_port_on_the_card():
         finally:
             conn.close()
 
-    launches = attention_core.launches
+    launches = attention_core.launches, convnext_block.launches
     try:
         threads = [threading.Thread(target=post, args=(i,)) for i in range(len(REQUESTS))]
         for th in threads:
@@ -78,7 +85,10 @@ def test_batching_server_serves_the_port_on_the_card():
             th.join(timeout=180)
     finally:
         srv.stop()
-    assert attention_core.launches > launches   # the card's kernel served them
+    # the card's kernels served them
+    assert attention_core.launches > launches[0]
+    if cfg.model.vocoder_model == "Vocos":
+        assert convnext_block.launches > launches[1]
     for req, ans in zip(REQUESTS, answers):
         assert ans is not None and ans[0] == 200, (req, ans)
         r = ans[1]

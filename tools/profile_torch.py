@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the device time goes in the port's fused step, ICASSP B16, one GPU.
 
-    python3 tools/profile_torch.py [--out build/profile_torch]
+    python3 tools/profile_torch.py [--vocoder HiFi-GAN|Vocos] [--out build/profile_torch]
 
 Builds the model, vocoder and batch of `chip_smoke.py` phase 4 (ICASSP
-configuration + HiFi-GAN V1, random weights from seed 0, 16 requests) and
-prints, one JSON object per line:
+configuration + HiFi-GAN V1, random weights from seed 0, 16 requests) or,
+with `--vocoder Vocos`, of phase 6 (the same acoustic model and batch with
+the published mel-Vocos), and prints, one JSON object per line:
 
   * `card`: the card and its power limit (nvidia-smi);
   * `acoustic_ab`: the acoustic forward with the attention kernel against
@@ -13,7 +14,7 @@ prints, one JSON object per line:
     (kernel, plain, plain, kernel, ...) 6 runs each, CUDA events;
   * `profile`: torch.profiler over 3 fused calls after 2 warm-ups:
     wall ms per call, device time per kernel class (conv, elementwise,
-    attention, gemm, other), device time inside the `acoustic` and
+    attention, convnext, gemm, other), device time inside the `acoustic` and
     `vocoder` ranges, and the device idle share (1 - union of the kernel
     and copy intervals / their span).
 
@@ -47,6 +48,8 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "mha_fwd_kernel" in n:
         return "attention"
+    if "block_kernel" in n or "trunk_kernel" in n:   # csrc/convnext.cu
+        return "convnext"
     if any(w in n for w in ("conv", "fprop", "dgrad", "implicit", "winograd", "fft")):
         return "conv"
     if "gemm" in n or "gemv" in n:
@@ -76,6 +79,7 @@ def idle_share(trace: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--vocoder", default="HiFi-GAN", choices=("HiFi-GAN", "Vocos"))
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,10 +89,10 @@ def main() -> int:
     pin_fp32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"card": smi}), flush=True)
+    print(json.dumps({"card": smi, "vocoder": args.vocoder}), flush=True)
 
     dev = torch.device("cuda", 0)
-    model, gen, batch = chip_smoke.icassp_b16(dev)
+    model, gen, batch = chip_smoke.icassp_b16(dev, args.vocoder)
 
     def acoustic():
         return model(batch["audiotypes"], batch["texts"], batch["src_lens"],

@@ -2,8 +2,10 @@
 
 A second package beside the JAX reference `visual_onoma_to_wave_tpu`:
 served synthesis (rendered onomatopoeia cells -> VTTS acoustic model ->
-HiFi-GAN -> waveform) in PyTorch, with the attention core of every FFT block
-as a hand-written CUDA kernel (`ops/attention.py`, `csrc/flash_mha.cu`).
+HiFi-GAN or Vocos -> waveform) in PyTorch, with the attention core of every
+FFT block (`ops/attention.py`, `csrc/flash_mha.cu`) and the ConvNeXt block
+and trunk of Vocos (`ops/convnext.py`, `csrc/convnext.cu`) as hand-written
+CUDA kernels.
 Host-side modules without a JAX import (config, renderer, symbols, audio
 I/O, the HTTP server) are reused from the reference package, not re-ported.
 

@@ -14,6 +14,8 @@ trees back into it, so `convert(bridge(tree)) == tree`.
     LayerNorm scale/bias                   -> weight/bias
     nn.Embed embedding                     -> Embedding.weight
     HiFi-GAN up_i_w, flipped (K, Cin, Cout) -> ConvTranspose1d.weight (Cin, Cout, K)
+    Vocos params/<name>, params/block_i/<name> -> <name>, blocks.i.<name>,
+                                              same shape (no reference layout)
 
 Trees travel between the frameworks as `.npz` files keyed by the
 '/'-joined flax path ("params/encoder/layer_0/slf_attn/w_qs/kernel").
@@ -26,6 +28,8 @@ import re
 
 import numpy as np
 import torch
+
+from visual_onoma_to_wave_tpu_torch.models.vocoder import family as vocoder_family
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -173,3 +177,38 @@ def hifigan_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     conv("params/conv_post", "conv_post")
     leaves.finish()
     return sd
+
+
+# Vocos leaves: every one keeps its flax name and shape in the port's module
+_VOCOS_TOP = ("embed_w", "embed_b", "norm_in_scale", "norm_in_bias", "norm_out_scale",
+              "norm_out_bias", "head_w", "head_b")
+_VOCOS_BLOCK = ("dwconv_w", "dwconv_b", "norm_scale", "norm_bias", "pw1_w", "pw1_b", "pw2_w",
+                "pw2_b", "gamma")
+
+
+def vocos_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """{"params"} of the JAX `VocosGenerator` -> state_dict of the port's:
+    params/<name> -> <name>, params/block_<i>/<name> -> blocks.<i>.<name>."""
+    leaves = _Leaves(variables)
+    sd: dict[str, torch.Tensor] = {}
+    for path in sorted(leaves.flat):
+        parts = path.split("/")
+        if parts[0] == "params" and len(parts) == 2 and parts[1] in _VOCOS_TOP:
+            sd[parts[1]] = leaves.take(path)
+        elif (parts[0] == "params" and len(parts) == 3 and re.fullmatch(r"block_\d+", parts[1])
+              and parts[2] in _VOCOS_BLOCK):
+            sd[f"blocks.{parts[1][6:]}.{parts[2]}"] = leaves.take(path)
+        else:
+            raise ValueError(f"bridge: unknown Vocos leaf {path!r}")
+    leaves.finish()
+    return sd
+
+
+def vocoder_state_dict(family: str, variables: dict) -> dict[str, torch.Tensor]:
+    """The bridge of the configured vocoder family (`config.model.vocoder_model`)."""
+    name = vocoder_family(family)
+    if name.startswith("hifigan"):
+        return hifigan_state_dict(variables)
+    if name == "vocos":
+        return vocos_state_dict(variables)
+    raise NotImplementedError(f"no weight bridge for vocoder family {family!r} yet (ROADMAP A8)")

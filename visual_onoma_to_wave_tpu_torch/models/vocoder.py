@@ -1,30 +1,45 @@
 """Vocoder family dispatch (port of visual_onoma_to_wave_tpu/models/vocoder.py).
 
-Only the HiFi-GAN family is ported so far; the other families of the
+HiFi-GAN (V1/V2/V3) and Vocos are ported; the other families of the
 reference raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+from torch import nn
+
 from visual_onoma_to_wave_tpu_torch.models.hifigan import HIFIGAN_PRESETS, HiFiGANGenerator
+from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator
 
 _NOT_PORTED = {
     "melgan": "ROADMAP A8 (vocoder families: MelGAN)",
     "istftnet": "ROADMAP A8 (vocoder families: iSTFTNet)",
     "istftnetmel": "ROADMAP A8 (vocoder families: iSTFTNet-mel)",
-    "vocos": "ROADMAP A8 (vocoder families: Vocos) and B4/B5 (ConvNeXt kernels)",
     "bigvgan": "ROADMAP A8 (vocoder families: BigVGAN)",
     "bigvganbase": "ROADMAP A8 (vocoder families: BigVGAN)",
     "bigvganlarge": "ROADMAP A8 (vocoder families: BigVGAN)",
 }
+# Vocos keys of the reference's config that select TPU serving options; the
+# port always runs its ConvNeXt kernel on the card and its iSTFT product in
+# IEEE fp32, at least as exact as either TPU setting
+_VOCOS_TPU_KEYS = ("fused_kernel", "head_precision")
 
 
-def get_vocoder(model: str = "HiFi-GAN", **kwargs) -> HiFiGANGenerator:
-    """Build the configured generator; explicit kwargs override the preset."""
-    name = model.lower().replace("-", "").replace("_", "")
+def family(model: str) -> str:
+    """The normalised family name: 'HiFi-GAN_v1' -> 'hifiganv1'."""
+    return model.lower().replace("-", "").replace("_", "")
+
+
+def get_vocoder(model: str = "HiFi-GAN", **kwargs) -> nn.Module:
+    """Build the configured generator; explicit kwargs override the preset.
+    For Vocos, `fused_kernel` and `head_precision` are accepted and not
+    passed on (the port has one serving form: kernel on the card, fp32 head)."""
+    name = family(model)
     if name in ("hifigan", "hifiganv1", "hifiganv2", "hifiganv3"):
         preset = dict(HIFIGAN_PRESETS[name[-2:] if name != "hifigan" else "v1"])
         preset.update(kwargs)
         return HiFiGANGenerator(**preset)
+    if name == "vocos":
+        return VocosGenerator(**{k: v for k, v in kwargs.items() if k not in _VOCOS_TPU_KEYS})
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"vocoder family {model!r} is not ported to PyTorch yet: {_NOT_PORTED[name]}")

@@ -17,8 +17,9 @@ raw projection outputs -- and key_pad_mask is (B, T), True = padding.
 
 `attention_core` launches the CUDA kernel (`csrc/flash_mha.cu`) for tensors
 on the card and takes `attention_core_reference` for tensors on the CPU. It
-never falls back: a CUDA tensor the kernel does not take, a failed build or a
-refused launch raises. `attention_core.launches` counts kernel launches.
+never falls back: a CUDA tensor the kernel does not take, a failed build, a
+refused launch or a call that would need a gradient raises.
+`attention_core.launches` counts kernel launches.
 
 What bounds the kernel on the card: one (T, T) score tile per (item, head)
 costs 4*T*T*dk FLOPs -- 0.5 GFLOP at the serving decoder's T = 1000, dk = 128
@@ -31,31 +32,24 @@ product with V; the kernel keeps every score on chip (online softmax over
 cores), so its bound is the fp32 FMA rate; see PERF.md for its time on the
 card beside the plain version's.
 
-The kernel is built with nvcc for sm_90a into `build/kernels/` under the
-repository root, keyed by a hash of its source, at first use, and loaded
-with ctypes (a plain C entry point; no PyTorch headers).
+The kernel is built at first use by `ops/cuda_build.py` (nvcc for sm_90a
+into `build/kernels/<hash>/`, loaded with ctypes: a plain C entry point, no
+PyTorch headers).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "flash_mha.cu"
-_BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
+from visual_onoma_to_wave_tpu_torch.ops.cuda_build import (
+    check_inference,
+    check_launch,
+    load_library,
+)
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def attention_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,6 +97,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"attention_core: key_pad_mask must be ({B}, {T}) "
                              f"on {q.device}")
         mask = key_pad_mask.to(torch.uint8).contiguous()
+    check_inference("flash_mha", q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lib = _load_library()
@@ -112,8 +107,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             B, T, n_head, dk, _DTYPE_CODES[q.dtype], 1.0 / dk ** 0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_mha kernel launch failed: CUDA error {err}")
+    check_launch("flash_mha", err)
     attention_core.launches += 1
     return out
 
@@ -121,42 +115,6 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention_core.launches = 0
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda); "
-                           "the attention kernel is built from source at first use")
-    return nvcc
-
-
-def build_library() -> pathlib.Path:
-    """Compile `csrc/flash_mha.cu` for sm_90a (cached by a hash of source + flags)."""
-    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_ROOT / key / "libflash_mha.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
 def _load_library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.flash_mha_fwd
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return load_library("flash_mha", {"flash_mha_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                                      + [ctypes.c_float, ctypes.c_void_p]})

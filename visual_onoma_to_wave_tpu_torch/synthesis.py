@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from visual_onoma_to_wave_tpu_torch.bridge import hifigan_state_dict, load_npz, vtts_state_dict
+from visual_onoma_to_wave_tpu_torch.bridge import load_npz, vocoder_state_dict, vtts_state_dict
 from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
 from visual_onoma_to_wave_tpu_torch.precision import pin_fp32
@@ -107,8 +107,9 @@ class Synthesizer:
         model.load_state_dict(vtts_state_dict(load_npz(acoustic)))
         gen = None
         if vocoder is not None:
-            gen = get_vocoder(config.model.vocoder_model, **dict(config.model.vocoder_kwargs))
-            gen.load_state_dict(hifigan_state_dict(load_npz(vocoder)))
+            family = config.model.vocoder_model
+            gen = get_vocoder(family, **dict(config.model.vocoder_kwargs))
+            gen.load_state_dict(vocoder_state_dict(family, load_npz(vocoder)))
         return cls(config, model, metadata, symbol_map, gen, device=device)
 
     # ------------------------------------------------------------ inputs
