@@ -6,8 +6,9 @@
 Phases, each printing one or two lines; any failure raises and exits non-zero:
 
   1. probe: torch / CUDA versions, the card and its power limit, TF32 flags;
-     then every kernel source (`csrc/flash_mha.cu`, `csrc/convnext.cu`) is
-     built with nvcc for sm_90a, one nvcc process each, all at once;
+     then every kernel source (`csrc/flash_mha.cu`, `csrc/convnext.cu`,
+     `csrc/mel_frontend.cu`) is built with nvcc for sm_90a, one nvcc process
+     each, all at once;
   2. kernel: holds the attention kernel against its plain PyTorch version at
      the path's shapes; times both at the serving decoder shape;
   2b. convnext: holds the ConvNeXt block and trunk kernels against their
@@ -26,10 +27,20 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      (one trunk launch) against the served waveform;
   6. vocos full width: phase 4's acoustic model and batch with the published
      mel-Vocos widths (dim 512, intermediate 1536, 8 blocks, n_fft 1024),
-     random weights from a seed, beside phase 4's HiFi-GAN numbers.
+     random weights from a seed, beside phase 4's HiFi-GAN numbers;
+  7. mel frontend: holds the fused mel kernel and `fused_clip_features`
+     against their plain versions over the case grid of
+     tests/test_pallas_mel.py (adversarial inputs included), then drives
+     pass 1 of corpus preprocessing (`data/features.extract_features`) over
+     640 seeded clips of 0.3-6 s in length-sorted 64-clip batches, one
+     kernel launch per batch; prints the feature stage's clips/s and
+     frames/s with the kernel and with the plain version, and kernel vs
+     plain ms at one 64-clip batch of the largest bucket.
 
-Each path (phases 4, 5, 6) is driven with every launch count set to 0 just
-before it and read just after.
+Each path (phases 4, 5, 6, 7) is driven with every launch count set to 0
+just before it and read just after. The full `Preprocessor.build` on the
+card, which reuses the JAX package's host passes, is checked by
+`tests/test_torch_preprocess_cuda.py`.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX and nothing of the
@@ -39,6 +50,7 @@ reuses from that package, is checked on the card by
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -115,20 +127,24 @@ def phase_probe() -> dict:
 def zero_launch_counts() -> None:
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
+    from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
 
-    for kernel in (attention_core, convnext_block, convnext_trunk):
+    for kernel in (attention_core, convnext_block, convnext_trunk, mel_frontend):
         kernel.launches = 0
 
 
 def launch_counts() -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
+    from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
 
     return {"flash_mha": attention_core.launches, "convnext_block": convnext_block.launches,
-            "convnext_trunk": convnext_trunk.launches}
+            "convnext_trunk": convnext_trunk.launches, "mel_frontend": mel_frontend.launches}
 
 
 def expect_launches(phase: str, got: dict, want: dict) -> None:
+    """`want` lists the kernels the path launches; every other count must be 0."""
+    want = {k: want.get(k, 0) for k in got}
     if got != want:
         raise AssertionError(f"{phase}: kernel launches {got}, expected {want}")
 
@@ -511,6 +527,335 @@ def phase_vocos_full(dev, card: str, hifigan: dict) -> dict:
             "trunk_launches": trunk["convnext_trunk"]}
 
 
+# Mel frontend (phase 7): the kernel against its plain version on the card,
+# and the port against the JAX package on the CPU (tests/test_torch_stft.py).
+# The kernel computes in float64 and rounds its outputs once; the plain
+# version (and the JAX package) are fp32 spectra, whose rounding the final
+# log amplifies in bins near the 1e-5 clamp and the log-power sum in bins of
+# power near its 1e-8 eps. The bounds below are the fp32 side's error.
+MEL_N_FFT, MEL_HOP, MAX_CHARS = 1024, 256, 48     # MAX_CHARS: the reference preprocessor's
+MEL_ATOL = 1e-4
+# full-scale clipping puts most bins of a frame 10 orders below its peak;
+# there an fp32 FFT is 6.0e-4 off float64 in log-mel and the JAX kernel's
+# DFT product 1.7e-3 (CPU, full_scale case), so that case, and the path over
+# clips that include it, is held to the JAX package's own kernel-vs-jnp
+# bound (tests/test_pallas_mel.py:157)
+MEL_LOOSE = {"atol": 2e-3, "rtol": 1e-4}
+MEL_MAE = 1e-3                      # the BASELINE.md gate, every case
+SUM_RTOL = 1e-5                     # frame energy, power sum, char energy
+# the log-power sum is held per bin (divided by n_freqs, i.e. the mean
+# log-power that the kurtosis uses): full-scale frames differ by ~0.3 of
+# ~-5000 in the sum, 6e-4 per bin (CPU, the port vs the JAX kernel)
+LOG_POWER_PER_BIN_ATOL = 1e-3
+KURT_ATOL, KURT_RTOL = 1e-4, 1e-4
+
+
+def mel_cases() -> list[tuple[str, np.ndarray, int]]:
+    """The parity grid of the mel frontend, the cases of
+    tests/test_pallas_mel.py: (name, reflect-pre-padded clips (B, L) float32,
+    win_length) at n_fft 1024, hop 256."""
+    n_fft, hop = MEL_N_FFT, MEL_HOP
+
+    def pre(a):
+        return np.pad(a, ((0, 0), (n_fft // 2, n_fft // 2)), mode="reflect")
+
+    L = 3 * hop * 13
+    rng = np.random.default_rng(7)
+    t = np.arange(L) / SR
+    impulses = np.zeros(L, np.float32)
+    impulses[::997] = 1.0
+    adversarial = [
+        ("near_silence", (1e-4 * rng.standard_normal(L)).astype(np.float32)),
+        ("full_scale", np.clip(1.5 * np.sin(2 * np.pi * 120 * t), -1, 1).astype(np.float32)),
+        ("impulse_train", impulses),
+        ("true_zero", np.zeros(L, np.float32))]
+
+    def uniform(seed, lo, shape):
+        return np.random.default_rng(seed).uniform(lo, -lo, shape).astype(np.float32)
+
+    return [("awkward_length", pre(uniform(0, -0.8, (2, 3 * hop * 17 + 5))), n_fft),
+            ("odd_batch_short_clip", pre(uniform(1, -1.0, (3, 2048))), n_fft),
+            ("long_700_hops", pre(uniform(3, -1.0, (1, hop * 700))), n_fft),
+            ("win_800", pre(uniform(4, -1.0, (2, 4096))), 800),
+            *[(name, pre(a[None]), n_fft) for name, a in adversarial],
+            # frames end exactly on a 128-frame tile, the input 100 samples past it
+            ("tile_boundary", uniform(1, -0.5, (1, n_fft + 127 * hop + 100)), n_fft)]
+
+
+def mel_durations(batch: int, n_frames: int, max_chars: int = 8) -> np.ndarray:
+    """Zero-padded durations over n_frames: even items 4 characters, one of
+    them of 0 frames, the last frame left to no character; odd items one
+    character over every frame."""
+    d = np.zeros((batch, max_chars), np.int32)
+    a, c = n_frames // 5, n_frames // 4
+    d[0::2, :4] = [a, 0, c, n_frames - a - c - 1]
+    d[1::2, 0] = n_frames
+    return d
+
+
+def _worst(err: np.ndarray) -> float:
+    return float(err.max()) if err.size else 0.0
+
+
+def check_mel_frontend(what: str, got, ref, loose: bool = False) -> dict:
+    """Hold mel_frontend outputs `got` = (logmel, energy, power_sum,
+    log_power_sum), numpy, against `ref`; raise beyond the bounds above.
+    Returns the errors."""
+    lm, e, ps, lps = got
+    rm, re_, rps, rlps = ref
+    tol = MEL_LOOSE if loose else {"atol": MEL_ATOL, "rtol": 0.0}
+    for name, a, b in (("logmel", lm, rm), ("energy", e, re_), ("power_sum", ps, rps),
+                       ("log_power_sum", lps, rlps)):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{what}: {name} {a.shape} vs {b.shape}, "
+                                 f"finite={bool(np.isfinite(a).all())}")
+    mel_err = np.abs(lm - rm)
+    errs = {"mel_max_abs": _worst(mel_err), "mel_mae": float(mel_err.mean()),
+            "energy_rel": _worst(np.abs(e - re_) / np.maximum(re_, 1e-30) * (e != re_)),
+            "power_sum_rel": _worst(np.abs(ps - rps) / np.maximum(rps, 1e-30) * (ps != rps)),
+            "log_power_per_bin": _worst(np.abs(lps - rlps)) / (MEL_N_FFT // 2 + 1)}
+    if (mel_err > tol["atol"] + tol["rtol"] * np.abs(rm)).any() or errs["mel_mae"] >= MEL_MAE:
+        raise AssertionError(f"{what}: logmel off by {errs['mel_max_abs']:.3e} "
+                             f"(mae {errs['mel_mae']:.3e}); bound {tol}, mae < {MEL_MAE}")
+    if max(errs["energy_rel"], errs["power_sum_rel"]) > SUM_RTOL:
+        raise AssertionError(f"{what}: frame sums off by {errs} > {SUM_RTOL} relative")
+    if errs["log_power_per_bin"] > LOG_POWER_PER_BIN_ATOL:
+        raise AssertionError(f"{what}: log-power sum off by {errs['log_power_per_bin']:.3e} "
+                             f"per bin > {LOG_POWER_PER_BIN_ATOL}")
+    return errs
+
+
+def kurtosis_mismatch(got: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Where kurtosis `got` disagrees with `ref`: beyond KURT_ATOL +
+    KURT_RTOL |ref| where both are finite. A character whose frames are all
+    exactly silent has gamma = 0 up to rounding and the estimator 0/0, whose
+    limit is 1: there one side may be NaN, and the other must be NaN or
+    within 1e-3 of 1."""
+    both = np.isfinite(got) & np.isfinite(ref)
+    near = np.abs(np.where(both, got - ref, 0.0)) > KURT_ATOL + KURT_RTOL * np.abs(
+        np.where(both, ref, 0.0))
+    other = np.where(np.isfinite(got), got, ref)
+    degenerate = ~both & ~np.isnan(other) & ~(np.abs(other - 1.0) <= 1e-3)
+    return near | degenerate
+
+
+def _check_char_stats(what: str, ce, k, rce, rk) -> dict:
+    errs = {"char_energy_rel": _worst(np.abs(ce - rce) / np.maximum(rce, 1e-30) * (ce != rce)),
+            "kurtosis_max_abs": _worst(np.abs(np.nan_to_num(k - rk)))}
+    if not np.isfinite(ce).all() or errs["char_energy_rel"] > SUM_RTOL:
+        raise AssertionError(f"{what}: char energy off by {errs['char_energy_rel']:.3e} relative")
+    bad = kurtosis_mismatch(k, rk)
+    if bad.any():
+        raise AssertionError(f"{what}: kurtosis {k[bad][:4]} vs {rk[bad][:4]} beyond "
+                             f"{KURT_ATOL} + {KURT_RTOL} |ref|")
+    return errs
+
+
+def check_clip_features(what: str, got, ref, loose: bool = False) -> dict:
+    """Hold (logmel, char_energy, kurtosis), numpy, against `ref` with the
+    bounds above, logmel on every frame."""
+    lm, ce, k = got
+    rm, rce, rk = ref
+    tol = MEL_LOOSE if loose else {"atol": MEL_ATOL, "rtol": 0.0}
+    mel_err = np.abs(lm - rm)
+    errs = {"mel_max_abs": _worst(mel_err), "mel_mae": float(mel_err.mean())}
+    if not np.isfinite(lm).all() or (mel_err > tol["atol"] + tol["rtol"] * np.abs(rm)).any() \
+            or errs["mel_mae"] >= MEL_MAE:
+        raise AssertionError(f"{what}: logmel off by {errs['mel_max_abs']:.3e} "
+                             f"(mae {errs['mel_mae']:.3e}); bound {tol}")
+    return {**errs, **_check_char_stats(what, ce, k, rce, rk)}
+
+
+def logmel_float64(x: torch.Tensor) -> torch.Tensor:
+    """The log-mel of pre-padded clips x (B, L) computed in float64: the
+    arbiter of the path check."""
+    from visual_onoma_to_wave_tpu_torch.ops import stft
+
+    window, fb = _window_and_fb(MEL_N_FFT, x.device)
+    mag = stft.framed_magnitude(x.double().clamp(-1.0, 1.0), window.double(), MEL_N_FFT,
+                                MEL_HOP)
+    return torch.log(torch.clamp(mag @ fb.double(), min=1.0e-5)).transpose(-1, -2)
+
+
+def check_path_batch(what: str, got, plain, exact: np.ndarray) -> dict:
+    """Pass 1 at real scale. Over real clips, tones at high amplitude leave
+    many bins of a frame just above the 1e-5 clamp, where any fp32 spectrum
+    is rounding noise: the plain fp32 version is up to 1.3e-2 off float64 in
+    log-mel there (CPU, these 640 clips), beyond any bound the kernel could
+    be held to against it. So the kernel's log-mel is held against float64
+    (`exact`), within MEL_LOOSE everywhere and MAE < MEL_MAE; char energy and
+    kurtosis against the plain version."""
+    lm, ce, k = got
+    kernel_err, plain_err = np.abs(lm - exact), np.abs(plain[0] - exact)
+    errs = {"mel_vs_float64_max": _worst(kernel_err),
+            "mel_vs_float64_mae": float(kernel_err.mean()),
+            "plain_mel_vs_float64_max": _worst(plain_err),
+            "mel_vs_plain_max": _worst(np.abs(lm - plain[0]))}
+    bound = MEL_LOOSE["atol"] + MEL_LOOSE["rtol"] * np.abs(exact)
+    if not np.isfinite(lm).all() or errs["mel_vs_float64_mae"] >= MEL_MAE or \
+            (kernel_err > bound).any():
+        raise AssertionError(f"{what}: logmel vs float64 {errs}, bound {MEL_LOOSE}")
+    return {**errs, **_check_char_stats(what, ce, k, plain[1], plain[2])}
+
+
+def feature_clips(n: int = 640, seed: int = 0) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """n clips of 0.3-6 s at 22 050 Hz and their per-character durations at
+    hop 256, length-sorted as pass 1 sorts them. Clips are tones and noise
+    bursts with silences between them; every 16th is one of the adversarial
+    inputs (near silence, full-scale clipping, an impulse train, zeros).
+    1-12 characters of positive duration cover all but 0-2 of a clip's
+    len // 256 + 1 frames."""
+    rng = np.random.default_rng(seed)
+    clips, durs = [], []
+    for i in range(n):
+        L = int(rng.uniform(0.3, 6.0) * SR)
+        t = np.arange(L) / SR
+        kind = i % 64
+        if kind == 0:
+            a = 1e-4 * rng.standard_normal(L)
+        elif kind == 16:
+            a = np.clip(1.5 * np.sin(2 * np.pi * rng.uniform(80, 400) * t), -1, 1)
+        elif kind == 32:
+            a = np.zeros(L)
+            a[::int(rng.integers(200, 2000))] = 1.0
+        elif kind == 48:
+            a = np.zeros(L)
+        else:
+            a = np.zeros(L)
+            for _ in range(int(rng.integers(1, 6))):
+                n_seg = int(rng.integers(L // 10, L // 2 + 2))
+                s0 = int(rng.integers(0, L - n_seg + 1))
+                env = np.hanning(n_seg) * rng.uniform(0.05, 0.9)
+                if rng.random() < 0.6:
+                    seg = np.sin(2 * np.pi * rng.uniform(80, 6000) * t[:n_seg])
+                else:
+                    seg = rng.standard_normal(n_seg) * 0.5
+                a[s0:s0 + n_seg] += env * seg
+        frames = L // MEL_HOP + 1
+        total = frames - int(rng.integers(0, 3))
+        n_chars = int(rng.integers(1, 13))
+        cuts = np.sort(rng.choice(np.arange(1, total), n_chars - 1, replace=False))
+        clips.append(a.astype(np.float32))
+        durs.append(np.diff(np.concatenate([[0], cuts, [total]])).astype(np.int32))
+    order = np.argsort([len(a) for a in clips], kind="stable")
+    return [clips[i] for i in order], [durs[i] for i in order]
+
+
+@functools.lru_cache(maxsize=4)
+def _window_and_fb(win_length: int, device: torch.device):
+    from visual_onoma_to_wave_tpu_torch.ops import stft
+
+    return (torch.from_numpy(stft.hann_window(win_length)).to(device),
+            torch.from_numpy(stft.melscale_fbanks(MEL_N_FFT // 2 + 1, 0.0, 8000.0, 80,
+                                                  SR)).to(device))
+
+
+def plain_clip_features(x: torch.Tensor, d: torch.Tensor, max_chars: int,
+                        win_length: int = MEL_N_FFT):
+    """`fused_clip_features`'s plain form: ops/stft.py::clip_features with the
+    window and filterbank on x's device."""
+    from visual_onoma_to_wave_tpu_torch.ops import stft
+
+    window, fb = _window_and_fb(win_length, x.device)
+    return stft.clip_features(x, d, window, fb, max_chars, MEL_N_FFT, MEL_HOP, win_length)
+
+
+def _host(tensors) -> list[np.ndarray]:
+    return [t.cpu().numpy() for t in tensors]
+
+
+def phase_mel(dev, card: str) -> dict:
+    from visual_onoma_to_wave_tpu_torch.data.features import extract_features, pad_batch
+    from visual_onoma_to_wave_tpu_torch.ops.mel import (
+        fused_clip_features, mel_frontend, mel_frontend_reference)
+
+    phase = "7 mel frontend"
+    worst: dict[str, float] = {}
+
+    def keep(errs: dict, prefix: str) -> None:
+        for k, v in errs.items():
+            worst[f"{prefix}{k}"] = max(worst.get(f"{prefix}{k}", 0.0), v)
+
+    cases = mel_cases()
+    for name, x, win in cases:
+        xt = torch.from_numpy(x).to(dev)
+        got = _host(mel_frontend(xt, win_length=win))
+        ref = _host(mel_frontend_reference(xt, win_length=win))
+        loose = name == "full_scale"
+        keep(check_mel_frontend(f"{phase} {name}", got, ref, loose), "")
+        d = torch.from_numpy(mel_durations(x.shape[0], got[1].shape[-1])).to(dev)
+        keep(check_clip_features(f"{phase} clip_features {name}",
+                                 _host(fused_clip_features(xt, d, 8, win_length=win)),
+                                 _host(plain_clip_features(xt, d, 8, win)), loose), "clip_")
+    torch.cuda.synchronize()
+    say(phase + " parity", card=card, cases=[c[0] for c in cases], max_err=worst,
+        bounds={"mel_atol": MEL_ATOL, "mel_full_scale": MEL_LOOSE, "mel_mae": MEL_MAE,
+                "sums_rel": SUM_RTOL, "log_power_per_bin": LOG_POWER_PER_BIN_ATOL,
+                "kurtosis": [KURT_ATOL, KURT_RTOL]})
+
+    # pass 1 at real scale: 640 clips in length-sorted 64-clip batches
+    clips, durs = feature_clips()
+    batches = [(clips[i:i + 64], durs[i:i + 64]) for i in range(0, len(clips), 64)]
+    frames = sum(int(d.sum()) for d in durs)
+    zero_launch_counts()
+    outs = [_host(extract_features(a, d, device=dev, max_chars=MAX_CHARS)) for a, d in batches]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches(phase, launches, {"mel_frontend": len(batches)})
+    path_err: dict[str, float] = {}
+    for (a, d), out in zip(batches, outs):
+        batch, dur = pad_batch(a, d, n_fft=MEL_N_FFT, hop_length=MEL_HOP, max_chars=MAX_CHARS)
+        x = torch.from_numpy(batch).to(dev)
+        plain = _host(plain_clip_features(x, torch.from_numpy(dur).to(dev), MAX_CHARS))
+        if out[0].shape != (len(a), 80, (batch.shape[1] - MEL_N_FFT) // MEL_HOP + 1):
+            raise AssertionError(f"{phase}: logmel {out[0].shape} for a batch {batch.shape}")
+        errs = check_path_batch(f"{phase} path", out, plain, logmel_float64(x).cpu().numpy())
+        for k, v in errs.items():
+            path_err[k] = max(path_err.get(k, 0.0), v)
+
+    def stage(kernel: bool):
+        def run():
+            for a, d in batches:
+                if kernel:
+                    _host(extract_features(a, d, device=dev, max_chars=MAX_CHARS))
+                else:
+                    batch, dur = pad_batch(a, d, n_fft=MEL_N_FFT, hop_length=MEL_HOP,
+                                           max_chars=MAX_CHARS)
+                    _host(plain_clip_features(torch.from_numpy(batch).to(dev),
+                                              torch.from_numpy(dur).to(dev), MAX_CHARS))
+        return run
+
+    stage_ms = {"kernel": [], "plain": []}
+    for order in (("kernel", "plain"), ("plain", "kernel")):
+        for k in order:
+            stage_ms[k].append(time_cuda(stage(k == "kernel"), 1, warmup=1))
+    per_stage = {k: float(np.mean(v)) for k, v in stage_ms.items()}
+
+    # device time at one 64-clip batch of the largest bucket
+    batch, dur = pad_batch(*batches[-1], n_fft=MEL_N_FFT, hop_length=MEL_HOP,
+                           max_chars=MAX_CHARS)
+    x, d = torch.from_numpy(batch).to(dev), torch.from_numpy(dur).to(dev)
+    runs = {"mel_frontend": lambda: mel_frontend(x),
+            "mel_frontend_plain": lambda: mel_frontend_reference(x),
+            "clip_features": lambda: fused_clip_features(x, d, MAX_CHARS),
+            "clip_features_plain": lambda: plain_clip_features(x, d, MAX_CHARS)}
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            times[k].append(time_cuda(runs[k], 10, warmup=2))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    say(phase + " path", card=card, clips=len(clips), batches=len(batches),
+        frames=frames, kernel_launches=launches, max_err_vs_plain=path_err,
+        stage_ms=per_stage, stage_ms_runs=stage_ms,
+        clips_per_s={k: len(clips) / (v / 1e3) for k, v in per_stage.items()},
+        frames_per_s={k: frames / (v / 1e3) for k, v in per_stage.items()},
+        shape_timed=f"B=64 L={batch.shape[1]} n_fft={MEL_N_FFT} hop={MEL_HOP} 80 mels",
+        ms=ms, ms_runs=times)
+    return {"launches": launches["mel_frontend"],
+            "max_abs_err": worst["mel_max_abs"],
+            "ms": ms["mel_frontend"], "plain_ms": ms["mel_frontend_plain"]}
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -520,6 +865,7 @@ def main() -> int:
     full, _ = phase_full(dev, probe["smi"])
     phase_vocos_golden(dev)
     vocos = phase_vocos_full(dev, probe["smi"], full)
+    mel = phase_mel(dev, probe["smi"])
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"
@@ -533,6 +879,8 @@ def main() -> int:
         {"name": "convnext_trunk", "route": "cuda", "source": source + "convnext.cu",
          "replaces": tpu + "pallas_convnext.py:230",
          "launches": vocos["trunk_launches"], **convnext["trunk"]},
+        {"name": "mel_frontend", "route": "cuda", "source": source + "mel_frontend.cu",
+         "replaces": tpu + "pallas_mel.py:161", **mel},
     ]}
     print(probe["smi"])
     print(json.dumps(record))

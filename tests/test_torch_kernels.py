@@ -13,7 +13,11 @@ both results rounded to bf16). ConvNeXt tolerances are chip_smoke's
 `convnext_atol` (fp32 5e-5 absolute for |y| up to ~6, summation order over
 the C and M products; bf16 within 0.03 of max |plain|, the JAX package's
 bound for this kernel, since rounding flips carry from layer to layer), and
-the trunk must equal L block launches exactly.
+the trunk must equal L block launches exactly. Mel frontend bounds are
+chip_smoke's `check_mel_frontend` / `check_clip_features` (log-mel 1e-4
+absolute, the JAX package's 2e-3 + 1e-4 |ref| for the full-scale case where
+fp32 spectra sit at their rounding noise; frame sums 1e-5 relative; kurtosis
+1e-4 + 1e-4 |ref|), over the case grid of tests/test_pallas_mel.py.
 """
 from __future__ import annotations
 
@@ -28,6 +32,14 @@ from visual_onoma_to_wave_tpu_torch.ops.convnext import (
     convnext_trunk,
     convnext_trunk_reference,
 )
+from visual_onoma_to_wave_tpu_torch.ops.mel import (
+    fused_clip_features,
+    mel_frontend,
+    mel_frontend_reference,
+)
+from visual_onoma_to_wave_tpu_torch.ops.stft import char_stats_from_frame_sums
+
+MEL_CASES = [pytest.param(*case, id=case[0]) for case in chip_smoke.mel_cases()]
 
 
 def _mask(lens, T, device=None) -> torch.Tensor:
@@ -74,6 +86,43 @@ def test_convnext_other_devices_raise_instead_of_falling_back():
         convnext_block(x, *[w[0] for w in ws])
     with pytest.raises(ValueError, match="unsupported device"):
         convnext_trunk(x, *ws)
+
+
+def test_mel_frontend_cpu_tensors_take_the_plain_version():
+    _, prepadded, win = chip_smoke.mel_cases()[0]
+    x = torch.from_numpy(prepadded)
+    d = torch.from_numpy(chip_smoke.mel_durations(x.shape[0], (x.shape[1] - 1024) // 256 + 1))
+    before = mel_frontend.launches
+    got = mel_frontend(x, win_length=win)
+    features = fused_clip_features(x, d, 8, win_length=win)
+    assert mel_frontend.launches == before
+    ref = mel_frontend_reference(x, win_length=win)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    char_e, kurt = char_stats_from_frame_sums(*ref[1:], d, max_chars=8, n_freqs=513)
+    assert torch.equal(features[0], ref[0])
+    assert torch.equal(features[1], char_e) and torch.equal(features[2], kurt)
+
+
+@pytest.mark.parametrize("shape,dtype,kwargs,error,match", [
+    ((2, 4096), torch.float32, {"n_fft": 1000}, ValueError, "power of two"),
+    ((2, 4096), torch.float32, {"n_fft": 4096, "win_length": 4096}, ValueError, "power of two"),
+    ((2, 4096), torch.float32, {"win_length": 2048}, ValueError, "win_length"),
+    ((2, 4096), torch.float32, {"hop_length": 0}, ValueError, "hop"),
+    ((4096,), torch.float32, {}, ValueError, r"\(B, L\)"),
+    ((2, 4096), torch.float64, {}, ValueError, "float32"),
+    ((2, 1000), torch.float32, {}, ValueError, "at least"),
+    ((2, 4096), torch.float32, {}, ValueError, "unsupported device"),
+], ids=["n_fft_1000", "n_fft_4096", "window_over_n_fft", "hop_0", "one_dim", "float64",
+        "shorter_than_n_fft", "meta_device"])
+def test_mel_frontend_refuses_what_the_kernel_does_not_take(shape, dtype, kwargs, error, match):
+    with pytest.raises(error, match=match):
+        mel_frontend(torch.empty(shape, dtype=dtype, device="meta"), **kwargs)
+
+
+def test_mel_frontend_refuses_a_call_that_needs_a_gradient():
+    x = torch.empty(2, 4096, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        mel_frontend(x)
 
 
 @pytest.fixture
@@ -155,3 +204,34 @@ def test_convnext_kernels_reject_what_they_do_not_take(cuda):
         convnext_trunk(x, *ws[:4], ws[4][:, :, :128], *ws[5:])
     with pytest.raises(RuntimeError, match="inference-only"):
         convnext_block(x, *w0[:4], w0[4].clone().requires_grad_(), *w0[5:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,prepadded,win", MEL_CASES)
+def test_mel_frontend_kernel_matches_plain(cuda, name, prepadded, win):
+    x = torch.from_numpy(prepadded).to(cuda)
+    d = torch.from_numpy(chip_smoke.mel_durations(x.shape[0], (x.shape[1] - 1024) // 256 + 1))
+    d = d.to(cuda)
+    before = mel_frontend.launches
+    got = mel_frontend(x, win_length=win)
+    features = fused_clip_features(x, d, 8, win_length=win)
+    torch.cuda.synchronize()
+    assert mel_frontend.launches == before + 2
+    loose = name == "full_scale"
+    chip_smoke.check_mel_frontend(name, chip_smoke._host(got),
+                                  chip_smoke._host(mel_frontend_reference(x, win_length=win)),
+                                  loose)
+    chip_smoke.check_clip_features(name, chip_smoke._host(features),
+                                   chip_smoke._host(chip_smoke.plain_clip_features(x, d, 8, win)),
+                                   loose)
+
+
+@pytest.mark.gpu
+def test_mel_frontend_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 4096, device=cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        mel_frontend(x, n_fft=1000)
+    with pytest.raises(ValueError, match="float32"):
+        mel_frontend(x.double())
+    with pytest.raises(RuntimeError, match="inference-only"):
+        mel_frontend(x.clone().requires_grad_())

@@ -3,11 +3,13 @@
 In a fresh interpreter with jax, flax, optax, orbax (and, for the compute
 core, yaml and PIL) made unimportable, the port's modules import; without
 yaml and PIL blocked, the Synthesizer serves the demo checkpoint on the
-CPU, with its HiFi-GAN and with its Vocos. `chip_smoke.py` (its demo
-golden phases, HiFi-GAN and Vocos, and its full-width model builders) and
-`tools/profile_torch.py` also run with the JAX package
-(`visual_onoma_to_wave_tpu`) itself unimportable. A source scan of
-the package and those scripts backs this up for imports inside functions.
+CPU, with its HiFi-GAN and with its Vocos, and the port's `Preprocessor`
+preprocesses a tiny corpus. `chip_smoke.py` (its demo golden phases,
+HiFi-GAN and Vocos, the construction of its full-width models, and phase
+7's case grid, seeded clips and feature stage) and `tools/profile_torch.py`
+also run with the JAX package (`visual_onoma_to_wave_tpu`) itself
+unimportable. A source scan of the package and those scripts backs this up
+for imports inside functions.
 """
 from __future__ import annotations
 
@@ -34,6 +36,11 @@ from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator, apply_fu
 gen = VocosGenerator(dim=128, intermediate_dim=128, num_layers=1)
 with torch.no_grad():
     assert gen(torch.zeros(1, 4, 80)).shape == apply_fused(gen, torch.zeros(1, 4, 80)).shape
+import numpy as np
+from visual_onoma_to_wave_tpu_torch.data.features import extract_features
+logmel, energy, kurt = extract_features([np.zeros(3000, np.float32)], [np.array([5, 7], np.int32)],
+                                        device="cpu", max_chars=48)
+assert logmel.shape[:2] == (1, 80) and energy.shape == kurt.shape == (1, 48)
 """
 
 SERVED = """
@@ -51,6 +58,18 @@ synth = Synthesizer.from_checkpoint(load_config(demo + "/config_vocos.json"),
                                     device="cpu")
 r = synth.synthesize("パンパン", "drum")
 assert type(synth.vocoder).__name__ == "VocosGenerator" and r.wav.shape == (r.mel_len * 256,)
+"""
+
+PREPROCESS = """
+import pathlib, tempfile
+from benchmarks.bench_preprocess import build_corpus
+from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
+with tempfile.TemporaryDirectory() as root:
+    cfg = build_corpus(pathlib.Path(root), 6, n_labels=1)
+    Preprocessor(cfg, num_workers=1, device="cpu").build(verbose=False)
+    out = pathlib.Path(cfg.path.preprocessed)
+    assert len(list((out / "mel" / "label0").glob("*.npy"))) >= 6
+    assert (out / "stats.json").exists() and (out / "train.txt").exists()
 """
 
 # what chip_smoke's phases and the profiler build, on the CPU (phase 3's
@@ -74,6 +93,21 @@ for vocoder in ("HiFi-GAN", "Vocos"):
     model, gen, batch = chip_smoke.icassp_b16("cpu", vocoder)
     assert batch["image_cells"].shape == (16, 8, 24, 102)
 assert chip_smoke.convnext_blocks(gen) == 8
+from visual_onoma_to_wave_tpu_torch.data.features import extract_features, pad_batch
+from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend, mel_frontend_reference
+for name, x, win in chip_smoke.mel_cases():
+    x = torch.from_numpy(x)
+    chip_smoke.check_mel_frontend(name, chip_smoke._host(mel_frontend(x, win_length=win)),
+                                  chip_smoke._host(mel_frontend_reference(x, win_length=win)))
+clips, durs = chip_smoke.feature_clips(16)
+out = chip_smoke._host(extract_features(clips, durs, device="cpu", max_chars=chip_smoke.MAX_CHARS))
+batch, dur = pad_batch(clips, durs, n_fft=1024, hop_length=256, max_chars=chip_smoke.MAX_CHARS)
+x = torch.from_numpy(batch)
+plain = chip_smoke._host(chip_smoke.plain_clip_features(x, torch.from_numpy(dur),
+                                                        chip_smoke.MAX_CHARS))
+assert all(np.array_equal(a, b, equal_nan=True) for a, b in zip(out, plain))
+exact = chip_smoke.logmel_float64(x).numpy()
+chip_smoke.check_path_batch("cpu", (exact, *plain[1:]), plain, exact)
 """
 
 
@@ -90,9 +124,10 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
 @pytest.mark.parametrize("blocked,code", [
     (JAX_STACK + ("yaml", "PIL"), CORE),
     (JAX_STACK, SERVED),
+    (JAX_STACK, PREPROCESS),
     (JAX_STACK + ("yaml", "PIL", JAX_PACKAGE), SMOKE),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
-        "chip-smoke-without-the-jax-package"])
+        "preprocess-without-jax", "chip-smoke-without-the-jax-package"])
 def test_port_imports_without(blocked, code):
     proc = run_blocked(blocked, code)
     assert proc.returncode == 0, proc.stderr[-3000:]

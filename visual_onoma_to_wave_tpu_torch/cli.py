@@ -1,4 +1,4 @@
-"""Command line of the PyTorch port: `synthesize` and `serve`.
+"""Command line of the PyTorch port: `synthesize`, `serve` and `preprocess`.
 
     python -m visual_onoma_to_wave_tpu_torch.cli synthesize \\
         examples/checkpoints/demo/config.json \\
@@ -6,12 +6,15 @@
         --vocoder examples/checkpoints/demo/torch/vocoder.npz \\
         --text パンパン --audiotype drum --out out.wav
 
+    python -m visual_onoma_to_wave_tpu_torch.cli preprocess <config> [--device cpu]
+
 Weights are the `.npz` trees written by `examples/export_demo_for_torch.py`;
 configs load through the reference's `cli.load_config`.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 
 def cmd_synthesize(args) -> None:
@@ -47,6 +50,16 @@ def cmd_serve(args) -> None:
     server.serve_forever()
 
 
+def cmd_preprocess(args) -> None:
+    from visual_onoma_to_wave_tpu.cli import load_config
+    from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
+
+    cfg = load_config(args.config)
+    result = Preprocessor(cfg, num_workers=args.num_workers, save_audio=args.save_audio,
+                          device=args.device).build()
+    print(json.dumps(result))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="visual-onoma-to-wave-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -78,6 +91,15 @@ def main(argv=None):
     s.add_argument("--request-timeout", type=float, default=30.0)
     s.add_argument("--pipeline-depth", type=int, default=2)
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("preprocess", help="formatted corpus -> training features (03_preprocess)")
+    s.add_argument("config")
+    s.add_argument("--num-workers", type=int, default=None, help="host worker processes")
+    s.add_argument("--save-audio", action="store_true",
+                   help="also save mel-aligned trimmed waveforms under audio/")
+    s.add_argument("--device", default="cuda",
+                   help="torch device of the feature pass; 'cuda' fails when no GPU is visible")
+    s.set_defaults(fn=cmd_preprocess)
 
     args = p.parse_args(argv)
     return args.fn(args)

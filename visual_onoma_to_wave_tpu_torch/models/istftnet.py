@@ -17,14 +17,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from visual_onoma_to_wave_tpu_torch.ops.stft import hann_window
+
 # mag = exp(min(logmag, ln(_MAX_MAG))), as the reference caps it
 _MAX_MAG = 100.0
-
-
-def hann_window(win_length: int) -> np.ndarray:
-    """Periodic Hann window (visual_onoma_to_wave_tpu/ops/stft.py::hann_window)."""
-    n = np.arange(win_length, dtype=np.float64)
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,12 @@ from visual_onoma_to_wave_tpu_torch.ops.length_regulator import (
     get_mask_from_lengths,
     length_regulate,
 )
+from visual_onoma_to_wave_tpu_torch.ops.mel import (
+    fused_clip_features,
+    fused_logmel_energy,
+    mel_frontend,
+    mel_frontend_reference,
+)
 
 __all__ = [
     "attention_core",
@@ -22,6 +28,10 @@ __all__ = [
     "convnext_trunk",
     "convnext_trunk_reference",
     "expand_char_to_frame",
+    "fused_clip_features",
+    "fused_logmel_energy",
     "get_mask_from_lengths",
     "length_regulate",
+    "mel_frontend",
+    "mel_frontend_reference",
 ]
