@@ -20,7 +20,14 @@ delete the files to export them again):
   * vocoder_vocos.npz: the orbax tree of examples/checkpoints/demo/vocoder_vocos;
   * golden_vocos.npz: the same four requests served by the JAX `Synthesizer`
     on config_vocos.json (same acoustic checkpoint, the demo Vocos vocoder
-    on its plain block path), with the same inputs and outputs.
+    on its plain block path), with the same inputs and outputs;
+  * vocoder_istftnet_mel.npz: the orbax tree of
+    examples/checkpoints/demo/vocoder_istftnet_mel;
+  * golden_istftnet.npz: the same four requests served by the JAX
+    `Synthesizer` on config_istftnet.json (the demo iSTFTNet-mel vocoder).
+
+`port_demo_config` loads a demo config with the port's own loader, for the
+port's tests and scripts (no JAX there).
 """
 from __future__ import annotations
 
@@ -46,15 +53,26 @@ GOLDEN_INPUTS = ("audiotypes", "texts", "src_lens", "image_cells", "e_control", 
 GOLDEN_OUTPUTS = ("duration_rounded", "mel_lens", "postnet_mel", "wav")
 
 
-def demo_config(name: str = "config.json"):
-    """A demo config (config.json: HiFi-GAN; config_vocos.json: Vocos) with
-    its paths pointed at this checkout."""
-    from visual_onoma_to_wave_tpu.cli import load_config
-
-    cfg = load_config(str(DEMO / name))
+def _at_demo(cfg):
+    """`cfg` with its paths pointed at this checkout's demo directory."""
     return cfg.replace(path=cfg.path.__class__(
         corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
         ckpt=str(DEMO / "preprocessed"), log="", result=""))
+
+
+def demo_config(name: str = "config.json"):
+    """A demo config (config.json: HiFi-GAN; config_vocos.json: Vocos;
+    config_istftnet.json: iSTFTNet-mel) through the JAX package's loader."""
+    from visual_onoma_to_wave_tpu.cli import load_config
+
+    return _at_demo(load_config(str(DEMO / name)))
+
+
+def port_demo_config(name: str = "config.json"):
+    """`demo_config` through the port's `config.load_config`."""
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+
+    return _at_demo(load_config(DEMO / name))
 
 
 def weight_trees(names=("acoustic", "vocoder")) -> dict[str, dict]:
@@ -99,6 +117,9 @@ EXPORTS = {
     "golden.npz": golden,
     "vocoder_vocos.npz": lambda: weight_trees(("vocoder_vocos",))["vocoder_vocos"],
     "golden_vocos.npz": lambda: golden("config_vocos.json", "vocoder_vocos"),
+    "vocoder_istftnet_mel.npz":
+        lambda: weight_trees(("vocoder_istftnet_mel",))["vocoder_istftnet_mel"],
+    "golden_istftnet.npz": lambda: golden("config_istftnet.json", "vocoder_istftnet_mel"),
 }
 
 

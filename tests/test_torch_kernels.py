@@ -17,7 +17,11 @@ the trunk must equal L block launches exactly. Mel frontend bounds are
 chip_smoke's `check_mel_frontend` / `check_clip_features` (log-mel 1e-4
 absolute, the JAX package's 2e-3 + 1e-4 |ref| for the full-scale case where
 fp32 spectra sit at their rounding noise; frame sums 1e-5 relative; kurtosis
-1e-4 + 1e-4 |ref|), over the case grid of tests/test_pallas_mel.py.
+1e-4 + 1e-4 |ref|), over the case grid of tests/test_pallas_mel.py. Fused
+MRF stage bounds are chip_smoke's `MRF_OF_SCALE` (fp32 1e-5 x max |plain|,
+summation order over 18 convs; bf16 2e-2 x max |plain|, rounding flips of the
+bf16 conv inputs carried by the later convs); the iSTFTNet generators on the
+card against their CPU path (the ResBlock1 modules) within 1e-4 x max |CPU|.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from visual_onoma_to_wave_tpu_torch.ops.mel import (
     mel_frontend,
     mel_frontend_reference,
 )
+from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, mrf_stage_fused_reference
 from visual_onoma_to_wave_tpu_torch.ops.stft import char_stats_from_frame_sums
 
 MEL_CASES = [pytest.param(*case, id=case[0]) for case in chip_smoke.mel_cases()]
@@ -125,10 +130,23 @@ def test_mel_frontend_refuses_a_call_that_needs_a_gradient():
         mel_frontend(x)
 
 
+def test_mrf_cpu_tensors_take_the_plain_version():
+    g = torch.Generator().manual_seed(2)
+    mats, bias = chip_smoke.mrf_weights(32, g, "cpu")
+    x = torch.randn(2, 32, 40, generator=g)
+    before = mrf_stage_fused.launches
+    out = mrf_stage_fused(x, *mats, bias)
+    assert mrf_stage_fused.launches == before
+    assert torch.equal(out, mrf_stage_fused_reference(x, *mats, bias))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from visual_onoma_to_wave_tpu_torch.precision import pin_fp32
+
+    pin_fp32()   # the plain versions' cuDNN convs in IEEE fp32, not TF32
     return torch.device("cuda")
 
 
@@ -235,3 +253,55 @@ def test_mel_frontend_kernel_rejects_what_it_does_not_take(cuda):
         mel_frontend(x.double())
     with pytest.raises(RuntimeError, match="inference-only"):
         mel_frontend(x.clone().requires_grad_())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [20, 700, 1000])
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
+def test_mrf_kernel_matches_plain(cuda, C, T, dtype):
+    g = torch.Generator(device=cuda).manual_seed(C + T)
+    mats, bias = chip_smoke.mrf_weights(C, g, cuda)
+    for B in (1, 4):
+        x = torch.randn(B, C, T, generator=g, device=cuda)
+        before = mrf_stage_fused.launches
+        out = mrf_stage_fused(x, *mats, bias, dtype=dtype)
+        torch.cuda.synchronize()
+        assert mrf_stage_fused.launches == before + 1
+        ref = mrf_stage_fused_reference(x, *mats, bias, dtype=dtype)
+        assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
+        scale = ref.float().abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0.0,
+                                   atol=chip_smoke.MRF_OF_SCALE[dtype] * scale)
+
+
+@pytest.mark.gpu
+def test_mrf_kernel_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mats, bias = chip_smoke.mrf_weights(32, g, cuda)
+    x = torch.randn(1, 32, 50, device=cuda)
+    with pytest.raises(ValueError, match="C in"):
+        mrf_stage_fused(x[:, :16], *[m[:, :16, :16] for m in mats], bias[:, :16])
+    with pytest.raises(ValueError, match="halo"):
+        mrf_stage_fused(x, *mats, bias, dilations=((9, 9, 9),) * 3)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        mrf_stage_fused(x, *mats, bias, dtype=torch.float16)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        mrf_stage_fused(x.clone().requires_grad_(), *mats, bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,stages", [("melrate", 1), ("c8c8i", 2)])
+def test_istftnet_on_the_card_launches_one_mrf_kernel_per_stage(cuda, preset, stages):
+    from visual_onoma_to_wave_tpu_torch.models import build_istftnet
+    torch.manual_seed(0)
+    gen = build_istftnet(preset, upsample_initial_channel=128 if preset == "c8c8i" else 64).eval()
+    mel = torch.randn(2, 37, 80) - 3.0
+    with torch.inference_mode():
+        ref = gen(mel)
+        gen.to(cuda)
+        before = mrf_stage_fused.launches
+        out = gen(mel.to(cuda))
+        torch.cuda.synchronize()
+    assert mrf_stage_fused.launches == before + stages
+    torch.testing.assert_close(out.cpu(), ref, rtol=0.0, atol=1e-4 * ref.abs().max().item())

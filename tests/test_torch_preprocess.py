@@ -4,8 +4,9 @@ One formatted corpus (`examples/train_demo_artifacts.py::build_corpus`, 8
 clips per class, then the reference `cli format` and `prepare-tg`) goes
 through the reference `Preprocessor` (JAX on the CPU, its jnp DSP path) and
 through the port's `Preprocessor(device="cpu")` (the mel frontend's plain
-version) into two directories. The host passes are shared code, so every
-host artifact must be identical; the features come from two fp32 FFTs.
+version, the config loaded by the port's own loader) into two directories.
+The port's host passes are copies of the reference's, so every host
+artifact must be identical; the features come from two fp32 FFTs.
 Bounds, with the largest differences measured:
 
 - log-mel: the JAX package's own kernel-vs-jnp bound, 2e-3 + 1e-4 |ref|,
@@ -31,10 +32,11 @@ import pytest
 import torch
 
 from examples.train_demo_artifacts import build_corpus, work_config
-from visual_onoma_to_wave_tpu.cli import load_config
+from visual_onoma_to_wave_tpu.cli import load_config as reference_load_config
 from visual_onoma_to_wave_tpu.cli import main as reference_cli
 from visual_onoma_to_wave_tpu.data.preprocess import Preprocessor as ReferencePreprocessor
 from visual_onoma_to_wave_tpu_torch.cli import main as port_cli
+from visual_onoma_to_wave_tpu_torch.config import load_config
 from visual_onoma_to_wave_tpu_torch.data.features import bucket_length, pad_batch
 from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
 
@@ -62,7 +64,7 @@ def trees(tmp_path_factory):
     cfg = _config_file(root, ono_root, root / "reference")
     reference_cli(["format", cfg, str(raw_root)])
     reference_cli(["prepare-tg", cfg])
-    ReferencePreprocessor(load_config(cfg), num_workers=2).build(verbose=False)
+    ReferencePreprocessor(reference_load_config(cfg), num_workers=2).build(verbose=False)
     port_cfg = _config_file(root, ono_root, root / "port")
     Preprocessor(load_config(port_cfg), num_workers=2, device="cpu").build(verbose=False)
     return root / "reference", root / "port", root, ono_root

@@ -1,8 +1,9 @@
 """The port's `Preprocessor.build` on the card.
 
-A formatted corpus from `benchmarks/bench_preprocess.py::build_corpus`
-(256 clips over 2 labels: each label takes two 64-clip batches, so the
-one-batch-in-flight pipeline runs) is preprocessed three times: with
+A formatted corpus, the one of `benchmarks/bench_preprocess.py::build_corpus`
+made with the port's host modules (256 clips over 2 labels: each label takes
+two 64-clip batches, so the one-batch-in-flight pipeline runs), is
+preprocessed three times: with
 `device="cuda"` (the mel kernel), with `device="cpu"` (its plain fp32
 version) and on the CPU with pass 1 in float64 (the arbiter). The card's run
 must launch the mel kernel once per batch. Its host artifacts must equal
@@ -24,8 +25,8 @@ the CPU run's byte for byte, and its features must agree with it:
   `stats.json` the raw min, max and mean take the same bounds and the std
   the bound at the largest |value|.
 
-Imports no JAX (the reused reference modules are host-only). Needs an
-NVIDIA GPU; on the card:
+Imports nothing of JAX or of the JAX package. Needs an NVIDIA GPU; on the
+card:
 
     python -m pytest tests/test_torch_preprocess_cuda.py -q
 """
@@ -39,6 +40,7 @@ import pytest
 import torch
 
 CLIPS, LABELS, BATCH = 256, 2, 64
+SR, KATA = 22050, "パンドカタコツバチリン"
 MEL_ATOL, MEL_RTOL, MEL_MAE = 2e-3, 1e-4, 1e-3
 RAW_BOUNDS = {"energy": (0.0, 1e-5), "kurtosis": (1e-4, 1e-4)}   # (atol, rtol)
 METADATA = ("train.txt", "val.txt", "test.txt", "audiotype.json", "label_width.json",
@@ -49,10 +51,57 @@ def _files(tree: pathlib.Path) -> set[str]:
     return {str(p.relative_to(tree)) for p in tree.rglob("*") if p.is_file()}
 
 
+def build_corpus(root: pathlib.Path, n_clips: int, n_labels: int, seed: int = 0):
+    """benchmarks/bench_preprocess.py::build_corpus with the port's modules:
+    tones under Hann envelopes, one per character, 0.1 s of silence around,
+    their TextGrids and data.txt rows; returns the port's Config for it."""
+    from visual_onoma_to_wave_tpu_torch.config import Config
+    from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
+    from visual_onoma_to_wave_tpu_torch.data.labels import Interval, write_textgrid
+
+    rng = np.random.default_rng(seed)
+    formatted = root / "formatted"
+    labels = [f"label{i}" for i in range(n_labels)]
+    per = (n_clips + n_labels - 1) // n_labels
+    for li, label in enumerate(labels):
+        for d in ("audio", "TextGrid", "text"):
+            (formatted / d / label).mkdir(parents=True)
+        rows = []
+        for c in range(per):
+            n_chars = int(rng.integers(2, 7))
+            text = "".join(rng.choice(list(KATA), n_chars))
+            sec_per_char = float(rng.uniform(0.12, 0.3))
+            lead = tail = 0.1
+            total = lead + n_chars * sec_per_char + tail
+            t = np.arange(int(total * SR)) / SR
+            wav = np.zeros_like(t, dtype=np.float32)
+            intervals = [Interval(0.0, lead, "")]
+            cur = lead
+            for i in range(n_chars):
+                f = 200.0 * (1.15 ** (li * 3 + i))
+                seg = (t >= cur) & (t < cur + sec_per_char)
+                env = np.hanning(int(seg.sum())).astype(np.float32)
+                wav[seg] = (0.5 * np.sin(2 * np.pi * f * t[seg])).astype(np.float32) * env
+                intervals.append(Interval(cur, cur + sec_per_char, text[i]))
+                cur += sec_per_char
+            intervals.append(Interval(cur, total, ""))
+            clip = f"c1_{label}_{c:03d}_0980"
+            write_wav(formatted / "audio" / label / f"{clip}.wav", wav, SR)
+            write_textgrid(intervals, formatted / "TextGrid" / label / f"{clip}_w1.TextGrid")
+            rows.append(f"{clip}_w1|{clip}|{text}|{label}|5.0|4.0")
+        (formatted / "text" / label / "data.txt").write_text("\n".join(rows) + "\n")
+    cfg = Config()
+    return cfg.replace(
+        path=cfg.path.__class__(corpus=str(root / "raw"), formatted=str(formatted),
+                                preprocessed=str(root / "preprocessed"), font=""),
+        dataset=cfg.dataset.__class__(extract_labels=tuple(labels), valtest_id=(13,),
+                                      confidence_score_border=3.0,
+                                      acceptance_score_border=2.5))
+
+
 def _float64_preprocessor():
-    from visual_onoma_to_wave_tpu.data.preprocess import MAX_CHARS
     from visual_onoma_to_wave_tpu_torch.data.features import pad_batch
-    from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
+    from visual_onoma_to_wave_tpu_torch.data.preprocess import MAX_CHARS, Preprocessor
     from visual_onoma_to_wave_tpu_torch.ops import stft
 
     class Float64Preprocessor(Preprocessor):
@@ -80,11 +129,10 @@ def _raw(tree: pathlib.Path, stats: dict, name: str, f: str) -> np.ndarray:
 def test_preprocessor_build_on_the_card_matches_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: pass 1 runs the CUDA mel kernel here")
-    from benchmarks.bench_preprocess import build_corpus
     from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
     from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
 
-    cfg = build_corpus(tmp_path, CLIPS, n_labels=LABELS)
+    cfg = build_corpus(tmp_path, CLIPS, LABELS)
     trees = {}
     for run, cls, device in (("cuda", Preprocessor, "cuda"), ("cpu", Preprocessor, "cpu"),
                              ("float64", _float64_preprocessor(), "cpu")):

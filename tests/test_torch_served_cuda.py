@@ -1,14 +1,15 @@
-"""The port's `Synthesizer` on the card, served by the reused HTTP server.
+"""The port's `Synthesizer` on the card, served by the port's own HTTP server.
 
 The demo checkpoint (`examples/checkpoints/demo/torch/*.npz`), with its
-HiFi-GAN (config.json) or its Vocos (config_vocos.json), is loaded with
-`device="cuda"` and put behind `visual_onoma_to_wave_tpu.serve.BatchingServer`
-(a host-only module: it imports no JAX). Four concurrent `/v1/synthesize`
-requests must each answer HTTP 200 with the expected frame count and
-nonzero audio, every waveform the port hands the server must be finite, and
-the path's kernels must have launched (attention; for Vocos also the
-ConvNeXt block).
-Needs an NVIDIA GPU; on the card:
+HiFi-GAN (config.json), its Vocos (config_vocos.json) or its iSTFTNet-mel
+(config_istftnet.json), is loaded with `device="cuda"` through the port's
+config loader and put behind `visual_onoma_to_wave_tpu_torch.serve.
+BatchingServer`. Four concurrent `/v1/synthesize` requests must each answer
+HTTP 200 with the expected frame count and nonzero audio, every waveform the
+port hands the server must be finite, and the path's kernels must have
+launched (attention; for Vocos also the ConvNeXt block; for iSTFTNet-mel the
+fused MRF stage, once per batch). Imports nothing of JAX or of the JAX
+package. Needs an NVIDIA GPU; on the card:
 
     python -m pytest tests/test_torch_served_cuda.py -q
 """
@@ -35,15 +36,17 @@ REQUESTS = [{"text": "バウバウ", "audiotype": "bell"},
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("config,vocoder", [("config.json", "vocoder.npz"),
-                                            ("config_vocos.json", "vocoder_vocos.npz")],
-                         ids=["hifigan", "vocos"])
+                                            ("config_vocos.json", "vocoder_vocos.npz"),
+                                            ("config_istftnet.json", "vocoder_istftnet_mel.npz")],
+                         ids=["hifigan", "vocos", "istftnet-mel"])
 def test_batching_server_serves_the_port_on_the_card(config, vocoder):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the port's Synthesizer runs on the card here")
-    from visual_onoma_to_wave_tpu.cli import load_config
-    from visual_onoma_to_wave_tpu.serve import BatchingServer
+    from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused
+    from visual_onoma_to_wave_tpu_torch.serve import BatchingServer
     from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
     cfg = load_config(str(DEMO / config))
@@ -76,19 +79,23 @@ def test_batching_server_serves_the_port_on_the_card(config, vocoder):
         finally:
             conn.close()
 
-    launches = attention_core.launches, convnext_block.launches
+    launches = attention_core.launches, convnext_block.launches, mrf_stage_fused.launches
+    srv.reset_stats()
     try:
         threads = [threading.Thread(target=post, args=(i,)) for i in range(len(REQUESTS))]
         for th in threads:
             th.start()
         for th in threads:
             th.join(timeout=180)
+        batches = srv.snapshot_stats()["batches"]
     finally:
         srv.stop()
     # the card's kernels served them
     assert attention_core.launches > launches[0]
     if cfg.model.vocoder_model == "Vocos":
         assert convnext_block.launches > launches[1]
+    mrf = 1 if cfg.model.vocoder_model == "iSTFTNet-mel" else 0
+    assert mrf_stage_fused.launches - launches[2] == mrf * batches
     for req, ans in zip(REQUESTS, answers):
         assert ans is not None and ans[0] == 200, (req, ans)
         r = ans[1]

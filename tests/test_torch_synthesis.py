@@ -37,7 +37,8 @@ def golden():
 
 @pytest.fixture(scope="module")
 def synth():
-    return Synthesizer.from_checkpoint(export.demo_config(), str(export.OUT / "acoustic.npz"),
+    return Synthesizer.from_checkpoint(export.port_demo_config(),
+                                       str(export.OUT / "acoustic.npz"),
                                        str(export.OUT / "vocoder.npz"), device="cpu")
 
 
@@ -93,7 +94,7 @@ def test_golden_still_matches_the_jax_package(golden):
 
 
 def test_batching_server_serves_the_port(synth):
-    from visual_onoma_to_wave_tpu.serve import BatchingServer
+    from visual_onoma_to_wave_tpu_torch.serve import BatchingServer
 
     srv = BatchingServer(synth, port=0, max_batch=4, batch_window_ms=10.0)
     srv.start()

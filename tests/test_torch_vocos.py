@@ -155,7 +155,7 @@ def test_get_vocoder_builds_vocos_from_the_demo_config():
     assert isinstance(gen, VocosGenerator) and len(gen.blocks) == 4
     assert tuple(gen.blocks[0].pw1_w.shape) == (128, 384) and gen.total_upsample == 256
     with pytest.raises(NotImplementedError, match="A8"):
-        get_vocoder("MelGAN")
+        get_vocoder("BigVGAN")
 
 
 def test_vocos_state_dict_consumes_every_leaf_and_raises_on_unknown():
@@ -173,7 +173,7 @@ def test_vocos_state_dict_consumes_every_leaf_and_raises_on_unknown():
         with pytest.raises(ValueError, match="unknown Vocos leaf"):
             vocos_state_dict(stray)
     with pytest.raises(NotImplementedError, match="A8"):
-        vocoder_state_dict("MelGAN", tree)
+        vocoder_state_dict("BigVGAN", tree)
 
 
 def test_committed_vocos_npz_equals_export():

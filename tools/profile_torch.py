@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the device time goes in the port's fused step, ICASSP B16, one GPU.
 
-    python3 tools/profile_torch.py [--vocoder HiFi-GAN|Vocos] [--out build/profile_torch]
+    python3 tools/profile_torch.py [--vocoder HiFi-GAN|Vocos|iSTFTNet-mel|iSTFTNet|MelGAN]
+                                   [--out build/profile_torch]
 
 Builds the model, vocoder and batch of `chip_smoke.py` phase 4 (ICASSP
 configuration + HiFi-GAN V1, random weights from seed 0, 16 requests) or,
-with `--vocoder Vocos`, of phase 6 (the same acoustic model and batch with
-the published mel-Vocos), and prints, one JSON object per line:
+with `--vocoder`, of phases 6, 10 and 11 (the same acoustic model and batch
+with the published mel-Vocos, iSTFTNet-mel, iSTFTNet C8C8I or MelGAN), and
+prints, one JSON object per line:
 
   * `card`: the card and its power limit (nvidia-smi);
   * `acoustic_ab`: the acoustic forward with the attention kernel against
@@ -50,6 +52,8 @@ def kernel_class(name: str) -> str:
         return "attention"
     if "block_kernel" in n or "trunk_kernel" in n:   # csrc/convnext.cu
         return "convnext"
+    if "mrf_kernel" in n:                              # csrc/mrf.cu
+        return "mrf"
     if any(w in n for w in ("conv", "fprop", "dgrad", "implicit", "winograd", "fft")):
         return "conv"
     if "gemm" in n or "gemv" in n:
@@ -79,7 +83,8 @@ def idle_share(trace: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--vocoder", default="HiFi-GAN", choices=("HiFi-GAN", "Vocos"))
+    ap.add_argument("--vocoder", default="HiFi-GAN",
+                    choices=("HiFi-GAN", "Vocos", "iSTFTNet-mel", "iSTFTNet", "MelGAN"))
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch"))
     args = ap.parse_args()
     if not torch.cuda.is_available():

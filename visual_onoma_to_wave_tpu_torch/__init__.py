@@ -2,14 +2,15 @@
 
 A second package beside the JAX reference `visual_onoma_to_wave_tpu`:
 served synthesis (rendered onomatopoeia cells -> VTTS acoustic model ->
-HiFi-GAN or Vocos -> waveform) in PyTorch, with the attention core of every
-FFT block (`ops/attention.py`, `csrc/flash_mha.cu`) and the ConvNeXt block
-and trunk of Vocos (`ops/convnext.py`, `csrc/convnext.cu`) as hand-written
-CUDA kernels.
-Host-side modules without a JAX import (config, renderer, symbols, audio
-I/O, the HTTP server) are reused from the reference package, not re-ported.
+HiFi-GAN, iSTFTNet, MelGAN or Vocos -> waveform) and corpus preprocessing in
+PyTorch, with every TPU kernel of the reference as a hand-written CUDA
+kernel: the attention core (`csrc/flash_mha.cu`), the fused MRF stage of
+iSTFTNet (`csrc/mrf.cu`), the fused mel frontend (`csrc/mel_frontend.cu`)
+and the ConvNeXt block and trunk of Vocos (`csrc/convnext.cu`). The host
+modules (config, symbols, audio I/O, renderer, alignment, preprocessing
+passes, the HTTP server) are the port's own copies.
 
-This package imports `torch` and never `jax`.
+This package imports `torch` and never `jax`, and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

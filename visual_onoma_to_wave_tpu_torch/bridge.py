@@ -1,10 +1,12 @@
 """Weight bridge: JAX/flax parameter trees (as numpy) -> PyTorch state_dicts.
 
 The inverse of the reference converters
-`visual_onoma_to_wave_tpu/models/convert_acoustic.py::convert_vtts_state_dict`
-and `visual_onoma_to_wave_tpu/models/hifigan.py::convert_torch_state_dict`:
+`visual_onoma_to_wave_tpu/models/convert_acoustic.py::convert_vtts_state_dict`,
+`visual_onoma_to_wave_tpu/models/hifigan.py::convert_torch_state_dict` and
+`visual_onoma_to_wave_tpu/models/melgan.py::convert_melgan_state_dict`:
 those read the reference PyTorch layout into flax trees, these write flax
-trees back into it, so `convert(bridge(tree)) == tree`.
+trees back into it, so `convert(bridge(tree)) == tree`. The iSTFTNet trees
+share HiFi-GAN's names (conv_pre, up_i, resblock_i_j, conv_post).
 
     flax nn.Dense kernel (in, out)         -> Linear.weight (out, in)
     flax nn.Conv kernel (K, Cin, Cout)     -> Conv1d.weight (Cout, Cin, K)
@@ -14,6 +16,7 @@ trees back into it, so `convert(bridge(tree)) == tree`.
     LayerNorm scale/bias                   -> weight/bias
     nn.Embed embedding                     -> Embedding.weight
     HiFi-GAN up_i_w, flipped (K, Cin, Cout) -> ConvTranspose1d.weight (Cin, Cout, K)
+    MelGAN conv_pre / up_i / resblock_i_j / conv_post -> model.{idx}[.block.2|.block.4|.shortcut]
     Vocos params/<name>, params/block_i/<name> -> <name>, blocks.i.<name>,
                                               same shape (no reference layout)
 
@@ -204,11 +207,45 @@ def vocos_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def melgan_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """{"params"} of the JAX `MelGANGenerator` -> state_dict of the port's, in
+    the melgan-neurips sequential layout: [pad, conv_pre] + per ratio [leaky,
+    convT, resblock x n] + [leaky, pad, conv_post, tanh]."""
+    leaves = _Leaves(variables)
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(flax_prefix: str, out: str) -> None:
+        sd[f"{out}.weight"] = leaves.take(f"{flax_prefix}_w").permute(2, 1, 0).contiguous()
+        sd[f"{out}.bias"] = leaves.take(f"{flax_prefix}_b")
+
+    conv("params/conv_pre", "model.1")
+    idx, i = 2, 0
+    while f"params/up_{i}_w" in leaves.flat:
+        idx += 1                                    # LeakyReLU
+        w = leaves.take(f"params/up_{i}_w")         # flipped (K, Cin, Cout)
+        sd[f"model.{idx}.weight"] = w.permute(1, 2, 0).flip(-1).contiguous()
+        sd[f"model.{idx}.bias"] = leaves.take(f"params/up_{i}_b")
+        idx += 1
+        j = 0
+        while f"params/resblock_{i}_{j}/conv1_w" in leaves.flat:
+            blk = f"params/resblock_{i}_{j}"
+            conv(f"{blk}/conv1", f"model.{idx}.block.2")
+            conv(f"{blk}/conv2", f"model.{idx}.block.4")
+            conv(f"{blk}/shortcut", f"model.{idx}.shortcut")
+            idx, j = idx + 1, j + 1
+        i += 1
+    conv("params/conv_post", f"model.{idx + 2}")   # after LeakyReLU, ReflectionPad
+    leaves.finish()
+    return sd
+
+
 def vocoder_state_dict(family: str, variables: dict) -> dict[str, torch.Tensor]:
     """The bridge of the configured vocoder family (`config.model.vocoder_model`)."""
     name = vocoder_family(family)
-    if name.startswith("hifigan"):
+    if name.startswith("hifigan") or name in ("istftnet", "istftnetmel"):
         return hifigan_state_dict(variables)
+    if name == "melgan":
+        return melgan_state_dict(variables)
     if name == "vocos":
         return vocos_state_dict(variables)
     raise NotImplementedError(f"no weight bridge for vocoder family {family!r} yet (ROADMAP A8)")

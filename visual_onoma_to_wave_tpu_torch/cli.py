@@ -9,7 +9,8 @@
     python -m visual_onoma_to_wave_tpu_torch.cli preprocess <config> [--device cpu]
 
 Weights are the `.npz` trees written by `examples/export_demo_for_torch.py`;
-configs load through the reference's `cli.load_config`.
+configs load through `config.load_config` (JSON, YAML or the reference's
+three-YAML directory).
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ import json
 
 
 def cmd_synthesize(args) -> None:
-    from visual_onoma_to_wave_tpu.cli import load_config
-    from visual_onoma_to_wave_tpu.data.audio_io import write_wav
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
     from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
     cfg = load_config(args.config)
@@ -35,8 +36,8 @@ def cmd_synthesize(args) -> None:
 
 
 def cmd_serve(args) -> None:
-    from visual_onoma_to_wave_tpu.cli import load_config
-    from visual_onoma_to_wave_tpu.serve import BatchingServer
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.serve import BatchingServer
     from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
     cfg = load_config(args.config)
@@ -51,7 +52,7 @@ def cmd_serve(args) -> None:
 
 
 def cmd_preprocess(args) -> None:
-    from visual_onoma_to_wave_tpu.cli import load_config
+    from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
 
     cfg = load_config(args.config)
@@ -81,7 +82,7 @@ def main(argv=None):
     s.add_argument("--out", default="out.wav")
     s.set_defaults(fn=cmd_synthesize)
 
-    s = sub.add_parser("serve", help="JSON API with micro-batching (the reference server)")
+    s = sub.add_parser("serve", help="JSON API with micro-batching")
     common(s)
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=7870)

@@ -1,22 +1,36 @@
-"""The iSTFT head (port of the head of visual_onoma_to_wave_tpu/models/istftnet.py).
+"""iSTFTNet generators and the iSTFT head (port of visual_onoma_to_wave_tpu/models/istftnet.py).
 
-Only what the Vocos generator needs so far: the magnitude cap, the fixed
-synthesis basis (irfft + Hann window as one (2*n_bins, n_fft) matrix), the
-window sum-square normaliser and `istft_overlap_add`. The basis and the
-normaliser are numpy constants, computed in float64 as the reference does;
-the basis product is a plain fp32 matrix product (`torch.matmul`, IEEE fp32
-with TF32 off, as the reference's Precision.HIGHEST), followed by the 4-way
-shifted add of the hop = n_fft / 4 overlap. The iSTFTNet generators
-themselves are not ported yet (ROADMAP A8).
+The head, shared with Vocos: the magnitude cap, the fixed synthesis basis
+(irfft + Hann window as one (2*n_bins, n_fft) matrix), the window sum-square
+normaliser and `istft_overlap_add`. The basis and the normaliser are numpy
+constants, computed in float64 as the reference does; the basis product is a
+plain fp32 matrix product (`torch.matmul`, IEEE fp32 with TF32 off, as the
+reference's Precision.HIGHEST), followed by the 4-way shifted add of the
+hop = n_fft / 4 overlap.
+
+The generators: HiFi-GAN's trunk (conv_pre, transposed-conv upsampling,
+multi-receptive-field stages of `ResBlock1` branches) stopped early, then
+leaky ReLU 0.01, `conv_post` to log-magnitude and phase, and the iSTFT. The
+presets are C8C8I (two x8 stages, 16-point iSTFT) and melrate (no learned
+upsampling, one MRF stage at mel rate, 1024-point iSTFT). Module names are
+those of the port's HiFi-GAN (`conv_pre`, `ups.i`, `resblocks.r` with
+r = i * 3 + j, `conv_post`), so `bridge.hifigan_state_dict` maps the JAX
+tree. On the card every MRF stage is one launch of the fused MRF kernel
+(`ops/mrf.py`, `csrc/mrf.cu`); on the CPU it runs through the `ResBlock1`
+modules.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
+from visual_onoma_to_wave_tpu_torch.models.hifigan import LRELU_SLOPE, ResBlock1
+from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, pack_mrf_weights
 from visual_onoma_to_wave_tpu_torch.ops.stft import hann_window
 
 # mag = exp(min(logmag, ln(_MAX_MAG))), as the reference caps it
@@ -71,3 +85,114 @@ def istft_overlap_add(frames_ri: torch.Tensor, n_fft: int) -> torch.Tensor:
     full = sum(F.pad(y[:, :, q], (0, 0, q, 3 - q)) for q in range(4)).reshape(b, (n + 3) * hop)
     trim = (n_fft - hop) // 2
     return full[:, trim: trim + n * hop] / wss
+
+
+# named architecture presets (total upsampling 256 = hop_length for both)
+ISTFT_PRESETS: dict[str, dict] = {
+    # iSTFTNet C8C8I (arXiv:2203.02395 Table 1): two x8 stages, 16-point iSTFT
+    "c8c8i": dict(upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16), istft_n_fft=16),
+    # mel rate: no learned upsampling, a 1024-point iSTFT
+    "melrate": dict(upsample_rates=(), upsample_kernel_sizes=(), istft_n_fft=1024),
+}
+
+
+class ISTFTNetGenerator(nn.Module):
+    """Mel (B, T, n_mels) -> waveform (B, T * total_upsample), float32."""
+
+    def __init__(self, upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+                 upsample_initial_channel: int = 512, resblock_kernel_sizes=(3, 7, 11),
+                 resblock_dilations=((1, 3, 5),) * 3, n_mels: int = 80, istft_n_fft: int = 16,
+                 post_kernel_size: int = 7):
+        super().__init__()
+        ch0 = upsample_initial_channel
+        self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
+        self.istft_n_fft = istft_n_fft
+        self.post_kernel_size = post_kernel_size
+        self.num_kernels = len(resblock_kernel_sizes)
+        self.conv_pre = nn.Conv1d(n_mels, ch0, 7, padding=3)
+        self.ups = nn.ModuleList(
+            nn.ConvTranspose1d(ch0 // 2 ** i, ch0 // 2 ** (i + 1), k, stride=u,
+                               padding=(k - u) // 2)
+            for i, (u, k) in enumerate(zip(self.upsample_rates, self.upsample_kernel_sizes)))
+        # one MRF stage after each upsampling, or one at mel rate without any
+        widths = [ch0 // 2 ** (i + 1) for i in range(len(self.ups))] or [ch0]
+        self.resblocks = nn.ModuleList(
+            ResBlock1(c, rk, rd) for c in widths
+            for rk, rd in zip(self.resblock_kernel_sizes, self.resblock_dilations))
+        self.conv_post = nn.Conv1d(widths[-1], 2 * (istft_n_fft // 2 + 1), post_kernel_size,
+                                   padding=(post_kernel_size - 1) // 2)
+        self._packed: dict[int, tuple] = {}   # stage -> (weights' identity, packed weights)
+
+    @property
+    def istft_hop(self) -> int:
+        return self.istft_n_fft // 4
+
+    @property
+    def total_upsample(self) -> int:
+        return int(np.prod(self.upsample_rates, dtype=np.int64)) * self.istft_hop
+
+    def _stage_blocks(self, i: int):
+        n = self.num_kernels
+        return self.resblocks[i * n:(i + 1) * n]
+
+    def _packed_stage(self, i: int):
+        """The stage's weights packed for the kernel, packed again only when a
+        weight changed (a new tensor, or an in-place write such as
+        `load_state_dict`, which bumps its version counter)."""
+        params = list(self._stage_blocks(i).parameters())
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        cached = self._packed.get(i)
+        if cached is None or cached[0] != key:
+            cached = (key, pack_mrf_weights(self._stage_blocks(i)))
+            self._packed[i] = cached
+        return cached[1]
+
+    def _mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda":
+            (w3, w7, w11), bias = self._packed_stage(i)
+            return mrf_stage_fused(x, w3, w7, w11, bias, self.resblock_kernel_sizes,
+                                   self.resblock_dilations)
+        acc = None
+        for block in self._stage_blocks(i):
+            y = block(x)
+            acc = y if acc is None else acc + y
+        return acc / self.num_kernels
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = self.conv_pre(mel.transpose(1, 2))
+        for i, up in enumerate(self.ups):
+            x = self._mrf(i, up(F.leaky_relu(x, LRELU_SLOPE)))
+        if not self.ups:
+            x = self._mrf(0, x)
+        spec = self.conv_post(F.leaky_relu(x, 0.01)).float().transpose(1, 2)  # head in fp32
+        n_bins = self.istft_n_fft // 2 + 1
+        logmag, phase = spec[..., :n_bins], spec[..., n_bins:]
+        mag = torch.exp(torch.clamp(logmag, max=math.log(_MAX_MAG)))
+        frames = torch.cat([mag * torch.cos(phase), mag * torch.sin(phase)], dim=-1)
+        return istft_overlap_add(frames, self.istft_n_fft)
+
+    def receptive_halo_frames(self) -> int:
+        """One-sided receptive field in input mel frames (for sample-exact
+        chunked vocoding), as the reference computes it."""
+        hop = self.istft_hop
+        pad = (self.istft_n_fft - hop) // 2
+        halo = max(-(-(self.istft_n_fft - 1 - pad) // hop), -(-(self.istft_n_fft - hop) // hop))
+        halo += (self.post_kernel_size - 1) // 2
+        mrf = max(sum((d + 1) * (rk - 1) // 2 for d in rd)
+                  for rk, rd in zip(self.resblock_kernel_sizes, self.resblock_dilations))
+        if not self.upsample_rates:
+            halo += mrf
+        for u, k in zip(reversed(self.upsample_rates), reversed(self.upsample_kernel_sizes)):
+            halo += mrf
+            halo = -(-(halo + k - 1 - (k - u) // 2) // u)
+        return halo + 3  # conv_pre k = 7
+
+
+def build_istftnet(preset: str = "c8c8i", **overrides) -> ISTFTNetGenerator:
+    """An ISTFTNetGenerator from a named preset plus overrides."""
+    kw = dict(ISTFT_PRESETS[preset.lower()])
+    kw.update(overrides)
+    return ISTFTNetGenerator(**kw)

@@ -1,19 +1,19 @@
 """Vocoder family dispatch (port of visual_onoma_to_wave_tpu/models/vocoder.py).
 
-HiFi-GAN (V1/V2/V3) and Vocos are ported; the other families of the
-reference raise `NotImplementedError` naming their ROADMAP item.
+HiFi-GAN (V1/V2/V3), MelGAN, iSTFTNet (C8C8I), iSTFTNet-mel (melrate) and
+Vocos are ported; BigVGAN raises `NotImplementedError` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.models.hifigan import HIFIGAN_PRESETS, HiFiGANGenerator
+from visual_onoma_to_wave_tpu_torch.models.istftnet import build_istftnet
+from visual_onoma_to_wave_tpu_torch.models.melgan import MelGANGenerator
 from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator
 
 _NOT_PORTED = {
-    "melgan": "ROADMAP A8 (vocoder families: MelGAN)",
-    "istftnet": "ROADMAP A8 (vocoder families: iSTFTNet)",
-    "istftnetmel": "ROADMAP A8 (vocoder families: iSTFTNet-mel)",
     "bigvgan": "ROADMAP A8 (vocoder families: BigVGAN)",
     "bigvganbase": "ROADMAP A8 (vocoder families: BigVGAN)",
     "bigvganlarge": "ROADMAP A8 (vocoder families: BigVGAN)",
@@ -38,6 +38,10 @@ def get_vocoder(model: str = "HiFi-GAN", **kwargs) -> nn.Module:
         preset = dict(HIFIGAN_PRESETS[name[-2:] if name != "hifigan" else "v1"])
         preset.update(kwargs)
         return HiFiGANGenerator(**preset)
+    if name == "melgan":
+        return MelGANGenerator(**kwargs)
+    if name in ("istftnet", "istftnetmel"):
+        return build_istftnet("melrate" if name == "istftnetmel" else "c8c8i", **kwargs)
     if name == "vocos":
         return VocosGenerator(**{k: v for k, v in kwargs.items() if k not in _VOCOS_TPU_KEYS})
     if name in _NOT_PORTED:

@@ -110,8 +110,8 @@ class VTTS(nn.Module):
     @classmethod
     def from_config(cls, config, metadata=None, n_vocab: int = 64,
                     max_mel_len: int | None = None) -> "VTTS":
-        """The reference's `VTTS.from_config` on a `visual_onoma_to_wave_tpu.config.Config`
-        (read by attribute; this module does not import it). `model.fused_attention`
+        """The reference's `VTTS.from_config` on the port's `config.Config` (read
+        by attribute; this module does not import it). `model.fused_attention`
         is ignored: every attention call takes `ops.attention.attention_core`."""
         m, t = config.model, config.model.transformer
         if t.decoder_hidden != t.encoder_hidden:

@@ -19,6 +19,11 @@ from visual_onoma_to_wave_tpu_torch.ops.mel import (
     mel_frontend,
     mel_frontend_reference,
 )
+from visual_onoma_to_wave_tpu_torch.ops.mrf import (
+    mrf_stage_fused,
+    mrf_stage_fused_reference,
+    pack_mrf_weights,
+)
 
 __all__ = [
     "attention_core",
@@ -34,4 +39,7 @@ __all__ = [
     "length_regulate",
     "mel_frontend",
     "mel_frontend_reference",
+    "mrf_stage_fused",
+    "mrf_stage_fused_reference",
+    "pack_mrf_weights",
 ]

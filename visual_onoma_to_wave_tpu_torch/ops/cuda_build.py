@@ -29,7 +29,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_mha", "convnext", "mel_frontend")
+SOURCES = ("flash_mha", "convnext", "mel_frontend", "mrf")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

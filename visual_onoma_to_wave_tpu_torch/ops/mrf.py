@@ -1,0 +1,184 @@
+"""One HiFi-GAN multi-receptive-field (MRF) stage: CUDA kernel + plain PyTorch version.
+
+Replaces the TPU kernel `visual_onoma_to_wave_tpu/ops/pallas_mrf.py::
+mrf_stage_fused`. On x (B, C, T), per branch b with kernel size k_b and
+dilations (d_0, d_1, d_2):
+
+    y = x
+    for d in dilations:
+        h = conv_k,d(lrelu_0.1(y)) + bias       (zero padding at the edges of [0, T))
+        y = y + conv_k,1(lrelu_0.1(h)) + bias
+    out = (y_0 + y_1 + y_2) / 3
+
+Operands are fp32 or bf16 (`dtype`): x, the weights and every conv input
+are rounded to `dtype`, every product accumulates in fp32, the residual
+streams stay fp32 and the output is rounded to `dtype`, as the TPU kernel
+does (pallas_mrf.py:90-127).
+
+Weights travel packed as in the TPU kernel (`pack_mrf_weights`): per branch
+a (6, C, k*C) matrix holding its convs in execution order (conv1 of d_0,
+conv2 of d_0, conv1 of d_1, ...) with A[co, j*C + ci] = W[co, ci, j] for a
+Conv1d weight W (Cout, Cin, k), and the 18 biases as (18, C, 1) fp32.
+
+`mrf_stage_fused` launches the CUDA kernel (`csrc/mrf.cu`, built at first
+use by `ops/cuda_build.py`) for tensors on the card and takes
+`mrf_stage_fused_reference` for tensors on the CPU. It never falls back: a
+CUDA tensor the kernel does not take (C outside 32/64/128/256/512, other
+than three branches of three dilations, an even kernel size or one above
+11, a stage reaching further than `HALO` frames), a failed build, a refused
+launch or a call that would need a gradient raises. Any T is taken: the TPU
+kernel's t_tile % 128 and C-per-sublane rules are tiling rules of the TPU.
+`mrf_stage_fused.launches` counts kernel launches.
+
+What bounds the kernel on the card, and its design, is written in
+`csrc/mrf.cu`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from visual_onoma_to_wave_tpu_torch.ops.cuda_build import (
+    check_inference,
+    check_launch,
+    load_library,
+)
+
+HALO = 128          # the furthest one-sided reach of a stage the kernel takes, in frames
+KERNEL_SIZES = (3, 7, 11)
+DILATIONS = ((1, 3, 5),) * 3
+SLOPE = 0.1
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_WIDTHS = (32, 64, 128, 256, 512)
+_MAX_K = 11
+
+
+def stage_halo(kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> int:
+    """One-sided receptive half-width of one MRF stage in frames."""
+    return max(sum((d + 1) * (k - 1) // 2 for d in ds)
+               for k, ds in zip(kernel_sizes, dilations))
+
+
+def pack_mrf_weights(resblocks) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Pack one stage's `ResBlock1` modules (one per branch) for the kernel:
+    ([A_0, A_1, A_2], biases), A_b (6, C, k_b*C) with A[co, j*C + ci] =
+    W[co, ci, j] in execution order, biases (3*6, C, 1) fp32. Copies the
+    weights: pack once per weight change, not per call."""
+    mats, biases = [], []
+    with torch.no_grad():
+        for block in resblocks:
+            rows = []
+            for c1, c2 in zip(block.convs1, block.convs2):
+                for conv in (c1, c2):
+                    w = conv.weight.detach()                        # (Cout, Cin, k)
+                    c, k = w.shape[0], w.shape[-1]
+                    rows.append(w.permute(0, 2, 1).reshape(c, k * c))
+                    biases.append(conv.bias.detach().float())
+            mats.append(torch.stack(rows).contiguous())
+        return mats, torch.stack(biases)[:, :, None].contiguous()
+
+
+def mrf_stage_fused_reference(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor,
+                              w11: torch.Tensor, biases: torch.Tensor,
+                              kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
+                              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the 18-conv chain in `F.conv1d`
+    (tests/test_pallas_mrf.py::_xla_stage). Returns (B, C, T) in `dtype`
+    (x.dtype by default)."""
+    dtype = dtype or x.dtype
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        # bf16 operands: products of bf16 values are exact in fp32, so fp32
+        # convs of the rounded operands are bf16 products with fp32 sums
+        return t.to(dtype).float()
+
+    C = x.shape[1]
+    bias = biases.reshape(-1, C).float()
+    x32 = rnd(x)
+    acc = None
+    for b, (a, k, ds) in enumerate(zip((w3, w7, w11), kernel_sizes, dilations)):
+        # (6, Cout, Cin, k), contiguous as a Conv1d weight is
+        w = rnd(a).reshape(2 * len(ds), C, k, C).permute(0, 1, 3, 2).contiguous()
+        y = x32
+        for i, d in enumerate(ds):
+            h = F.conv1d(rnd(F.leaky_relu(y, SLOPE)), w[2 * i], bias[6 * b + 2 * i],
+                         padding=d * (k - 1) // 2, dilation=d)
+            h = F.conv1d(rnd(F.leaky_relu(h, SLOPE)), w[2 * i + 1], bias[6 * b + 2 * i + 1],
+                         padding=(k - 1) // 2)
+            y = y + h
+        acc = y if acc is None else acc + y
+    return (acc / len(kernel_sizes)).to(dtype)
+
+
+def _checked(x, mats, biases, kernel_sizes, dilations, dtype) -> None:
+    """Raise on what the kernel does not take; the device is checked last."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"mrf_stage_fused kernel takes float32/bfloat16; got {dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"mrf_stage_fused takes x as (B, C, T); got {tuple(x.shape)}")
+    C = x.shape[1]
+    if C not in _WIDTHS:
+        raise ValueError(f"mrf_stage_fused kernel takes C in {_WIDTHS}; got {C}")
+    if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or len(dilations) != 3:
+        raise ValueError("mrf_stage_fused kernel takes three branches of three dilations; got "
+                         f"kernel_sizes {kernel_sizes}, dilations {dilations}")
+    if any(k % 2 == 0 or not 1 <= k <= _MAX_K for k in kernel_sizes):
+        raise ValueError(f"mrf_stage_fused kernel takes odd kernel sizes up to {_MAX_K}; "
+                         f"got {kernel_sizes}")
+    if any(d < 1 for ds in dilations for d in ds):
+        raise ValueError(f"mrf_stage_fused: dilations must be >= 1; got {dilations}")
+    if stage_halo(kernel_sizes, dilations) > HALO:
+        raise ValueError(f"stage receptive field {stage_halo(kernel_sizes, dilations)} "
+                         f"exceeds the kernel's {HALO}-frame halo")
+    for a, k in zip(mats, kernel_sizes):
+        if tuple(a.shape) != (6, C, k * C) or a.device != x.device:
+            raise ValueError(f"mrf_stage_fused: weights {tuple(a.shape)} on {a.device} do not "
+                             f"fit x {tuple(x.shape)} on {x.device} (expected (6, {C}, {k * C}))")
+    if biases.numel() != 18 * C or biases.device != x.device:
+        raise ValueError(f"mrf_stage_fused: biases {tuple(biases.shape)} on {biases.device} "
+                         f"do not fit (18, {C}, 1)")
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage_fused: unsupported device {x.device}")
+
+
+def _load_library() -> ctypes.CDLL:
+    # 7 pointers; batch, C, T, 3 kernel sizes, 9 dilations, dtype; stream
+    return load_library("mrf", {
+        "mrf_stage_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]})
+
+
+def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
+                    biases: torch.Tensor, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One MRF stage. x: (B, C, T); weights from `pack_mrf_weights`; returns
+    (B, C, T) in `dtype` (x.dtype by default). CPU tensors take
+    `mrf_stage_fused_reference`; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return mrf_stage_fused_reference(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype)
+    dtype = dtype or x.dtype
+    kernel_sizes = tuple(int(k) for k in kernel_sizes)
+    dilations = tuple(tuple(int(d) for d in ds) for ds in dilations)
+    _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype)
+    check_inference("mrf_stage", x, w3, w7, w11, biases)
+    B, C, T = x.shape
+    xk = x.to(dtype).contiguous()
+    mats = [a.to(dtype).contiguous() for a in (w3, w7, w11)]
+    bias = biases.float().contiguous()
+    out = torch.empty(B, C, T, dtype=dtype, device=x.device)
+    # per branch its residual stream y_b and its conv1 output h_b, fp32
+    scratch = torch.empty(6, B, C, T, dtype=torch.float32, device=x.device)
+    lib = _load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mrf_stage_fwd(
+            xk.data_ptr(), out.data_ptr(), scratch.data_ptr(), *(a.data_ptr() for a in mats),
+            bias.data_ptr(), B, C, T, *kernel_sizes, *(d for ds in dilations for d in ds),
+            _DTYPE_CODES[dtype], stream)
+    check_launch("mrf_stage", err)
+    mrf_stage_fused.launches += 1
+    return out
+
+
+mrf_stage_fused.launches = 0

@@ -6,11 +6,11 @@
 `make_fused_infer` is the serving hot path: acoustic forward and vocoder as
 one call per padded batch. `Synthesizer` keeps the reference's surface
 (`synthesize`, `synthesize_batch`, `batch_signature`, `metadata`,
-`symbol_map`, `use_image`, `vocoder_params`, `config`), so the reference's
-`serve.BatchingServer` serves it unchanged. The reference's host-side
-modules (config, renderer, symbols) are reused, imported where used so that
-the compute core here imports with torch and numpy alone. Not ported: the
-device mesh, the persistent compile cache, and the standalone `vocode`.
+`symbol_map`, `use_image`, `vocoder_params`, `config`), which the port's
+`serve.BatchingServer` serves. The host modules (config, renderer, symbols)
+are the port's own, imported where used so that the compute core here
+imports with torch and numpy alone. Not ported: the device mesh, the
+persistent compile cache, and the standalone `vocode`.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from visual_onoma_to_wave_tpu_torch.bridge import load_npz, vocoder_state_dict, vtts_state_dict
+from visual_onoma_to_wave_tpu_torch.models.melgan import LN10, MelGANGenerator
 from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
 from visual_onoma_to_wave_tpu_torch.precision import pin_fp32
@@ -41,14 +42,18 @@ def make_fused_infer(model: VTTS, gen):
     """Acoustic forward + vocoder as one call: `fused(batch, e_control,
     d_control) -> outputs of model(...) plus "wav"`. `batch` holds
     audiotypes, texts, src_lens and, on the image path, image_cells, as
-    tensors on the models' device; controls are scalars or per-item (B,)."""
+    tensors on the models' device; controls are scalars or per-item (B,).
+    A MelGAN generator takes log10 mels, so it is fed mel / ln 10 (the
+    reference's vocoder_infer, JAX synthesis.py:67)."""
+    mel_scale = LN10 if isinstance(gen, MelGANGenerator) else None
 
     @torch.inference_mode()
     def fused(batch: dict, e_control=1.0, d_control=1.0) -> dict:
         out = model(batch["audiotypes"], batch["texts"], batch["src_lens"],
                     image_cells=batch.get("image_cells"),
                     e_control=e_control, d_control=d_control)
-        return {**out, "wav": gen(out["postnet_mel"])}
+        mel = out["postnet_mel"]
+        return {**out, "wav": gen(mel if mel_scale is None else mel / mel_scale)}
 
     return fused
 
@@ -66,9 +71,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
 class Synthesizer:
     def __init__(self, config, model: VTTS, metadata, symbol_map: dict[str, int],
                  vocoder=None, device: str | torch.device = "cuda"):
-        """config: a `visual_onoma_to_wave_tpu.config.Config`; model and vocoder
-        (a generator module, or None for mel-only synthesis) hold their weights."""
-        from visual_onoma_to_wave_tpu.data.renderer import VisualTextRenderer
+        """config: a `config.Config`; model and vocoder (a generator module,
+        or None for mel-only synthesis) hold their weights."""
+        from visual_onoma_to_wave_tpu_torch.data.renderer import VisualTextRenderer
 
         self.device = resolve_device(device)
         self.config = config
@@ -80,8 +85,8 @@ class Synthesizer:
         self.cell_width = metadata.max_pixelsize
         self.renderer = VisualTextRenderer.from_config(config)
         self._fused = make_fused_infer(self.model, self.vocoder) if vocoder is not None else None
-        # serializes calls: the reference server can have two in-flight
-        # device calls, and module forwards are not re-entrant on one stream
+        # serializes calls: the server can have two in-flight device calls,
+        # and module forwards are not re-entrant on one stream
         self._lock = threading.Lock()
         self.text_bucket = 4
 
@@ -97,8 +102,8 @@ class Synthesizer:
         """Load the acoustic (and vocoder) `.npz` trees written by
         `examples/export_demo_for_torch.py`, with metadata and vocabulary from
         `config.path.preprocessed`."""
-        from visual_onoma_to_wave_tpu.config import DatasetMetadata
-        from visual_onoma_to_wave_tpu.data.symbols import build_symbol_map, load_symbol_map
+        from visual_onoma_to_wave_tpu_torch.config import DatasetMetadata
+        from visual_onoma_to_wave_tpu_torch.data.symbols import build_symbol_map, load_symbol_map
 
         metadata = DatasetMetadata.load(config.path.preprocessed)
         symbol_map = (load_symbol_map(config.path.preprocessed)
@@ -125,7 +130,7 @@ class Synthesizer:
         """Ids; on the image path unknown characters map to PAD (ids are unused)."""
         if self.use_image:
             return np.asarray([self.symbol_map.get(c, 0) for c in text], np.int32)
-        from visual_onoma_to_wave_tpu.data.symbols import encode_text
+        from visual_onoma_to_wave_tpu_torch.data.symbols import encode_text
         try:
             return np.asarray(encode_text(text, self.symbol_map), np.int32)
         except KeyError as e:
