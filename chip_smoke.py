@@ -13,11 +13,14 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      the path's shapes; times both, and `scaled_dot_product_attention`, at
      the serving decoder shape;
   2b. convnext: holds the ConvNeXt block and trunk kernels against their
-     plain versions (fp32 and bf16, tanh and erf GELU, T 20 / 512 / 1000,
-     demo and full widths, L 4 and 8) and the trunk against L block
-     launches; times block vs plain and trunk vs 8 blocks vs plain, and the
-     library chain (cuDNN depthwise conv, LayerNorm, cuBLAS products), at the
-     full served shape;
+     plain versions (fp32 and bf16, tanh and erf GELU, T 20 / 63 / 64 / 65 /
+     129 / 512 / 1000 around the 64-frame tile, demo and full widths, L 4 and
+     8) and the trunk against L block launches; at the full served shape, in
+     fp32 and in bf16, times block vs plain and trunk vs 8 blocks vs plain,
+     and the library chain in the same type (cuDNN depthwise conv,
+     LayerNorm, cuBLAS products), with the weights packed once as the served
+     path packs them; prints achieved TFLOP/s beside the fp32 CUDA-core
+     bound and the tensor-core bound (3xTF32 for fp32, bf16);
   3. golden: the committed demo weights (`examples/checkpoints/demo/torch/`)
      through the port's fused acoustic + vocoder step, against the JAX
      package's outputs stored in `golden.npz`;
@@ -62,7 +65,9 @@ checked by `tests/test_torch_preprocess_cuda.py`.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its main path, its error against the plain version, kernel,
-plain and library ms and the card's bound at the timed shape); the last line
+plain and library ms and the card's bound at the timed shape; for the
+ConvNeXt kernels the bound is that of the tensor cores, fp32 as 3xTF32, with
+the fp32 CUDA-core bound and the bf16 numbers beside it); the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX and nothing of the
 JAX package (`visual_onoma_to_wave_tpu`).
 """
@@ -99,16 +104,21 @@ CONVNEXT_ATOL = {torch.float32: 5e-5}
 CONVNEXT_BF16_OF_SCALE = 0.03
 # ConvNeXt widths (C, M): the demo Vocos and the published mel-Vocos
 CONVNEXT_WIDTHS = ((128, 384), (512, 1536))
+# the ConvNeXt parity cases' T: short, around one and two 64-frame tiles, long
+CONVNEXT_T = (20, 63, 64, 65, 129, 512, 1000)
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense, at the
-# full 700 W): fp32 outside the tensor cores, and HBM3
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# full 700 W): fp32 outside the tensor cores, TF32 and bf16 on the tensor
+# cores, and HBM3
+PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BF16_FLOPS = 67e12, 495e12, 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations over
-    the fp32 peak and the bytes (each input read once, each output written
-    once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    `peak_flops` (by default the fp32 peak outside the tensor cores) and the
+    bytes (each input read once, each output written once) over the memory
+    rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -154,8 +164,26 @@ def phase_probe() -> dict:
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi, **flags,
         build_s=time.perf_counter() - t0,
-        libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
+        libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
+        tensor_core_instructions={name: sass_mma_counts(path) for name, path in libs.items()})
     return {"smi": smi}
+
+
+def sass_mma_counts(library: pathlib.Path) -> dict | str:
+    """Tensor-core instructions in a built library's machine code: wgmma
+    (HGMMA) and mma.sync (HMMA), as `cuobjdump -sass` lists them."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    return {op: sum(line.split()[1].startswith(op) for line in sass.splitlines()
+                    if line.strip().startswith("/*") and len(line.split()) > 1)
+            for op in ("HGMMA", "HMMA")}
 
 
 def _wrappers() -> dict:
@@ -312,13 +340,14 @@ def _check_close(what: str, out, ref) -> float:
 
 def phase_convnext(dev, card: str) -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.convnext import (
-        convnext_block, convnext_block_reference, convnext_trunk, convnext_trunk_reference)
+        convnext_block, convnext_block_reference, convnext_trunk, convnext_trunk_reference,
+        pack_convnext_weights)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {(k, d): 0.0 for k in ("block", "trunk") for d in (torch.float32, torch.bfloat16)}
     cases = 0
     for C, M in CONVNEXT_WIDTHS:
-        for T in (20, 512, 1000):
+        for T in CONVNEXT_T:
             for dtype in (torch.float32, torch.bfloat16):
                 for tanh in (True, False):
                     x = torch.randn(2, T, C, generator=gen, device=dev).to(dtype)
@@ -347,61 +376,96 @@ def phase_convnext(dev, card: str) -> dict:
                         cases += 1
 
     # time at the full served shape: B 16, T 1000 (ICASSP max_mel_len), the
-    # published widths, 8 blocks, fp32; alternate kernel and plain
+    # published widths, 8 blocks, in fp32 and in bf16; alternate kernel and
+    # plain. The kernels take the weights packed once, as the served path
+    # (models/vocos.py) does; the library chain runs in the operand type.
     L, (C, M) = 8, CONVNEXT_WIDTHS[-1]
-    x = torch.randn(B, MAX_MEL, C, generator=gen, device=dev)
-    ws = convnext_weights(L, C, M, gen, dev)
-    w0 = [w[0] for w in ws]
+    timed, full_err = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x = torch.randn(B, MAX_MEL, C, generator=gen, device=dev).to(dtype)
+        ws = convnext_weights(L, C, M, gen, dev)
+        w0 = [w[0] for w in ws]
+        packed, packed0 = (pack_convnext_weights(ws[4], ws[6], dtype),
+                           pack_convnext_weights(w0[4], w0[6], dtype))
+        # the library chain in the operand type (its vectors too)
+        lw = [w.to(dtype) for w in ws]
+        lw0 = [w[0] for w in lw]
 
-    def eight_blocks():
-        y = x
-        for layer in zip(*ws):
-            y = convnext_block(y, *layer)
-        return y
+        def eight_blocks(x=x, ws=ws, packed=packed):
+            y = x
+            for layer, p in zip(zip(*ws), packed):
+                y = convnext_block(y, *layer, packed=p)
+            return y
 
-    def eight_library():
-        y = x
-        for layer in zip(*ws):
-            y = convnext_library(y, *layer)
-        return y
+        def eight_library(x=x, lw=lw):
+            y = x
+            for layer in zip(*lw):
+                y = convnext_library(y, *layer)
+            return y
 
-    runs = {"block": lambda: convnext_block(x, *w0),
-            "block_plain": lambda: convnext_block_reference(x, *w0),
-            "block_library": lambda: convnext_library(x, *w0),
-            "trunk": lambda: convnext_trunk(x, *ws),
-            "eight_blocks": eight_blocks,
-            "trunk_plain": lambda: convnext_trunk_reference(x, *ws),
-            "trunk_library": eight_library}
-    full_err = {"block": _check_close("convnext_block full shape", runs["block"](),
+        runs = {"block": lambda x=x, w0=w0, p=packed0: convnext_block(x, *w0, packed=p),
+                "block_plain": lambda x=x, w0=w0: convnext_block_reference(x, *w0),
+                "block_library": lambda x=x, lw0=lw0: convnext_library(x, *lw0),
+                "trunk": lambda x=x, ws=ws, p=packed: convnext_trunk(x, *ws, packed=p),
+                "eight_blocks": eight_blocks,
+                "trunk_plain": lambda x=x, ws=ws: convnext_trunk_reference(x, *ws),
+                "trunk_library": eight_library}
+        errs = {"block": _check_close(f"convnext_block full shape {name}", runs["block"](),
                                       runs["block_plain"]()),
-                "trunk": _check_close("convnext_trunk full shape", runs["trunk"](),
+                "trunk": _check_close(f"convnext_trunk full shape {name}", runs["trunk"](),
                                       runs["trunk_plain"]()),
-                "library": _check_close("convnext library chain", runs["block_library"](),
-                                        runs["block_plain"]())}
-    times = {k: [] for k in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for k in order:
-            times[k].append(time_cuda(runs[k], 5, warmup=2))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
-    worst["block", torch.float32] = max(worst["block", torch.float32], full_err["block"])
-    worst["trunk", torch.float32] = max(worst["trunk", torch.float32], full_err["trunk"])
-    faster = min(("trunk", "eight_blocks", "trunk_plain", "trunk_library"), key=ms.get)
-    flops, block_bytes = convnext_cost(x, w0)
-    bounds = {"block": bound(flops, block_bytes),
-              "trunk": bound(L * flops, nbytes(x, x, *ws))}
+                # the bf16 chain rounds at other points (conv output, GELU
+                # input): its error is printed, not held to the kernels' bound
+                "library": (_check_close("convnext library chain fp32", runs["block_library"](),
+                                         runs["block_plain"]()) if dtype == torch.float32 else
+                            (runs["block_library"]().float()
+                             - runs["block_plain"]().float()).abs().max().item())}
+        times = {k: [] for k in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for k in order:
+                times[k].append(time_cuda(runs[k], 5, warmup=2))
+        ms = {k: float(np.mean(v)) for k, v in times.items()}
+        worst["block", dtype] = max(worst["block", dtype], errs["block"])
+        worst["trunk", dtype] = max(worst["trunk", dtype], errs["trunk"])
+        flops, block_bytes = convnext_cost(x, [w.to(dtype) if i in (0, 4, 6) else w
+                                               for i, w in enumerate(w0)])
+        trunk_bytes = 2 * nbytes(x) + L * (block_bytes - 2 * nbytes(x))   # x, y, L layers
+        # tensor cores: fp32 runs three TF32 products (3xTF32), bf16 one
+        tc_flops, tc_peak = ((3 * flops, PEAK_TF32_FLOPS) if dtype == torch.float32
+                             else (flops, PEAK_BF16_FLOPS))
+        bounds = {"block": {"tensor_cores": bound(tc_flops, block_bytes, tc_peak),
+                            "fp32_cuda_cores": bound(flops, block_bytes)},
+                  "trunk": {"tensor_cores": bound(L * tc_flops, trunk_bytes, tc_peak),
+                            "fp32_cuda_cores": bound(L * flops, trunk_bytes)}}
+        timed[dtype] = {"ms": ms, "bounds": bounds}
+        full_err[name] = errs
+        say(f"2b convnext {name}", card=card,
+            shape_timed=f"B={B} T={MAX_MEL} C={C} M={M} L={L} {name}", ms=ms, ms_runs=times,
+            bounds=bounds, max_abs_err_full_shape=errs,
+            tflops={k: n * flops / (ms[k] * 1e9) for k, n in
+                    (("block", 1), ("block_library", 1), ("trunk", L), ("trunk_library", L))},
+            share_of_tensor_core_bound={
+                k: bounds[k]["tensor_cores"]["bound_ms"] / ms[k] for k in ("block", "trunk")},
+            fastest_of_trunk_forms=min(("trunk", "eight_blocks", "trunk_plain",
+                                        "trunk_library"), key=ms.get))
     say("2b convnext", card=card, cases=cases,
         max_abs_err={f"{k}_{str(d).split('.')[-1]}": v for (k, d), v in worst.items()},
         tol={"fp32_atol": CONVNEXT_ATOL[torch.float32], "bf16_of_max_abs": CONVNEXT_BF16_OF_SCALE},
-        trunk_equals_block_launches=True, library_vs_plain_err=full_err["library"],
-        shape_timed=f"B={B} T={MAX_MEL} C={C} M={M} L={L} fp32", ms=ms, ms_runs=times,
-        bounds=bounds, block_tflops=flops / (ms["block"] * 1e9),
-        fastest_of_trunk_forms=faster)
-    return {"block": {"max_abs_err": worst["block", torch.float32], "ms": ms["block"],
-                      "plain_ms": ms["block_plain"], **bounds["block"],
-                      "library_ms": ms["block_library"]},
-            "trunk": {"max_abs_err": worst["trunk", torch.float32], "ms": ms["trunk"],
-                      "plain_ms": ms["trunk_plain"], **bounds["trunk"],
-                      "library_ms": ms["trunk_library"]}}
+        trunk_equals_block_launches=True, T=CONVNEXT_T)
+
+    def record(kernel: str, plain: str, library: str) -> dict:
+        fp32, bf16 = timed[torch.float32], timed[torch.bfloat16]
+        return {"max_abs_err": worst[kernel, torch.float32], "ms": fp32["ms"][kernel],
+                "plain_ms": fp32["ms"][plain], **fp32["bounds"][kernel]["tensor_cores"],
+                "library_ms": fp32["ms"][library],
+                "bound_fp32_cuda_cores_ms": fp32["bounds"][kernel]["fp32_cuda_cores"]["bound_ms"],
+                "bf16": {"max_abs_err": worst[kernel, torch.bfloat16], "ms": bf16["ms"][kernel],
+                         "plain_ms": bf16["ms"][plain], "library_ms": bf16["ms"][library],
+                         **bf16["bounds"][kernel]["tensor_cores"]}}
+
+    return {"block": record("block", "block_plain", "block_library"),
+            "trunk": record("trunk", "trunk_plain", "trunk_library")}
 
 
 def demo_models(dev, config: str = "config.json", vocoder: str = "vocoder.npz"):

@@ -35,6 +35,7 @@ from visual_onoma_to_wave_tpu_torch.ops.convnext import (
     convnext_block_reference,
     convnext_trunk,
     convnext_trunk_reference,
+    pack_convnext_weights,
 )
 from visual_onoma_to_wave_tpu_torch.ops.mel import (
     fused_clip_features,
@@ -183,7 +184,7 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("tanh", [True, False], ids=["tanh", "erf"])
-@pytest.mark.parametrize("T", [20, 512, 1000])
+@pytest.mark.parametrize("T", chip_smoke.CONVNEXT_T)
 @pytest.mark.parametrize("C,M", chip_smoke.CONVNEXT_WIDTHS, ids=["demo", "full"])
 def test_convnext_kernels_match_plain(cuda, C, M, T, tanh, dtype):
     x, ws = _convnext(8, C, M, T, cuda, seed=T + C)
@@ -222,6 +223,20 @@ def test_convnext_kernels_reject_what_they_do_not_take(cuda):
         convnext_trunk(x, *ws[:4], ws[4][:, :, :128], *ws[5:])
     with pytest.raises(RuntimeError, match="inference-only"):
         convnext_block(x, *w0[:4], w0[4].clone().requires_grad_(), *w0[5:])
+    with pytest.raises(ValueError, match="packed weights"):     # packed for another type
+        convnext_block(x, *w0, packed=pack_convnext_weights(w0[4], w0[6], torch.bfloat16))
+    with pytest.raises(ValueError, match="odd kernel size up to 35"):
+        convnext_block(x, torch.randn(37, 1, 128, device=cuda), *w0[1:])
+
+
+@pytest.mark.gpu
+def test_convnext_kernels_take_packed_weights_as_packed_per_call(cuda):
+    x, ws = _convnext(3, 512, 1536, 129, cuda, seed=5)
+    w0 = [w[0] for w in ws]
+    assert torch.equal(convnext_block(x, *w0, packed=pack_convnext_weights(w0[4], w0[6])),
+                       convnext_block(x, *w0))
+    assert torch.equal(convnext_trunk(x, *ws, packed=pack_convnext_weights(ws[4], ws[6])),
+                       convnext_trunk(x, *ws))
 
 
 @pytest.mark.gpu

@@ -50,7 +50,7 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "mha_fwd_kernel" in n:
         return "attention"
-    if "block_kernel" in n or "trunk_kernel" in n:   # csrc/convnext.cu
+    if "convnext_kernel" in n:                         # csrc/convnext.cu
         return "convnext"
     if "mrf_kernel" in n:                              # csrc/mrf.cu
         return "mrf"

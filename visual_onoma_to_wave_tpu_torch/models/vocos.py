@@ -10,7 +10,11 @@ mag = exp(min(logmag, ln 100)), and the n_fft = 1024 iSTFT head
 Every ConvNeXt block runs through `ops/convnext.py::convnext_block`: the CUDA
 kernel on the card, its plain version on the CPU. That is the JAX package's
 serving form (`fused_kernel=True`), with the erf GELU served by the kernel too.
-`apply_fused` runs the whole trunk as one `convnext_trunk` launch.
+`apply_fused` runs the whole trunk as one `convnext_trunk` launch. On the card
+each block keeps its weights packed for the kernel, and the generator keeps
+the blocks' weights stacked (and packed) for the trunk, both made again only
+when a weight changed (a new tensor, or an in-place write such as
+`load_state_dict`, which bumps its version counter).
 
 Parameters keep the flax names and shapes (this family is self-trained, so
 there is no reference PyTorch layout): flax `params/<name>` is the torch
@@ -26,7 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.models.istftnet import _MAX_MAG, istft_overlap_add
-from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
+from visual_onoma_to_wave_tpu_torch.ops.convnext import (
+    convnext_block,
+    convnext_trunk,
+    pack_convnext_weights,
+)
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -37,6 +45,12 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (h - mu).square().mean(-1, keepdim=True)
     h = (h - mu) * torch.rsqrt(var + eps)
     return (h * scale + bias).to(x.dtype)
+
+
+def _identity(dtype: torch.dtype, params) -> tuple:
+    """What a cache of packed weights is keyed by: the operand type and each
+    parameter's device, data pointer and version counter."""
+    return (dtype,) + tuple((p.device, p.data_ptr(), p._version) for p in params)
 
 
 def _trunc_normal(*shape: int) -> nn.Parameter:
@@ -61,14 +75,25 @@ class ConvNeXtBlock(nn.Module):
         self.pw2_w = _trunc_normal(intermediate_dim, dim)
         self.pw2_b = nn.Parameter(torch.zeros(dim))
         self.gamma = nn.Parameter(torch.full((dim,), float(layer_scale_init)))
+        self._packed: tuple | None = None   # (identity, packed pw1_w and pw2_w)
 
     def weights(self) -> tuple[torch.Tensor, ...]:
         """The kernel's operands, in `convnext_block`'s order."""
         return (self.dwconv_w, self.dwconv_b, self.norm_scale, self.norm_bias, self.pw1_w,
                 self.pw1_b, self.pw2_w, self.pw2_b, self.gamma)
 
+    def packed(self, dtype: torch.dtype) -> torch.Tensor:
+        """pw1_w and pw2_w packed for the kernel in `dtype`
+        (`pack_convnext_weights`), packed again only when either changed."""
+        key = _identity(dtype, (self.pw1_w, self.pw2_w))
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_convnext_weights(self.pw1_w, self.pw2_w, dtype))
+        return self._packed[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return convnext_block(x, *self.weights(), gelu_approximate=self.gelu_approximate)
+        packed = self.packed(x.dtype) if x.device.type == "cuda" else None
+        return convnext_block(x, *self.weights(), gelu_approximate=self.gelu_approximate,
+                              packed=packed)
 
 
 class VocosGenerator(nn.Module):
@@ -92,6 +117,7 @@ class VocosGenerator(nn.Module):
         n_bins = istft_n_fft // 2 + 1
         self.head_w = _trunc_normal(dim, 2 * n_bins)
         self.head_b = nn.Parameter(torch.zeros(2 * n_bins))
+        self._stacked: tuple | None = None   # (identity, stacked weights, packed)
 
     @property
     def istft_hop(self) -> int:
@@ -124,6 +150,20 @@ class VocosGenerator(nn.Module):
             x = block(x)
         return self.head(x)
 
+    def stacked_blocks(self, dtype: torch.dtype) -> tuple[list[torch.Tensor], torch.Tensor | None]:
+        """The blocks' weights stacked on a leading layer axis, in
+        `convnext_trunk`'s order, and on the card their packed stream in
+        `dtype`; stacked again only when a weight changed."""
+        params = [p for block in self.blocks for p in block.weights()]
+        key = _identity(dtype, params)
+        if self._stacked is None or self._stacked[0] != key:
+            with torch.no_grad():
+                stacked = [torch.stack(ws) for ws in zip(*(b.weights() for b in self.blocks))]
+                packed = (pack_convnext_weights(stacked[4], stacked[6], dtype)
+                          if stacked[4].device.type == "cuda" else None)
+            self._stacked = (key, stacked, packed)
+        return self._stacked[1], self._stacked[2]
+
     def receptive_halo_frames(self) -> int:
         """One-sided receptive field in input mel frames: the iSTFT head's
         frame span plus the conv half-widths (the reference's derivation)."""
@@ -139,7 +179,9 @@ class VocosGenerator(nn.Module):
 @torch.inference_mode()
 def apply_fused(gen: VocosGenerator, mel: torch.Tensor) -> torch.Tensor:
     """`gen(mel)` with the whole ConvNeXt trunk as one `convnext_trunk`
-    launch (the weights stacked per call) instead of one launch per block."""
-    stacked = [torch.stack(ws) for ws in zip(*(b.weights() for b in gen.blocks))]
-    x = convnext_trunk(gen.embed(mel), *stacked, gelu_approximate=gen.gelu_approximate)
+    launch (the weights stacked once, `VocosGenerator.stacked_blocks`) instead
+    of one launch per block."""
+    x = gen.embed(mel)
+    stacked, packed = gen.stacked_blocks(x.dtype)
+    x = convnext_trunk(x, *stacked, gelu_approximate=gen.gelu_approximate, packed=packed)
     return gen.head(x)

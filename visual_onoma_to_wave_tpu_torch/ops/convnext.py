@@ -17,13 +17,21 @@ them. The trunk is `L` blocks in sequence with stacked (L, ...) weights.
 (`csrc/convnext.cu`, built at first use by `ops/cuda_build.py`) for tensors
 on the card and take `convnext_block_reference` / `convnext_trunk_reference`
 for tensors on the CPU. They never fall back: a CUDA tensor the kernels do
-not take (C other than 128, 256 or 512; M not a multiple of 128; even K), a
+not take (C other than 128, 256 or 512; M not a multiple of 128; even K or
+K over 35), a
 failed build, a refused launch or a call that would need a gradient
 raises. Any T is taken: the TPU kernels'
 T % 16, C % 128 and M % 128 are tiling rules of the TPU, not of the math.
 Each wrapper counts its kernel launches in `.launches`.
 
-What bounds the kernels on the card, and why the trunk is a cooperative
+The kernels run both products on Hopper's tensor cores (wgmma): fp32 as
+3xTF32 (each operand split into a TF32 high part and its fp32 remainder;
+three products hi*lo + lo*hi + hi*hi, fp32 accumulation), bf16 as one bf16
+product. They read W1 and W2 as one stream of K-major planes that
+`pack_convnext_weights` makes (plain PyTorch, runs on the CPU too); the
+wrappers take it as `packed=` and pack per call without it, so callers that
+keep their weights (`models/vocos.py`) pack once per weight change. What
+bounds the kernels on the card, and why the trunk is a cooperative
 persistent kernel, is written in `csrc/convnext.cu`.
 """
 from __future__ import annotations
@@ -42,6 +50,10 @@ from visual_onoma_to_wave_tpu_torch.ops.cuda_build import (
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (128, 256, 512)
 _M_STEP = 128
+_K_MAX = 35   # the conv's staged rows and taps fit the GELU chunk's shared memory
+# the kernel's tiling of the weight stream (csrc/convnext.cu: MC, PLANE_BYTES)
+_MC = 64
+_PLANE_BYTES = 16384
 
 
 def convnext_block_reference(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
@@ -79,6 +91,59 @@ def convnext_trunk_reference(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: floa
     return x
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero: what `cvt.rna.tf32.f32` gives. The low 13 bits are zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _core_tiled(b: torch.Tensor, ck: int) -> torch.Tensor:
+    """(..., N, K) -> (..., N * K): 8-row x `ck`-column core matrices (16
+    bytes a row), rows inside a core, cores along N, then along K."""
+    *lead, N, K = b.shape
+    b = b.reshape(*lead, N // 8, 8, K // ck, ck).movedim(-2, -4)
+    return b.reshape(*lead, N * K)
+
+
+def pack_convnext_weights(w1: torch.Tensor, w2: torch.Tensor,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """W1 (C, M) and W2 (M, C), or stacked (L, C, M) and (L, M, C), as the
+    kernels read them: per layer one stream of 16 KB planes in the order the
+    kernel consumes them. For each chunk of 64 intermediate features, first
+    the planes of W1^T (two 64-row blocks, one slice of each half of C),
+    then those of W2^T (C rows x 64 / S2 columns), each block K-major in
+    8-row x 16-byte core matrices. fp32: every plane is followed by its lo
+    plane, with hi = `tf32_round(w)` and lo = w - hi exactly (hi + lo == w);
+    bf16: one plane. Returns a contiguous tensor of `dtype`, (L, 4 * C * M)
+    fp32 or (L, 2 * C * M) bf16, without the L axis for one block. Copies
+    the weights: pack once per weight change, not per call."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"pack_convnext_weights takes float32/bfloat16; got {dtype}")
+    C, M = w1.shape[-2:]
+    if C not in _WIDTHS or M % _M_STEP or tuple(w2.shape[-2:]) != (M, C):
+        raise ValueError(f"pack_convnext_weights takes w1 (.., C, M), w2 (.., M, C) with C in "
+                         f"{_WIDTHS} and M a multiple of {_M_STEP}; got {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)}")
+    lead = tuple(w1.shape[:-2])
+    with torch.no_grad():
+        w1 = w1.detach().to(dtype).reshape(-1, C, M)
+        w2 = w2.detach().to(dtype).reshape(-1, M, C)
+        L, J, size = w1.shape[0], M // _MC, torch.empty((), dtype=dtype).element_size()
+        plane, ck = _PLANE_BYTES // size, 16 // size
+        ks1, ks2 = plane // _MC, plane // C
+        # W1^T (L, M, C) -> (L, J, S1, 2, MC, KS1 / 2): a stage holds one slice of
+        # each half of C; W2^T (L, C, M) -> (L, J, S2, C, KS2)
+        b1 = w1.transpose(1, 2).reshape(L, J, _MC, 2, C // ks1, ks1 // 2)
+        b1 = _core_tiled(b1.permute(0, 1, 4, 3, 2, 5), ck).reshape(L, J, C // ks1, plane)
+        b2 = w2.transpose(1, 2).reshape(L, C, J, _MC // ks2, ks2).permute(0, 2, 3, 1, 4)
+        stream = torch.cat([b1, _core_tiled(b2, ck)], dim=2)
+        if dtype == torch.float32:
+            hi = tf32_round(stream)
+            stream = torch.stack([hi, stream - hi], dim=3)
+        return stream.reshape(*lead, -1).contiguous()
+
+
 def _checked(x: torch.Tensor, w1: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -93,9 +158,10 @@ def _checked(x: torch.Tensor, w1: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} kernel takes M a multiple of {_M_STEP}; got {M}")
 
 
-def _operands(name: str, L: int, x, dw, db, ls, lb, w1, b1, w2, b2, gamma):
+def _operands(name: str, L: int, x, dw, db, ls, lb, w1, b1, w2, b2, gamma, packed):
     """Check the weights against x and return the kernel operands, contiguous:
-    dw (L, K, C), w1, w2 in x's dtype, the vectors in fp32, and K."""
+    dw (L, K, C) in x's dtype, the packed weight stream (packed here if not
+    given), the vectors in fp32, and K."""
     C, M = x.shape[-1], w1.shape[-1]
     K = dw.numel() // (L * C)
     sizes = {"dw": (dw, L * K * C), "db": (db, L * C), "ls": (ls, L * C), "lb": (lb, L * C),
@@ -105,28 +171,38 @@ def _operands(name: str, L: int, x, dw, db, ls, lb, w1, b1, w2, b2, gamma):
         if t.numel() != n or t.device != x.device:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} on {t.device} does not fit "
                              f"x {tuple(x.shape)} on {x.device} (L={L}, M={M})")
-    if K % 2 == 0:
-        raise ValueError(f"{name} kernel takes an odd kernel size; got {K}")
-    ops = [t.to(x.dtype).contiguous() for t in (dw, w1, w2)]
+    if K % 2 == 0 or K > _K_MAX:
+        raise ValueError(f"{name} kernel takes an odd kernel size up to {_K_MAX}; got {K}")
+    if packed is None:
+        packed = pack_convnext_weights(w1.reshape(L, C, M), w2.reshape(L, M, C), x.dtype)
+    n = L * C * M * (4 if x.dtype == torch.float32 else 2)
+    if packed.dtype != x.dtype or packed.numel() != n or packed.device != x.device:
+        raise ValueError(f"{name}: packed weights {packed.dtype} {packed.numel()} on "
+                         f"{packed.device} do not fit x {x.dtype} on {x.device} (need {n}; "
+                         f"pack_convnext_weights(w1, w2, x.dtype))")
+    ops = [dw.to(x.dtype).contiguous(), packed.contiguous()]
     ops += [t.float().contiguous() for t in (db, ls, lb, b1, b2, gamma)]
     return ops, K
 
 
 def _load_library() -> ctypes.CDLL:
-    # block: 11 pointers, 7 ints (B, T, C, M, K, dtype, gelu_tanh), eps, stream;
-    # trunk: + scratch pointer, + layers int
+    # block: 10 pointers, 7 ints (B, T, C, M, K, dtype, gelu_tanh), eps, stream;
+    # trunk: + scratch and sync pointers, + layers int
     tail = [ctypes.c_float, ctypes.c_void_p]
     return load_library("convnext", {
-        "convnext_block_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + tail,
+        "convnext_block_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + tail,
         "convnext_trunk_fwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + tail,
     })
 
 
 def convnext_block(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
-                   gelu_approximate: bool = True) -> torch.Tensor:
+                   gelu_approximate: bool = True, packed: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """One ConvNeXt block. x: (B, T, C); dw (K, 1, C) or (K, C); w1 (C, M);
-    w2 (M, C); db, ls, lb, b2, gamma (C,); b1 (M,). CPU tensors take
-    `convnext_block_reference`; CUDA tensors launch the kernel or raise."""
+    w2 (M, C); db, ls, lb, b2, gamma (C,); b1 (M,). `packed`:
+    `pack_convnext_weights(w1, w2, x.dtype)`, packed here if not given. CPU
+    tensors take `convnext_block_reference`; CUDA tensors launch the kernel
+    or raise."""
     if x.device.type == "cpu":
         return convnext_block_reference(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps,
                                         gelu_approximate)
@@ -134,8 +210,8 @@ def convnext_block(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
     check_inference("convnext_block", x, dw, db, ls, lb, w1, b1, w2, b2, gamma)
     B, T, C = x.shape
     M = w1.shape[-1]
-    (dw, w1, w2, db, ls, lb, b1, b2, gamma), K = _operands(
-        "convnext_block", 1, x, dw, db, ls, lb, w1, b1, w2, b2, gamma)
+    (dw, packed, db, ls, lb, b1, b2, gamma), K = _operands(
+        "convnext_block", 1, x, dw, db, ls, lb, w1, b1, w2, b2, gamma, packed)
     x = x.contiguous()
     y = torch.empty_like(x)
     lib = _load_library()
@@ -143,9 +219,8 @@ def convnext_block(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.convnext_block_fwd(
             x.data_ptr(), y.data_ptr(), dw.data_ptr(), db.data_ptr(), ls.data_ptr(),
-            lb.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            gamma.data_ptr(), B, T, C, M, K, _DTYPE_CODES[x.dtype], int(gelu_approximate),
-            eps, stream)
+            lb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            B, T, C, M, K, _DTYPE_CODES[x.dtype], int(gelu_approximate), eps, stream)
     check_launch("convnext_block", err)
     convnext_block.launches += 1
     return y
@@ -155,10 +230,12 @@ convnext_block.launches = 0
 
 
 def convnext_trunk(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
-                   gelu_approximate: bool = True) -> torch.Tensor:
+                   gelu_approximate: bool = True, packed: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """All L blocks in one launch. x: (B, T, C); weights stacked on a leading
     L axis: dw (L, K, 1, C) or (L, K, C); w1 (L, C, M); w2 (L, M, C); db, ls,
-    lb, b2, gamma (L, C); b1 (L, M). Equals L `convnext_block` calls. CPU
+    lb, b2, gamma (L, C); b1 (L, M). `packed`: `pack_convnext_weights(w1, w2,
+    x.dtype)`, packed here if not given. Equals L `convnext_block` calls. CPU
     tensors take `convnext_trunk_reference`; CUDA tensors launch the kernel
     or raise."""
     if x.device.type == "cpu":
@@ -168,17 +245,18 @@ def convnext_trunk(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
     check_inference("convnext_trunk", x, dw, db, ls, lb, w1, b1, w2, b2, gamma)
     B, T, C = x.shape
     L, M = w1.shape[0], w1.shape[-1]
-    (dw, w1, w2, db, ls, lb, b1, b2, gamma), K = _operands(
-        "convnext_trunk", L, x, dw, db, ls, lb, w1, b1, w2, b2, gamma)
+    (dw, packed, db, ls, lb, b1, b2, gamma), K = _operands(
+        "convnext_trunk", L, x, dw, db, ls, lb, w1, b1, w2, b2, gamma, packed)
     x = x.contiguous()
     y = torch.empty_like(x)
     scratch = torch.empty_like(x)   # the activation ping-pongs between y and scratch
+    sync = torch.zeros(1, dtype=torch.int32, device=x.device)   # the grid barrier's counter
     lib = _load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.convnext_trunk_fwd(
-            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            ls.data_ptr(), lb.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), sync.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), ls.data_ptr(), lb.data_ptr(), packed.data_ptr(), b1.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), L, B, T, C, M, K, _DTYPE_CODES[x.dtype],
             int(gelu_approximate), eps, stream)
     check_launch("convnext_trunk", err)
