@@ -9,9 +9,13 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      then every kernel source (`csrc/flash_mha.cu`, `csrc/convnext.cu`,
      `csrc/mel_frontend.cu`, `csrc/mrf.cu`) is built with nvcc for sm_90a,
      one nvcc process each, all at once;
-  2. kernel: holds the attention kernel against its plain PyTorch version at
-     the path's shapes; times both, and `scaled_dot_product_attention`, at
-     the serving decoder shape;
+  2. kernel: holds the attention kernel against its plain PyTorch version
+     over dk 64 / 128, fp32 / bf16, T 8 / 63 / 64 / 65 / 100 / 129 / 512 /
+     1000 and key masks none / tail / full / holes (fully padded items exactly
+     0); at the serving decoder shape (B 16, T 1000, H 2, dk 128), in fp32 and
+     in bf16, times kernel, plain and `scaled_dot_product_attention` under
+     random tail lengths, and after phase 4 under its mel lengths, beside the
+     tensor-core bound (fp32 as 3xTF32) and the fp32 CUDA-core bound;
   2b. convnext: holds the ConvNeXt block and trunk kernels against their
      plain versions (fp32 and bf16, tanh and erf GELU, T 20 / 63 / 64 / 65 /
      129 / 512 / 1000 around the 64-frame tile, demo and full widths, L 4 and
@@ -66,8 +70,9 @@ checked by `tests/test_torch_preprocess_cuda.py`.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its main path, its error against the plain version, kernel,
 plain and library ms and the card's bound at the timed shape; for the
-ConvNeXt kernels the bound is that of the tensor cores, fp32 as 3xTF32, with
-the fp32 CUDA-core bound and the bf16 numbers beside it); the last line
+attention and ConvNeXt kernels the bound is that of the tensor cores, fp32
+as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside it, and
+for attention the same numbers under the served mask); the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX and nothing of the
 JAX package (`visual_onoma_to_wave_tpu`).
 """
@@ -88,8 +93,9 @@ DEMO = ROOT / "examples" / "checkpoints" / "demo"
 # frames per character
 B, C, MAX_MEL, HOP, SR, FRAMES = 16, 8, 1000, 256, 22050, 60
 
-# kernel vs plain tolerances: fp32 differs only in summation order (online
-# softmax over 64-key tiles vs one softmax); bf16 also rounds the
+# attention kernel vs plain tolerances: fp32 differs in summation order
+# (online softmax over 64-key tiles vs one softmax) and in the kernel's
+# 3xTF32 products (~2**-21 relative each); bf16 also rounds the
 # probabilities at other points, and both sides round the result to bf16
 # (one bf16 ulp relative = 2**-7)
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -214,22 +220,52 @@ def expect_launches(phase: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{phase}: kernel launches {got}, expected {want}")
 
 
-def _attn_inputs(B, T, H, dk, dtype, mask_kind, gen, dev):
+# the attention parity cases: T around the 64-key tile and the 128-query
+# block, short (the encoder's T 8) and the decoder's max_mel_len; key masks
+# none, tail (random lengths), full (two items fully padded) and holes
+# (every other 64-key tile padding besides the tail: whole interior tiles
+# that the kernel skips)
+ATTN_T = (8, 63, 64, 65, 100, 129, 512, 1000)
+ATTN_MASKS = ("none", "tail", "full", "holes")
+
+
+def _attn_inputs(B, T, H, dk, dtype, mask_kind, gen, dev, lens=None):
     q, k, v = (torch.randn(B, T, H * dk, generator=gen, device=dev).to(dtype)
                for _ in range(3))
     if mask_kind == "none":
         return q, k, v, None, []
-    lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
-    lens[0] = T
+    if lens is None:
+        lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+        lens[0] = T
     full = []
     if mask_kind == "full":
         full = [1, B - 1]
         lens[full] = 0
-    mask = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    t = torch.arange(T, device=dev)[None, :]
+    mask = t >= lens[:, None]
+    if mask_kind == "holes":   # even items lose tiles 1, 3, ..., odd items 0, 2, ...
+        mask = mask | ((t // 64 + torch.arange(B, device=dev)[:, None]) % 2 == 1)
     return q, k, v, mask, full
 
 
+def attention_costs(mask: torch.Tensor, H: int, dk: int, dtype, q) -> dict:
+    """The card's bounds for one attention call, over the keys each query may
+    see: both products (4 T Tk dk FLOPs per item and head); Q and the mask
+    read, ctx written, and the valid keys' rows of K and V read, once each
+    (padding keys' rows are not needed); on the tensor cores (fp32 as three
+    TF32 products) and, for fp32, on the CUDA cores."""
+    valid = int((~mask).sum().item())
+    flops = 4.0 * H * dk * mask.shape[1] * valid
+    moved = nbytes(q, mask) + nbytes(q) + 2 * valid * H * dk * q.element_size()
+    tc = (bound(3 * flops, moved, PEAK_TF32_FLOPS) if dtype == torch.float32
+          else bound(flops, moved, PEAK_BF16_FLOPS))
+    return {"flops": flops, "tensor_cores": tc, "fp32_cuda_cores": bound(flops, moved)}
+
+
 def phase_kernel(dev, card: str) -> dict:
+    """Attention kernel vs plain over the parity grid, then timed under random
+    tail lengths (`time_attention`). Returns the state that `time_attention`
+    and `attention_record` take."""
     from visual_onoma_to_wave_tpu_torch.ops.attention import (
         attention_core, attention_core_reference)
 
@@ -238,9 +274,9 @@ def phase_kernel(dev, card: str) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
     for dk in (64, 128):
-        for T in (8, 100, 512, 1000):
+        for T in ATTN_T:
             for dtype in (torch.float32, torch.bfloat16):
-                for kind in ("none", "tail", "full"):
+                for kind in ATTN_MASKS:
                     q, k, v, mask, full = _attn_inputs(8, T, H, dk, dtype, kind, gen, dev)
                     out = attention_core(q, k, v, mask, H)
                     ref = attention_core_reference(q, k, v, mask, H)
@@ -260,34 +296,75 @@ def phase_kernel(dev, card: str) -> dict:
                                                  f"(T={T} dk={dk} {dtype})")
                     worst[dtype] = max(worst[dtype], err.max().item())
                     cases += 1
+    say("2 kernel parity", card=card, cases=cases, T=ATTN_T, masks=ATTN_MASKS,
+        max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
+        tol={"fp32_atol": ATOL[torch.float32], "bf16_atol": ATOL[torch.bfloat16],
+             "bf16_rtol": RTOL[torch.bfloat16]})
+    attn = {"card": card, "gen": gen, "worst": worst, "timed": {}}
+    time_attention(dev, attn, "tail")
+    return attn
 
-    # time at the serving decoder shape (ICASSP: B=16, T=max_mel_len=1000,
-    # H=2, dk=128), fp32, a tail key mask; alternate kernel and plain
-    Bt, T, dk = 16, 1000, 128
-    q, k, v, mask, _ = _attn_inputs(Bt, T, H, dk, torch.float32, "tail", gen, dev)
-    heads = [t.reshape(Bt, T, H, dk).transpose(1, 2) for t in (q, k, v)]
-    keep = ~mask[:, None, None, :]
-    runs = {"kernel": lambda: attention_core(q, k, v, mask, H),
-            "plain": lambda: attention_core_reference(q, k, v, mask, H),
-            # timed only: a fully masked row gives NaN there, 0 in the port
-            "library": lambda: torch.nn.functional.scaled_dot_product_attention(
-                *heads, attn_mask=keep)}
-    err = (runs["kernel"]() - runs["plain"]()).abs().max().item()
-    worst[torch.float32] = max(worst[torch.float32], err)
-    times = {n: [] for n in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for n in order:
-            times[n].append(time_cuda(runs[n], 20))
-    ms = {n: float(np.mean(t)) for n, t in times.items()}
-    # the scores and the products over the keys each query may see
-    valid = int((~mask).sum().item())
-    b = bound(4.0 * H * dk * T * valid, nbytes(q, k, v, mask) + nbytes(q))
-    say("2 kernel", card=card, cases=cases, max_abs_err_fp32=worst[torch.float32],
-        max_abs_err_bf16=worst[torch.bfloat16], atol=dict(fp32=1e-5, bf16=2e-2),
-        shape_timed=f"B={Bt} T={T} H={H} dk={dk} fp32, tail key mask", ms=ms, ms_runs=times,
-        **b, tflops=4.0 * H * dk * T * valid / (ms["kernel"] * 1e9))
-    return {"max_abs_err": worst[torch.float32], "ms": ms["kernel"], "plain_ms": ms["plain"],
-            **b, "library_ms": ms["library"]}
+
+def time_attention(dev, attn: dict, kind: str, lens: torch.Tensor | None = None) -> None:
+    """Kernel, plain and SDPA timed, in turns, in fp32 and bf16 at the serving
+    decoder's shape (ICASSP B 16, T = max_mel_len 1000, H 2, dk 128) under
+    one key mask: `kind` "tail" (random lengths) or "served" (phase 4's mel
+    lengths `lens`). The kernel is held to the plain version there too; the
+    errors and times go into `attn` (from `phase_kernel`)."""
+    from visual_onoma_to_wave_tpu_torch.ops.attention import (
+        attention_core, attention_core_reference)
+
+    Bt, T, H, dk = 16, MAX_MEL, 2, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v, mask, _ = _attn_inputs(Bt, T, H, dk, dtype, "tail", attn["gen"], dev,
+                                        None if lens is None else lens.clone())
+        heads = [t.reshape(Bt, T, H, dk).transpose(1, 2) for t in (q, k, v)]
+        keep = ~mask[:, None, None, :]
+        runs = {"kernel": lambda: attention_core(q, k, v, mask, H),
+                "plain": lambda: attention_core_reference(q, k, v, mask, H),
+                # timed only: a fully masked row gives NaN there, 0 in the port
+                "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *heads, attn_mask=keep)}
+        ref = runs["plain"]().float()
+        err = (runs["kernel"]().float() - ref).abs()
+        if bool((err > ATOL[dtype] + RTOL[dtype] * ref.abs()).any()):
+            raise AssertionError(f"kernel != plain at the timed shape {name} {kind}: "
+                                 f"max abs err {err.max().item():.3e}")
+        attn["worst"][dtype] = max(attn["worst"][dtype], err.max().item())
+        times = {n: [] for n in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for n in order:
+                times[n].append(time_cuda(runs[n], 20))
+        ms = {n: float(np.mean(t)) for n, t in times.items()}
+        cost = attention_costs(mask, H, dk, dtype, q)
+        attn["timed"][name, kind] = {"ms": ms, **cost}
+        say(f"2 kernel {name} {kind}", card=attn["card"],
+            shape_timed=f"B={Bt} T={T} H={H} dk={dk} {name}, {kind} key mask",
+            valid_keys=int((~mask).sum().item()), ms=ms, ms_runs=times,
+            bounds={k_: cost[k_] for k_ in ("tensor_cores", "fp32_cuda_cores")},
+            tflops={n: cost["flops"] / (t * 1e9) for n, t in ms.items()},
+            share_of_tensor_core_bound=cost["tensor_cores"]["bound_ms"] / ms["kernel"],
+            share_of_cuda_core_bound=cost["fp32_cuda_cores"]["bound_ms"] / ms["kernel"],
+            kernel_vs_library=ms["library"] / ms["kernel"])
+
+
+def attention_record(attn: dict) -> dict:
+    """The attention kernel's numbers for the kernels' record: fp32 at the
+    tail mask, with its CUDA-core bound, bf16 beside it, and both at the
+    served mask."""
+    timed, worst = attn["timed"], attn["worst"]
+
+    def numbers(name: str, kind: str) -> dict:
+        t = timed[name, kind]
+        return {"ms": t["ms"]["kernel"], "plain_ms": t["ms"]["plain"],
+                **t["tensor_cores"], "library_ms": t["ms"]["library"]}
+
+    return {"max_abs_err": worst[torch.float32], **numbers("float32", "tail"),
+            "bound_fp32_cuda_cores_ms": timed["float32", "tail"]["fp32_cuda_cores"]["bound_ms"],
+            "bf16": {"max_abs_err": worst[torch.bfloat16], **numbers("bfloat16", "tail")},
+            "served_mask": {"fp32": numbers("float32", "served"),
+                            "bf16": numbers("bfloat16", "served")}}
 
 
 def convnext_weights(L, C, M, gen, dev):
@@ -1209,7 +1286,8 @@ def main() -> int:
     attn = phase_kernel(dev, probe["smi"])
     convnext = phase_convnext(dev, probe["smi"])
     phase_golden(dev)
-    full, _ = phase_full(dev, probe["smi"])
+    full, (_, served) = phase_full(dev, probe["smi"])
+    time_attention(dev, attn, "served", served["mel_lens"])   # the decoder's key lengths
     phase_vocos_golden(dev)
     vocos = phase_vocos_full(dev, probe["smi"], full)
     mel = phase_mel(dev, probe["smi"])
@@ -1227,7 +1305,7 @@ def main() -> int:
     record = {"kernels": [
         {"name": "flash_mha", "route": "cuda", "source": source + "flash_mha.cu",
          "replaces": tpu + "pallas_attention.py:130",
-         "launches": full["launches"]["flash_mha"], **attn},
+         "launches": full["launches"]["flash_mha"], **attention_record(attn)},
         {"name": "convnext_block", "route": "cuda", "source": source + "convnext.cu",
          "replaces": tpu + "pallas_convnext.py:138",
          "launches": vocos["block_launches"], **convnext["block"]},

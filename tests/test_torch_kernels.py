@@ -7,10 +7,11 @@ No JAX here, so the file also runs on a machine with a GPU and no JAX:
 On the CPU a wrapper takes its plain PyTorch version and counts no launch;
 on any other non-CUDA device it raises. The tests marked `gpu` compare
 each CUDA kernel with its plain version on the card and skip without one.
-Attention tolerances: fp32 1e-5 absolute (summation order only); bf16 2e-2
-absolute plus one bf16 ulp relative (probabilities rounded at other points,
-both results rounded to bf16). ConvNeXt tolerances are chip_smoke's
-`convnext_atol` (fp32 5e-5 absolute for |y| up to ~6, summation order over
+Attention tolerances: fp32 1e-5 absolute (summation order and the kernel's
+3xTF32 products); bf16 2e-2 absolute plus one bf16 ulp relative
+(probabilities rounded at other points, both results rounded to bf16), at
+chip_smoke's `ATTN_T` around the 64-key tile, with tail and "holes" masks.
+ConvNeXt tolerances are chip_smoke's `convnext_atol` (fp32 5e-5 absolute for |y| up to ~6, summation order over
 the C and M products; bf16 within 0.03 of max |plain|, the JAX package's
 bound for this kernel, since rounding flips carry from layer to layer), and
 the trunk must equal L block launches exactly. Mel frontend bounds are
@@ -152,14 +153,18 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("holes", [False, True], ids=["tail", "holes"])
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0),
                                              (torch.bfloat16, 2e-2, 2.0 ** -7)])
 @pytest.mark.parametrize("dk", [64, 128])
-@pytest.mark.parametrize("T", [8, 100, 1000])
-def test_attention_kernel_matches_plain(cuda, T, dk, dtype, atol, rtol):
+@pytest.mark.parametrize("T", chip_smoke.ATTN_T)
+def test_attention_kernel_matches_plain(cuda, T, dk, dtype, atol, rtol, holes):
     g = torch.Generator(device=cuda).manual_seed(T + dk)
     q, k, v = (torch.randn(3, T, 2 * dk, generator=g, device=cuda).to(dtype) for _ in range(3))
     mask = _mask([T, T // 3 + 1, 0], T, cuda)     # none, tail, fully padded
+    if holes:   # and whole 64-key tiles of padding: 1, 3, ... of item 0, 0, 2, ... of item 1
+        t = torch.arange(T, device=cuda)[None, :]
+        mask = mask | ((t // 64 + torch.arange(3, device=cuda)[:, None]) % 2 == 1)
     before = attention_core.launches
     out = attention_core(q, k, v, mask, 2)
     ref = attention_core_reference(q, k, v, mask, 2)
@@ -167,6 +172,19 @@ def test_attention_kernel_matches_plain(cuda, T, dk, dtype, atol, rtol):
     assert attention_core.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
     assert (out[2] == 0).all()
+
+
+@pytest.mark.gpu
+def test_attention_kernel_takes_views_off_the_16_byte_grid(cuda):
+    # the kernel copies 16-byte chunks: the wrapper copies a view that starts
+    # 4 bytes into its storage before the launch
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(2 * 65 * 256 + 1, generator=g, device=cuda)[1:].view(2, 65, 256)
+               for _ in range(3))
+    assert q.data_ptr() % 16
+    mask = _mask([65, 30], 65, cuda)
+    torch.testing.assert_close(attention_core(q, k, v, mask, 2),
+                               attention_core_reference(q, k, v, mask, 2), rtol=0.0, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -5,33 +5,82 @@
 //
 //     ctx = softmax(Q K^T / sqrt(dk) + keymask(-inf)) V
 //
-// with logits and softmax in fp32, fully-masked query rows exactly 0, and
-// Q/K/V/ctx in the packed (B, T, H*dk) layout of the projection outputs
-// (head h occupies features [h*dk, (h+1)*dk)), so no transposes are needed.
+// with logits and softmax in fp32, fully-masked query rows exactly 0, padded
+// query rows computed like any other, and Q/K/V/ctx in the packed
+// (B, T, H*dk) layout of the projection outputs (head h occupies features
+// [h*dk, (h+1)*dk)), so no transposes are needed.
 //
 // Design. The TPU kernel keeps the whole (T, T) score tile in VMEM; at the
 // serving decoder's T = 1000 that does not fit in a block's 227 KB of shared
-// memory, so this kernel streams keys with an online softmax instead:
-//   * one block of 128 threads per (item, head, 64-query tile);
-//   * a loop over 64-key tiles: K and V staged in shared memory (fp32), the
-//     64x64 score tile computed as 4x8 register micro-tiles per thread, the
-//     running max / running sum / fp32 context accumulator rescaled per tile;
-//   * any T: the ragged last query and key tiles are masked, no padding;
-//   * dk templated for 64 and 128; fp32 or bf16 inputs, fp32 accumulation.
-//     bf16 rounds at another point than the TPU kernel: that one normalises
+// memory, so this kernel streams keys with an online softmax instead, with
+// both products on the tensor cores (wgmma):
+//   * one CTA of 256 threads per (item, head, 128-query block): two
+//     warpgroups, each owning 64 query rows (wgmma's M), share every staged
+//     key tile;
+//   * dead key tiles are skipped. Each warp scans the item's (T,) uint8 mask
+//     with ballots for the next 64-key tile that holds a valid key (the scan
+//     gives that tile's 64-bit validity mask too), so the key loop visits
+//     only live tiles, for any mask. A tile whose keys are all padding would
+//     change nothing (tile max -inf, alpha 1, every p 0), so skipping it is
+//     exact. An item with no valid key writes exact zeros;
+//   * S = Q K^T per tile: wgmma m64n64, A = Q from registers (loaded from a
+//     fp32 copy of the CTA's Q rows in shared memory per k-step), B = the K
+//     tile in shared memory. Q and K rows are dk-contiguous, which is the
+//     K-major layout tf32 wgmma requires; the K tile is stored as 8-row x
+//     16-byte core matrices;
+//   * O += P V: the reduction axis is keys and V arrives (keys, dk), which is
+//     MN-major, but tf32 wgmma takes only K-major operands, so V is stored
+//     transposed (dk rows, keys along K) as it is staged. P is the A operand
+//     straight from the S accumulator registers: the accumulator gives a
+//     thread keys 2q and 2q + 1 of each 8-key group (q = lane % 4) where
+//     tf32's A fragment wants k = q and q + 4, so V's keys are staged in
+//     that permuted order inside each group of 8 (k q <-> key 2q, k q + 4 <->
+//     key 2q + 1) and P needs no shuffle. bf16's A fragment matches the
+//     accumulator as it is;
+//   * fp32 operands run as 3xTF32: x = hi + lo with hi = cvt.rna.tf32(x) and
+//     lo the exact fp32 remainder, three wgmma per k-step (hi*lo, lo*hi,
+//     hi*hi). One TF32 product lands 3.4e-4 off the fp32 result at T 1000,
+//     dk 128 (a CPU emulation of this kernel's tiles, in
+//     tests/test_torch_attention_tc.py), past the 1e-5 bound; three land
+//     4.8e-7. K and V are split into hi and lo planes as they are staged, Q
+//     and P in registers. bf16 runs one bf16 wgmma: bf16 products are exact
+//     in fp32;
+//   * the tensor cores' own fp32 accumulation truncates, so no tensor-core
+//     sum runs over more than 64 of K (as in csrc/convnext.cu, where one
+//     chain over K 1536 broke the bound): S is two fresh sums at dk 128, and
+//     each key tile's P V is a fresh sum per 64 columns of dk, added to the
+//     fp32 O registers on the CUDA cores together with the online-softmax
+//     rescale, O = alpha O + fresh;
+//   * staging (below, "staging"): the next live tile is copied by cp.async
+//     while the warpgroups run this tile's softmax and P V, then split and
+//     transposed into its planes between two barriers. Two other forms were
+//     slower on the H100: the warpgroups loading the next tile into
+//     registers ahead of time (those registers pushed fp32 into spills), and
+//     a third, producer warpgroup staging through registers while the two
+//     multiplied (its loads, a few registers' worth at a time, could not
+//     keep up);
+//   * bf16 rounds at another point than the TPU kernel: that one normalises
 //     the probabilities and then casts them to bf16 before the product with
 //     V (pallas_attention.py:83); here the unnormalised exp(s - running max)
-//     is cast to bf16 for the product, the running sum stays in fp32 from
-//     the unrounded values, and the context is divided by it at the end.
+//     is cast to bf16 for the product, the running sum stays in fp32 from the
+//     unrounded values, and the context is divided by it at the end.
 //
-// What bounds it. Per (item, head) the score tile costs 4*T*T*dk FLOPs
-// (0.5 GFLOP at T = 1000, dk = 128) against 4*T*dk*4 bytes of unique Q/K/V/ctx
-// traffic (2 MB): ~256 FLOP/byte, far above the card's fp32 ridge, and the
-// (T, T) scores never touch device memory (the plain PyTorch version writes
-// and re-reads them several times: B*H*T*T*4 bytes per pass). So the kernel
-// is bound by arithmetic; this first version does it on the CUDA cores with
-// shared-memory operands (no tensor cores, no TMA), which is the limit that
-// later work (wgmma, TMA-fed pipelines) removes.
+// What bounds it. Per (item, head) the two products cost 4*T*Tk*dk FLOPs
+// over the Tk valid keys (0.5 GFLOP at T = Tk = 1000, dk = 128), three times
+// that on the tensor cores in fp32 (3xTF32), against 4*T*dk*sizeof(T) bytes of
+// unique Q/K/V/ctx traffic: far above the card's ridge in fp32, so the tensor
+// cores' TF32 rate bounds it; bf16 sits near its ridge. The (T, T) scores
+// never touch device memory. On the H100 at the served decoder's shape fp32
+// runs at about a third of the 3xTF32 bound: the warpgroups run S, softmax
+// and P V in step and stage between barriers, so the tensor cores idle
+// through each softmax, copy wait and pass.
+//
+// Budgets (dk 128, fp32): shared memory 66 KB for the fp32 Q rows of the
+// CTA (padded rows, conflict-free fragment loads), 64 KB for the K tile's hi
+// and lo planes, 64 KB for V^T's and 32 KB for the raw V copy: 226 KB of the
+// 227, one CTA per SM, one stage (no room for a second). Per thread: O 64
+// registers, S / P 32, a fresh sum 32, fragments; holding Q's fragments (128
+// more) does not fit, hence Q in shared memory.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -39,200 +88,600 @@
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // queries per block
+constexpr int BLOCK_M = 128;  // queries per CTA: two warpgroups of 64 (wgmma's M)
 constexpr int BLOCK_N = 64;   // keys per tile
-constexpr int THREADS = 128;  // 16 row groups x 8 key/column groups
-constexpr int ROWS = 4;       // query rows per thread: rg + 16*i
-constexpr int KEYS = 8;       // keys per thread per tile: kg + 8*j
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int SLAB = 64;      // dk columns per tensor-core sum
 
-__device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
+template <typename T>
+struct Operand;
+template <>
+struct Operand<float> {           // 3xTF32: hi and lo planes, wgmma k 8
+  static constexpr int E = 4, KSTEP = 8, SPLIT = 2, PAD = 4, COL = 1;
+};
+template <>
+struct Operand<__nv_bfloat16> {   // one bf16 plane, wgmma k 16
+  static constexpr int E = 8, KSTEP = 16, SPLIT = 1, PAD = 8, COL = 2;
+};
+
+// Shared memory: Q (BLOCK_M rows of fp32, LDQ floats apart), then the K
+// tile's planes, then V^T's, then V's raw copy (row-major, as copied). A
+// plane holds BLOCK_N x DK values of T as core matrices: K element (key n,
+// d) at byte (d / E * BLOCK_N + n) * 16 + d % E * sizeof(T); V^T element
+// (d, key slot s) at (s / E * DK + d) * 16 + s % E * sizeof(T). fp32 keeps
+// the lo plane PLANE bytes after the hi plane.
+template <typename T, int DK>
+struct Geom {
+  using Op = Operand<T>;
+  static constexpr int LDQ = DK + Op::PAD;
+  static constexpr int PLANE = BLOCK_N * DK * (int)sizeof(T);
+  static constexpr int K_OFF = BLOCK_M * LDQ * 4;
+  static constexpr int V_OFF = K_OFF + Op::SPLIT * PLANE;
+  static constexpr int RAW_OFF = V_OFF + Op::SPLIT * PLANE;
+  static constexpr int SMEM = RAW_OFF + PLANE;
+  static constexpr int LBO_K = BLOCK_N * 16;   // K: next 16-byte column of dk
+  static constexpr int LBO_V = DK * 16;        // V^T: next 16-byte column of keys
+  static constexpr int CHUNKS = BLOCK_N * DK / Op::E / THREADS;  // 16-byte chunks a thread
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(K_OFF % 128 == 0 && PLANE % 128 == 0, "plane alignment");
+  static_assert(DK % SLAB == 0 && (DK / Op::E) % 4 == 0, "dk");
+};
+
+// ---- shared-memory fences, wgmma -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void store_f(float* p, size_t i, float x) { p[i] = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float x) {
-  p[i] = __float2bfloat16(x);
+
+// this thread's st.shared become visible to the tensor cores' (async proxy)
+// reads; the barrier that follows makes them visible to every warpgroup
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ float round_p(float x, const float*) { return x; }
-__device__ __forceinline__ float round_p(float x, const __nv_bfloat16*) {
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand without swizzle: 8-row
+// x 16-byte core matrices of 128 contiguous bytes, `lbo` bytes apart along K
+// and 128 bytes apart along N.
+__device__ __forceinline__ uint64_t desc_of(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// wgmma m64n64k8 (tf32) and m64n64k16 (bf16), A from registers, B from shared
+// memory (K-major), fp32 accumulators d[32]: d = A B^T + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t desc,
+                                           int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+               "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+               "%24, %25, %26, %27, %28, %29, %30, %31"
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a, uint64_t desc,
+                                           int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+               "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+               "%24, %25, %26, %27, %28, %29, %30, %31"
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// ---- A fragments --------------------------------------------------------------
+//
+// A thread's share of one k-step of A: rows r and r + 8 (r = 16 * its warp in
+// the warpgroup + lane / 4); tf32 columns q and q + 4 (q = lane % 4), bf16
+// column pairs 2q and 2q + 8.
+struct FragTF32 {
+  uint32_t hi[4], lo[4];
+};
+struct FragBF16 {
+  uint32_t v[4];
+};
+template <typename T>
+struct FragOf {
+  using type = FragTF32;
+};
+template <>
+struct FragOf<__nv_bfloat16> {
+  using type = FragBF16;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(const float (&v)[4], FragTF32& f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = tf32_rna(v[i]);
+    f.lo[i] = __float_as_uint(v[i] - __uint_as_float(f.hi[i]));  // exact
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f.hi[i]), "+r"(f.lo[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 b = __floats2bfloat162_rn(x, y);  // bf16 values already: exact
+  return *reinterpret_cast<uint32_t*>(&b);
+}
+
+// Q: `p` points at row r, column q (tf32) or 2q (bf16) of the fp32 Q rows
+__device__ __forceinline__ void q_frag(const float* p, int ld, FragTF32& f) {
+  const float v[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
+  split(v, f);
+}
+__device__ __forceinline__ void q_frag(const float* p, int ld, FragBF16& f) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  const float2 b = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float2 c = *reinterpret_cast<const float2*>(p + 8);
+  const float2 d = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+  f.v[0] = pack_bf16(a.x, a.y);
+  f.v[1] = pack_bf16(b.x, b.y);
+  f.v[2] = pack_bf16(c.x, c.y);
+  f.v[3] = pack_bf16(d.x, d.y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f.v[i])::"memory");
+}
+
+// P: k-step kk of the probabilities held as the S accumulator, p[4j + e]
+// (row r) and p[4j + 2 + e] (row r + 8) at keys 8j + 2q + e. tf32: k = q is
+// key 8kk + 2q and k = q + 4 is key 8kk + 2q + 1 (V^T is staged in that
+// order); bf16: keys 16kk + 2q (+1) and 16kk + 8 + 2q (+1), as the
+// accumulator holds them.
+__device__ __forceinline__ void p_frag(const float (&p)[32], int kk, FragTF32& f) {
+  const float v[4] = {p[4 * kk], p[4 * kk + 2], p[4 * kk + 1], p[4 * kk + 3]};
+  split(v, f);
+}
+__device__ __forceinline__ void p_frag(const float (&p)[32], int kk, FragBF16& f) {
+  f.v[0] = pack_bf16(p[8 * kk], p[8 * kk + 1]);
+  f.v[1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
+  f.v[2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
+  f.v[3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f.v[i])::"memory");
+}
+
+// One k-step: 3xTF32 (the lo plane `lo` bytes after the hi plane) or bf16.
+__device__ __forceinline__ void mma(float* d, const FragTF32& a, uint32_t b, uint32_t lbo,
+                                    uint32_t lo, int scale_d) {
+  wgmma_tf32(d, a.hi, desc_of(b + lo, lbo), scale_d);  // hi * lo
+  wgmma_tf32(d, a.lo, desc_of(b, lbo), 1);             // lo * hi
+  wgmma_tf32(d, a.hi, desc_of(b, lbo), 1);             // hi * hi
+}
+__device__ __forceinline__ void mma(float* d, const FragBF16& a, uint32_t b, uint32_t lbo,
+                                    uint32_t, int scale_d) {
+  wgmma_bf16(d, a.v, desc_of(b, lbo), scale_d);
+}
+
+// d (64 x 64) = a fresh tensor-core sum over 64 of K: A from the Q rows in
+// shared memory (`q`) or from the P registers, B at shared address `b`, one
+// wgmma group per k-step, at most two in flight (A's registers stay in use
+// until their group is done).
+template <typename T, int LD>
+__device__ __forceinline__ void mma_q(float (&d)[32], const float* q, uint32_t b, uint32_t lbo,
+                                      uint32_t lo) {
+  constexpr int KSTEP = Operand<T>::KSTEP;
+  reg_fence(d);
+#pragma unroll
+  for (int kk = 0; kk < SLAB / KSTEP; ++kk) {
+    typename FragOf<T>::type f;
+    q_frag(q + kk * KSTEP, LD, f);
+    wg_fence();
+    mma(d, f, b + kk * 2 * lbo, lbo, lo, kk > 0);
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+  reg_fence(d);
+}
+
+template <typename T>
+__device__ __forceinline__ void mma_p(float (&d)[32], const float (&p)[32], uint32_t b,
+                                      uint32_t lbo, uint32_t lo) {
+  constexpr int KSTEP = Operand<T>::KSTEP;
+  reg_fence(d);
+#pragma unroll
+  for (int kk = 0; kk < BLOCK_N / KSTEP; ++kk) {
+    typename FragOf<T>::type f;
+    p_frag(p, kk, f);
+    wg_fence();
+    mma(d, f, b + kk * 2 * lbo, lbo, lo, kk > 0);
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+  reg_fence(d);
+}
+
+// ---- epilogue and rounding -----------------------------------------------------
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+// round to the operand type (the product with V takes P in it)
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <int DK>
-constexpr int smem_floats() {
-  // Q, K and V tiles with a padded row stride (DK + 1: conflict-free column
-  // reads); the probability tile reuses the K buffer once scores are done.
-  return 3 * BLOCK_M * (DK + 1);
+// ---- staging ------------------------------------------------------------------------
+//
+// A key tile reaches its planes in two steps. First cp.async copies it from
+// device memory, 16 bytes at a time and without registers, while the
+// warpgroups still work on the tile before: K straight into its hi plane (its
+// core matrices are 16-byte runs of a key row), V row by row into a raw
+// buffer. Then, between two barriers, a pass splits fp32 K in place into hi
+// and lo and transposes V from the raw buffer into its planes (split for
+// fp32). Rows past seq are zero-filled by the copy.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// K chunk e is key n, dk columns [c E, c E + E): lanes 0-7 on 8 keys of one
+// chunk column (128 contiguous bytes of the plane), lanes 8-31 on the next
+// three columns (64 contiguous bytes of a key row)
+__device__ __forceinline__ void k_chunk(int e, int& n, int& c) {
+  n = (e & 7) + 8 * ((e >> 5) & 7);
+  c = ((e >> 3) & 3) + 4 * (e >> 8);
+}
+
+// issue the copies of key tile [k0, k0 + BLOCK_N): K into its (hi) plane, V
+// into the raw buffer; one cp.async group
 template <typename T, int DK>
-__global__ void __launch_bounds__(THREADS)
-mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const uint8_t* __restrict__ mask,
-               T* __restrict__ out, int seq, int n_head, float scale) {
-  constexpr int LD = DK + 1;
-  constexpr int LDP = BLOCK_N + 1;
-  constexpr int COLS = DK / 8;  // context columns per thread: kg + 8*c
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + BLOCK_M * LD;
-  float* vs = ks + BLOCK_N * LD;
-  float* ps = ks;  // reused after the score pass of each tile
-  __shared__ int key_ok[BLOCK_N];
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;  // 0..15
-  const int kg = tid & 7;   // 0..7
-  const int q0 = blockIdx.x * BLOCK_M;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t row_stride = (size_t)n_head * DK;
-  const size_t base = (size_t)b * seq * row_stride + (size_t)h * DK;
-
-  for (int e = tid; e < BLOCK_M * DK; e += THREADS) {
-    const int r = e / DK, d = e % DK;
-    const int t = q0 + r;
-    qs[r * LD + d] = t < seq ? load_f(q, base + (size_t)t * row_stride + d) : 0.f;
+__device__ __forceinline__ void copy_tile(const T* k, const T* v, size_t base, size_t stride,
+                                          int k0, int seq, uint8_t* k_planes, uint8_t* v_raw) {
+  using G = Geom<T, DK>;
+  constexpr int E = Operand<T>::E;
+#pragma unroll
+  for (int i = 0; i < G::CHUNKS; ++i) {
+    const int e = i * THREADS + threadIdx.x;
+    int n, c;
+    k_chunk(e, n, c);
+    const bool in = k0 + n < seq;
+    const size_t src = base + (size_t)(in ? k0 + n : 0) * stride + c * E;
+    cp_async16(k_planes + (c * BLOCK_N + n) * 16, k + src, in);
+    // V: chunk e is key e / (DK / E), columns (e % (DK / E)) E.., row-major
+    const int nv = e / (DK / E), cv = e % (DK / E);
+    const bool in_v = k0 + nv < seq;
+    cp_async16(v_raw + (nv * DK + cv * E) * sizeof(T),
+               v + base + (size_t)(in_v ? k0 + nv : 0) * stride + cv * E, in_v);
   }
+  cp_async_commit();
+}
 
-  float m_run[ROWS], l_run[ROWS], acc[ROWS][COLS];
+// fp32 x as hi = tf32(x) at `hi` and lo = x - hi one plane further
+__device__ __forceinline__ void split_store(uint8_t* hi, int plane, const float (&x)[4]) {
+  uint32_t h[4], l[4];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    h[i] = tf32_rna(x[i]);
+    l[i] = __float_as_uint(x[i] - __uint_as_float(h[i]));  // exact
   }
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(hi + plane) = make_uint4(l[0], l[1], l[2], l[3]);
+}
 
-  for (int k0 = 0; k0 < seq; k0 += BLOCK_N) {
-    __syncthreads();  // previous tile's P and V reads are done
-    for (int e = tid; e < BLOCK_N * DK; e += THREADS) {
-      const int r = e / DK, d = e % DK;
-      const int t = k0 + r;
-      const bool in = t < seq;
-      ks[r * LD + d] = in ? load_f(k, base + (size_t)t * row_stride + d) : 0.f;
-      vs[r * LD + d] = in ? load_f(v, base + (size_t)t * row_stride + d) : 0.f;
+// the pass over a copied tile. V^T chunk j of dk column d holds E key slots:
+// fp32 slots 4j..4j+3 of group j / 2 are keys 8 (j / 2) + 2m + j % 2 (the
+// order p_frag reads P in), bf16 chunk j keys 8j..8j+7; lanes on consecutive
+// d read consecutive words of a raw row and write consecutive 16 bytes
+template <typename T, int DK>
+__device__ __forceinline__ void split_tile(uint8_t* k_planes, uint8_t* v_planes,
+                                           const uint8_t* v_raw) {
+  using G = Geom<T, DK>;
+  const T* raw = reinterpret_cast<const T*>(v_raw);
+#pragma unroll
+  for (int i = 0; i < G::CHUNKS; ++i) {
+    const int e = i * THREADS + threadIdx.x;
+    if constexpr (sizeof(T) == 4) {
+      int n, c;
+      k_chunk(e, n, c);
+      uint8_t* hi = k_planes + (c * BLOCK_N + n) * 16;
+      const float4 x = *reinterpret_cast<const float4*>(hi);
+      split_store(hi, G::PLANE, {x.x, x.y, x.z, x.w});
     }
-    if (tid < BLOCK_N) {
-      const int t = k0 + tid;
-      key_ok[tid] = t < seq && (mask == nullptr || mask[(size_t)b * seq + t] == 0);
-    }
-    __syncthreads();
-
-    float s[ROWS][KEYS];
+    const int d = e % DK, j = e / DK;
+    uint8_t* dst = v_planes + (j * DK + d) * 16;
+    if constexpr (sizeof(T) == 4) {
+      float x[4];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+      for (int m = 0; m < 4; ++m) x[m] = raw[(8 * (j >> 1) + 2 * m + (j & 1)) * DK + d];
+      split_store(dst, G::PLANE, x);
+    } else {
+      uint32_t w[4];
 #pragma unroll
-      for (int j = 0; j < KEYS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DK; ++d) {
-      float qv[ROWS], kv[KEYS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = qs[(rg + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) kv[j] = ks[(kg + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < KEYS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    float alpha[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        s[i][j] = key_ok[kg + 8 * j] ? s[i][j] * scale : -INFINITY;
-        tile_max = fmaxf(tile_max, s[i][j]);
+      for (int m = 0; m < 4; ++m) {
+        __nv_bfloat162 pair;
+        pair.x = raw[(8 * j + 2 * m) * DK + d];
+        pair.y = raw[(8 * j + 2 * m + 1) * DK + d];
+        w[m] = *reinterpret_cast<uint32_t*>(&pair);
       }
-      // the 8 threads sharing these rows are lanes differing in bits 0..2
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
-      const float m_new = fmaxf(m_run[i], tile_max);
-      // m_new == -inf only while every key so far is masked; acc and l are
-      // then 0, and the guards keep exp(-inf - -inf) = NaN out of them
-      alpha[i] = m_run[i] == -INFINITY ? 0.f : expf(m_run[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        row_sum += p;
-        s[i][j] = round_p(p, q);
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, o);
-      l_run[i] = l_run[i] * alpha[i] + row_sum;
-      m_run[i] = m_new;
-    }
-
-    __syncthreads();  // every thread is done reading K: reuse it for P
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) ps[(rg + 16 * i) * LDP + kg + 8 * j] = s[i][j];
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[i][c] *= alpha[i];
-    const int n_keys = min(BLOCK_N, seq - k0);
-    for (int kk = 0; kk < n_keys; ++kk) {
-      float pv[ROWS], vv[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = ps[(rg + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) vv[c] = vs[kk * LD + kg + 8 * c];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
+}
 
+// Q rows [q0, q0 + BLOCK_M) as fp32 (zero past seq), row r at qs + r * LDQ
+template <typename T, int DK>
+__device__ __forceinline__ void stage_q(const T* q, size_t base, size_t stride, int q0, int seq,
+                                        float* qs) {
+  using G = Geom<T, DK>;
+  constexpr int E = Operand<T>::E, PER_ROW = DK / E;
+  for (int e = threadIdx.x; e < BLOCK_M * PER_ROW; e += THREADS) {
+    const int r = e / PER_ROW, c = e % PER_ROW, t = q0 + r;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (t < seq)
+      raw = __ldg(reinterpret_cast<const uint4*>(q + base + (size_t)t * stride + c * E));
+    float* dst = qs + r * G::LDQ + c * E;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<uint4*>(dst) = raw;
+    } else {  // a bf16 is the top half of its fp32 value
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float f[8];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int t = q0 + rg + 16 * i;
+      for (int i = 0; i < 4; ++i) {
+        f[2 * i] = __uint_as_float(w[i] << 16);
+        f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+      }
+      *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  }
+}
+
+// The first key tile at or after `from` that holds a valid key (n_tiles if
+// none), and its validity bits (bit i: key tile * BLOCK_N + i is valid). Every
+// warp computes the same answer from its own ballots.
+__device__ __forceinline__ int next_live(const uint8_t* mask, int seq, int from, int n_tiles,
+                                         uint64_t& bits) {
+  const int lane = threadIdx.x & 31;
+  for (int kt = from; kt < n_tiles; ++kt) {
+    const int t = kt * BLOCK_N + lane;
+    const bool a = t < seq && (mask == nullptr || __ldg(mask + t) == 0);
+    const bool b = t + 32 < seq && (mask == nullptr || __ldg(mask + t + 32) == 0);
+    const uint32_t lo = __ballot_sync(0xffffffffu, a), hi = __ballot_sync(0xffffffffu, b);
+    if (lo | hi) {
+      bits = (uint64_t)hi << 32 | lo;
+      return kt;
+    }
+  }
+  bits = 0;
+  return n_tiles;
+}
+
+// ---- the kernel -------------------------------------------------------------------
+
+template <typename T, int DK>
+__global__ void __launch_bounds__(THREADS, 1)
+mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const uint8_t* __restrict__ mask, T* __restrict__ out, int seq, int n_head,
+               float scale) {
+  using G = Geom<T, DK>;
+  constexpr int SLABS = DK / SLAB;
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  uint8_t* k_planes = smem + G::K_OFF;
+  uint8_t* v_planes = smem + G::V_OFF;
+  uint8_t* v_raw = smem + G::RAW_OFF;
+  const uint32_t kb = smem_addr(k_planes), vb = smem_addr(v_planes);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wg = warp >> 2;
+  const int r = 16 * (warp & 3) + (lane >> 2);  // accumulator rows r, r + 8
+  const int qd = lane & 3;
+  const int q0 = blockIdx.x * BLOCK_M, h = blockIdx.y, b = blockIdx.z;
+  const size_t stride = (size_t)n_head * DK;
+  const size_t base = (size_t)b * seq * stride + (size_t)h * DK;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * seq;
+  const int n_tiles = (seq + BLOCK_N - 1) / BLOCK_N;
+  // a warpgroup whose 64 rows all lie past seq stages tiles but computes nothing
+  const bool rows_live = q0 + 64 * wg < seq;
+  const float* q_frag_row =
+      qs + (64 * wg + r) * G::LDQ + Operand<T>::COL * qd;  // + column of the k-step
+
+  float o[DK / 2];  // SLABS m64n64 accumulators: o[32 s + 4j + e] row r (+8 for e + 2)
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  uint64_t bits;
+  int cur = next_live(mask_b, seq, 0, n_tiles, bits);
+  if (cur < n_tiles) {
+    copy_tile<T, DK>(k, v, base, stride, cur * BLOCK_N, seq, k_planes, v_raw);
+    stage_q<T, DK>(q, base, stride, q0, seq, qs);
+    cp_async_wait_all();
+    __syncthreads();
+    split_tile<T, DK>(k_planes, v_planes, v_raw);
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  while (cur < n_tiles) {
+    uint64_t next_bits;
+    const int next = next_live(mask_b, seq, cur + 1, n_tiles, next_bits);
+    const bool more = next < n_tiles;
+
+    // S = Q K^T, a fresh sum per 64 of dk
+    float s[32];
+    if (rows_live) {
+      mma_q<T, G::LDQ>(s, q_frag_row, kb, G::LBO_K, G::PLANE);
+#pragma unroll
+      for (int sl = 1; sl < SLABS; ++sl) {
+        float t[32];
+        mma_q<T, G::LDQ>(t, q_frag_row + sl * SLAB,
+                         kb + sl * (SLAB / Operand<T>::E) * G::LBO_K, G::LBO_K, G::PLANE);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] += t[i];
+      }
+    }
+    __syncthreads();  // both warpgroups are done reading the K tile
+    // the next tile's copies run under the softmax and P V
+    if (more) copy_tile<T, DK>(k, v, base, stride, next * BLOCK_N, seq, k_planes, v_raw);
+
+    if (rows_live) {
+      // this thread's 16 keys of the tile: bit 2j + e is key 8j + 2qd + e
+      uint32_t ok = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ok |= (uint32_t)((bits >> (8 * j + 2 * qd)) & 3u) << (2 * j);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = (ok >> (2 * j + e)) & 1u;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float& x = s[4 * j + 2 * rr + e];
+            x = valid ? x * scale : -INFINITY;
+            mx[rr] = fmaxf(mx[rr], x);
+          }
+        }
+      float alpha[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        // the 4 threads sharing a row are lanes differing in bits 0..1
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        // a live tile has a valid key for every row, so the max is finite;
+        // the first tile's alpha is exp(-inf) = 0 (o and l are 0 then)
+        const float m_new = fmaxf(m_run[rr], mx[rr]);
+        alpha[rr] = expf(m_run[rr] - m_new);
+        m_run[rr] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * rr + e];
+            const float p = expf(x - m_run[rr]);  // masked: exp(-inf) = 0
+            sum[rr] += p;
+            x = round_to(p, q);
+          }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+        sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+        l_run[rr] = l_run[rr] * alpha[rr] + sum[rr];
+      }
+
+      // O = alpha O + P V, a fresh sum per 64 columns of dk
+#pragma unroll
+      for (int sl = 0; sl < SLABS; ++sl) {
+        float f[32];
+        mma_p<T>(f, s, vb + sl * SLAB * 16, G::LBO_V, G::PLANE);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float& acc = o[32 * sl + i];
+          acc = fmaf(acc, alpha[(i >> 1) & 1], f[i]);
+        }
+      }
+    }
+    if (more) cp_async_wait_all();
+    __syncthreads();  // the V planes are read; the next tile's copies have landed
+    if (more) {
+      split_tile<T, DK>(k_planes, v_planes, v_raw);
+      fence_proxy_async();
+    }
+    __syncthreads();  // the next tile's planes are in place
+    cur = next;
+    bits = next_bits;
+  }
+
+  // fully-masked item: l == 0 -> exactly 0 (the reference's nan_to_num)
+  const float inv[2] = {l_run[0] > 0.f ? 1.f / l_run[0] : 0.f,
+                        l_run[1] > 0.f ? 1.f / l_run[1] : 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int t = q0 + 64 * wg + r + 8 * rr;
     if (t >= seq) continue;
-    // fully-masked row: l == 0 -> exactly 0 (the reference's nan_to_num)
-    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
+    T* row = out + base + (size_t)t * stride;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c)
-      store_f(out, base + (size_t)t * row_stride + kg + 8 * c, acc[i][c] * inv);
+    for (int sl = 0; sl < SLABS; ++sl)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 32 * sl + 4 * j + 2 * rr;
+        store2(row + SLAB * sl + 8 * j + 2 * qd, o[i] * inv[rr], o[i + 1] * inv[rr]);
+      }
   }
 }
 
 template <typename T, int DK>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* out, int batch, int seq,
-                   int n_head, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<DK>() * sizeof(float);
+cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
+                   int batch, int seq, int n_head, float scale, cudaStream_t stream) {
+  constexpr int smem = Geom<T, DK>::SMEM;
   // above 48 KB of dynamic shared memory needs an opt-in (set per device;
   // cheap enough to repeat on every launch)
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<T, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(mha_fwd_kernel<T, DK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((seq + BLOCK_M - 1) / BLOCK_M, n_head, batch);
   mha_fwd_kernel<T, DK><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), seq, n_head, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+      static_cast<T*>(out), seq, n_head, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16.
-// mask: (batch, seq) uint8, nonzero = padding key; may be null (no mask).
-// Returns a cudaError_t (0 = launched).
-extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v,
-                             const void* mask, void* out, int batch, int seq,
-                             int n_head, int dk, int dtype, float scale,
-                             void* stream) {
+// Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16. q, k, v
+// and out 16-byte aligned. mask: (batch, seq) uint8, nonzero = padding key;
+// may be null (no mask). Returns a cudaError_t (0 = launched).
+extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v, const void* mask,
+                             void* out, int batch, int seq, int n_head, int dk, int dtype,
+                             float scale, void* stream) {
   if (seq <= 0 || batch <= 0 || n_head <= 0) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorMisalignedAddress;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dk == 64)

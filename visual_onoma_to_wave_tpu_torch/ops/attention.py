@@ -22,15 +22,17 @@ refused launch or a call that would need a gradient raises.
 `attention_core.launches` counts kernel launches.
 
 What bounds the kernel on the card: one (T, T) score tile per (item, head)
-costs 4*T*T*dk FLOPs -- 0.5 GFLOP at the serving decoder's T = 1000, dk = 128
--- while the unique bytes are Q, K, V and ctx, 4*T*dk*4 = 2 MB: ~256 FLOP per
-byte, so it is bound by arithmetic, not by device memory. The plain version
-instead writes the (B, H, T, T) fp32 logits to device memory (128 MB at
-B = 16, H = 2, T = 1000) and re-reads them through mask, softmax and the
-product with V; the kernel keeps every score on chip (online softmax over
-64-key tiles). This first kernel computes on the CUDA cores (no tensor
-cores), so its bound is the fp32 FMA rate; see PERF.md for its time on the
-card beside the plain version's.
+costs 4*T*Tk*dk FLOPs over the Tk valid keys -- 0.5 GFLOP at the serving
+decoder's T = Tk = 1000, dk = 128 -- while the unique bytes are Q, K, V and
+ctx, 4*T*dk*4 = 2 MB: ~256 FLOP per byte, so fp32 is bound by arithmetic,
+not by device memory. The plain version instead writes the (B, H, T, T)
+fp32 logits to device memory (128 MB at B = 16, H = 2, T = 1000) and
+re-reads them through mask, softmax and the product with V; the kernel
+keeps every score on chip (online softmax over 64-key tiles, skipping the
+tiles whose keys are all padding) and runs both products on the tensor
+cores (`wgmma`; fp32 as 3xTF32: each operand split into a TF32 high part
+and its fp32 remainder, three products hi*lo + lo*hi + hi*hi, fp32 sums).
+See PERF.md for its time on the card beside the plain version's and SDPA's.
 
 The kernel is built at first use by `ops/cuda_build.py` (nvcc for sm_90a
 into `build/kernels/<hash>/`, loaded with ctypes: a plain C entry point, no
@@ -98,7 +100,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"on {q.device}")
         mask = key_pad_mask.to(torch.uint8).contiguous()
     check_inference("flash_mha", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel loads 16-byte chunks: a view that starts off that grid is copied
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+               for x in (q.contiguous(), k.contiguous(), v.contiguous()))
     out = torch.empty_like(q)
     lib = _load_library()
     with torch.cuda.device(q.device):
