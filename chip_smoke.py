@@ -27,10 +27,12 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      bound and the tensor-core bound (3xTF32 for fp32, bf16);
   3. golden: the committed demo weights (`examples/checkpoints/demo/torch/`)
      through the port's fused acoustic + vocoder step, against the JAX
-     package's outputs stored in `golden.npz`;
+     package's outputs stored in `golden.npz`; the demo HiFi-GAN runs its
+     four MRF stages (C 64 / 32 / 16 / 8) through the MRF kernel;
   4. full width: the ICASSP configuration (hidden 256, 4 + 6 layers, dk 128,
-     max_mel_len 1000) with HiFi-GAN V1, random weights from a seed, serving
-     one padded batch of 16 requests; prints acoustic and synthesis rates;
+     max_mel_len 1000) with HiFi-GAN V1 (four MRF kernel launches a call),
+     random weights from a seed, serving one padded batch of 16 requests;
+     prints acoustic and synthesis rates;
   5. vocos golden: phase 3 with the demo Vocos (`config_vocos.json`,
      `vocoder_vocos.npz`) against `golden_vocos.npz`, and `apply_fused`
      (one trunk launch) against the served waveform;
@@ -47,11 +49,14 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      plain vs `torch.stft` + mel product ms at one 64-clip batch of the
      largest bucket;
   8. mrf: holds the fused MRF stage kernel against its plain version (the
-     cuDNN 18-conv chain, also the library yardstick) over fp32 / bf16, C
-     32-512, T 20 / 700 / 1000, B 1 / 4; times both at the served stage
-     shapes of iSTFTNet (C 512 x T 1000, 256 x 8000, 128 x 64000) and of
-     HiFi-GAN V1 (256 x 8000, 128 x 64000, 64 x 128000, 32 x 256000), B 16,
-     with achieved TFLOP/s and share of the fp32 bound;
+     cuDNN 18-conv chain, also the library yardstick) over fp32 / bf16, C 8 /
+     16 / 32 / 64 / 128 / 256 / 512, T 20 (inside the 60-frame halo), one
+     frame either side of the kernel's time tile and on it, and 1000, B 1 /
+     4; times the kernel (fp32 and bf16, weights packed once) and the plain
+     version at the served stage shapes of iSTFTNet (C 512 x T 1000, 256 x
+     8000, 128 x 64000) and of HiFi-GAN V1 (256 x 8000, 128 x 64000, 64 x
+     128000, 32 x 256000), B 16, beside the fp32 CUDA-core, 3xTF32 and bf16
+     tensor-core bounds and the bytes the kernel's structure moves;
   9. istftnet golden: phase 3 with the demo iSTFTNet-mel
      (`config_istftnet.json`, `vocoder_istftnet_mel.npz`) against
      `golden_istftnet.npz`, one MRF launch per call;
@@ -70,9 +75,9 @@ checked by `tests/test_torch_preprocess_cuda.py`.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its main path, its error against the plain version, kernel,
 plain and library ms and the card's bound at the timed shape; for the
-attention and ConvNeXt kernels the bound is that of the tensor cores, fp32
-as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside it, and
-for attention the same numbers under the served mask); the last line
+attention, ConvNeXt and MRF kernels the bound is that of the tensor cores,
+fp32 as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside
+it, and for attention the same numbers under the served mask); the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX and nothing of the
 JAX package (`visual_onoma_to_wave_tpu`).
 """
@@ -572,11 +577,9 @@ def convnext_blocks(gen) -> int:
 
 
 def mrf_stages(gen) -> int:
-    """Fused MRF stage launches per vocoder call: one per iSTFTNet stage
-    (HiFi-GAN keeps its MRF stages on cuDNN)."""
-    from visual_onoma_to_wave_tpu_torch.models.istftnet import ISTFTNetGenerator
-
-    return len(gen.resblocks) // gen.num_kernels if isinstance(gen, ISTFTNetGenerator) else 0
+    """Fused MRF stage launches per vocoder call: one per ResBlock1 stage of
+    iSTFTNet and HiFi-GAN V1 / V2 (the generators that keep an `MRFStages`)."""
+    return len(gen.resblocks) // gen.num_kernels if getattr(gen, "_mrf", None) else 0
 
 
 def per_call_launches(model, gen) -> dict:
@@ -1111,15 +1114,28 @@ def phase_mel(dev, card: str) -> dict:
             "library_ms": ms["mel_frontend_library"]}
 
 
-# Fused MRF stage (phase 8). fp32: the kernel and cuDNN sum the 18 convs in
-# other orders, 1e-5 x max |plain| (measured ~1e-7 relative); bf16 rounds
-# every conv input to bf16 in both, where an order difference can flip a
-# rounding that the later convs carry: 2e-2 x max |plain| (~5 bf16 steps)
+# Fused MRF stage (phase 8). fp32: the kernel (3xTF32, a fresh tensor-core
+# sum per 16 input channels of a tap) and cuDNN sum the 18 convs in other
+# orders, 1e-5 x max |plain| (measured ~2e-7 relative); bf16 rounds every
+# conv input to bf16 in both, where an order difference can flip a rounding
+# that the later convs carry: 2e-2 x max |plain| (~5 bf16 steps)
 MRF_OF_SCALE = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# every width the kernel takes: the ICASSP generators' and the demo HiFi-GAN's
+# (upsample_initial_channel 128: stages at 64 / 32 / 16 / 8)
+MRF_WIDTHS = (8, 16, 32, 64, 128, 256, 512)
 # served stage shapes (C, T) at B 16, ICASSP max_mel_len 1000
 MRF_SHAPES = {"istftnet_melrate": (512, 1000), "c8c8i_1 / hifigan_1": (256, 8000),
               "c8c8i_2 / hifigan_2": (128, 64000), "hifigan_3": (64, 128000),
               "hifigan_4": (32, 256000)}
+
+
+def mrf_parity_t(C: int) -> tuple[int, ...]:
+    """T of the parity cases at width C: shorter than the stage's 60-frame
+    halo, around the kernel's time tile, and the served max_mel_len."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import tile_frames
+
+    tile = tile_frames(C)
+    return tuple(sorted({20, tile - 1, tile, tile + 1, MAX_MEL}))
 
 
 def mrf_weights(C: int, gen, dev, dtype=torch.float32):
@@ -1137,17 +1153,42 @@ def mrf_cost(x: torch.Tensor, mats, bias) -> tuple[float, int]:
     return 252.0 * C_ * C_ * B_ * T_, nbytes(x, x, *mats, bias)
 
 
+def mrf_design_bytes(B_: int, C_: int, T_: int, dtype) -> dict:
+    """What the kernel's structure moves a stage (csrc/mrf.cu's header): device
+    memory, in fp32 planes of (B, T, C) (x^T written; per conv its input read
+    once per tile with the tile's halo, its output written, conv2's residual
+    read; the three y read and the output written by the average), and the
+    weight stream from L2 (every tile reads its conv's taps once)."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import tile_frames
+
+    tile, plane = tile_frames(C_), B_ * T_ * C_ * 4
+    size = torch.empty((), dtype=dtype).element_size()
+    split = 2 if dtype == torch.float32 else 1
+    tiles = B_ * -(-T_ // tile)
+    planes, weights = 1.0, 0.0
+    for k in (3, 7, 11):
+        for d in (1, 3, 5):
+            for pad in ((k - 1) // 2 * d, (k - 1) // 2):
+                planes += 2 + 2 * pad / tile
+            planes += 1   # conv2's residual
+            weights += 2 * tiles * k * C_ * C_ * size * split
+    dram = planes * plane + 3 * plane + 2 * B_ * T_ * C_ * size
+    return {"dram_bytes": dram, "dram_planes": dram / plane, "l2_weight_bytes": weights,
+            "dram_ms_at_peak": dram / PEAK_BYTES_PER_S * 1e3}
+
+
 def phase_mrf(dev, card: str) -> dict:
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, mrf_stage_fused_reference
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import (
+        mrf_stage_fused, mrf_stage_fused_reference, pack_mrf_kernel_weights)
 
     phase = "8 mrf"
     gen = torch.Generator(device=dev).manual_seed(8)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}    # of max |plain|
     worst_abs = 0.0                                      # fp32, absolute
     cases = 0
-    for C in (32, 64, 128, 256, 512):
+    for C in MRF_WIDTHS:
         mats, bias = mrf_weights(C, gen, dev)
-        for T in (20, 700, 1000):
+        for T in mrf_parity_t(C):
             for Bc in (1, 4):
                 x = torch.randn(Bc, C, T, generator=gen, device=dev)
                 for dtype in (torch.float32, torch.bfloat16):
@@ -1165,7 +1206,8 @@ def phase_mrf(dev, card: str) -> dict:
                     if dtype == torch.float32:
                         worst_abs = max(worst_abs, err)
                     cases += 1
-    say(phase + " parity", card=card, cases=cases, max_abs_err_fp32=worst_abs,
+    say(phase + " parity", card=card, cases=cases, widths=MRF_WIDTHS,
+        T={C: mrf_parity_t(C) for C in MRF_WIDTHS}, batch=(1, 4), max_abs_err_fp32=worst_abs,
         max_err_of_max_abs={str(d).split(".")[-1]: v for d, v in worst.items()},
         bound_of_max_abs={str(d).split(".")[-1]: v for d, v in MRF_OF_SCALE.items()})
 
@@ -1174,36 +1216,60 @@ def phase_mrf(dev, card: str) -> dict:
         for name, (C, T) in MRF_SHAPES.items():
             mats, bias = mrf_weights(C, gen, dev)
             x = torch.randn(B, C, T, generator=gen, device=dev)
-            runs = {"kernel": lambda: mrf_stage_fused(x, *mats, bias),
-                    "plain": lambda: mrf_stage_fused_reference(x, *mats, bias)}
+            # the weights packed once, as the served generators keep them
+            packed = {d: pack_mrf_kernel_weights(mats, d) for d in (torch.float32, torch.bfloat16)}
+            runs = {"kernel": lambda: mrf_stage_fused(x, *mats, bias,
+                                                      packed=packed[torch.float32]),
+                    "plain": lambda: mrf_stage_fused_reference(x, *mats, bias),
+                    "kernel_bf16": lambda: mrf_stage_fused(x, *mats, bias, dtype=torch.bfloat16,
+                                                           packed=packed[torch.bfloat16])}
             ref = runs["plain"]()
             abs_err = (runs["kernel"]() - ref).abs().max().item()
             err = abs_err / ref.abs().max().item()
+            bf16_err = ((runs["kernel_bf16"]().float() - ref).abs().max() / ref.abs().max()).item()
             del ref
-            if err > MRF_OF_SCALE[torch.float32]:
-                raise AssertionError(f"{phase}: kernel != plain at B={B} C={C} T={T}: {err:.3e}")
+            if err > MRF_OF_SCALE[torch.float32] or bf16_err > MRF_OF_SCALE[torch.bfloat16]:
+                raise AssertionError(f"{phase}: kernel != plain at B={B} C={C} T={T}: fp32 "
+                                     f"{err:.3e}, bf16 {bf16_err:.3e} of max |plain|")
             worst_abs = max(worst_abs, abs_err)
             times = {n: [] for n in runs}
-            for order in (("kernel", "plain"), ("plain", "kernel")):
+            for order in (list(runs), list(runs)[::-1]):
                 for n in order:
                     times[n].append(time_cuda(runs[n], 2, warmup=1))
             ms = {n: float(np.mean(t)) for n, t in times.items()}
             flops, moved = mrf_cost(x, mats, bias)
-            b = bound(flops, moved)
-            shapes[name] = {"C": C, "T": T, "ms": ms, "ms_runs": times, **b,
-                            "kernel_tflops": flops / (ms["kernel"] * 1e9),
-                            "plain_tflops": flops / (ms["plain"] * 1e9),
-                            "kernel_share_of_bound": b["bound_ms"] / ms["kernel"],
-                            "plain_share_of_bound": b["bound_ms"] / ms["plain"],
-                            "err_of_max_abs": err}
-            del x
+            bounds = {"fp32_cuda_cores": bound(flops, moved),
+                      "tensor_cores_3xtf32": bound(3 * flops, moved, PEAK_TF32_FLOPS),
+                      "tensor_cores_bf16": bound(flops, moved / 2, PEAK_BF16_FLOPS)}
+            shapes[name] = {
+                "C": C, "T": T, "ms": ms, "ms_runs": times, "bounds": bounds,
+                "kernel_tflops": flops / (ms["kernel"] * 1e9),
+                "plain_tflops": flops / (ms["plain"] * 1e9),
+                "kernel_share_of_cuda_core_bound":
+                    bounds["fp32_cuda_cores"]["bound_ms"] / ms["kernel"],
+                "kernel_share_of_3xtf32_bound":
+                    bounds["tensor_cores_3xtf32"]["bound_ms"] / ms["kernel"],
+                "plain_share_of_cuda_core_bound":
+                    bounds["fp32_cuda_cores"]["bound_ms"] / ms["plain"],
+                "kernel_bf16_share_of_bf16_bound":
+                    bounds["tensor_cores_bf16"]["bound_ms"] / ms["kernel_bf16"],
+                "kernel_vs_library": ms["plain"] / ms["kernel"],
+                "err_of_max_abs": {"fp32": err, "bf16": bf16_err},
+                "design": {"fp32": mrf_design_bytes(B, C, T, torch.float32),
+                           "bf16": mrf_design_bytes(B, C, T, torch.bfloat16)}}
+            del x, packed
             torch.cuda.empty_cache()
-    say(phase + " times", card=card, batch=B, dtype="fp32", library="the plain version "
-        "(cuDNN F.conv1d chain, TF32 off)", shapes=shapes)
+    say(phase + " times", card=card, batch=B, dtype="fp32 (kernel_bf16: bf16)",
+        library="the plain version (cuDNN F.conv1d chain, TF32 off)", shapes=shapes)
     melrate = shapes["istftnet_melrate"]
     return {"max_abs_err": worst_abs, "ms": melrate["ms"]["kernel"],
-            "plain_ms": melrate["ms"]["plain"], "bound_ms": melrate["bound_ms"],
-            "bound_by": melrate["bound_by"], "library_ms": melrate["ms"]["plain"]}
+            "plain_ms": melrate["ms"]["plain"],
+            **melrate["bounds"]["tensor_cores_3xtf32"],
+            "bound_fp32_cuda_cores_ms": melrate["bounds"]["fp32_cuda_cores"]["bound_ms"],
+            "library_ms": melrate["ms"]["plain"],
+            "bf16": {"max_abs_err_of_max_abs": worst[torch.bfloat16],
+                     "ms": melrate["ms"]["kernel_bf16"],
+                     **melrate["bounds"]["tensor_cores_bf16"]}}
 
 
 def phase_served(dev, card: str) -> dict:

@@ -90,10 +90,11 @@ def test_c8c8i_bridge_round_trip():
 def test_packing_follows_weight_changes():
     """The packed stage is made once and again only after a weight changes."""
     g = build_istftnet("melrate", upsample_initial_channel=32)
-    first = g._packed_stage(0)
-    assert g._packed_stage(0) is first
+    stage = g._stage_blocks(0)
+    first = g._mrf.packed(0, stage, torch.float32)
+    assert g._mrf.packed(0, stage, torch.float32) is first
     g.load_state_dict({k: v + 1.0 for k, v in g.state_dict().items()})
-    again = g._packed_stage(0)
+    again = g._mrf.packed(0, stage, torch.float32)
     assert again is not first
     assert torch.equal(again[1], first[1] + 1.0)
 

@@ -43,7 +43,11 @@ from visual_onoma_to_wave_tpu_torch.ops.mel import (
     mel_frontend,
     mel_frontend_reference,
 )
-from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, mrf_stage_fused_reference
+from visual_onoma_to_wave_tpu_torch.ops.mrf import (
+    mrf_stage_fused,
+    mrf_stage_fused_reference,
+    tile_frames,
+)
 from visual_onoma_to_wave_tpu_torch.ops.stft import char_stats_from_frame_sums
 
 MEL_CASES = [pytest.param(*case, id=case[0]) for case in chip_smoke.mel_cases()]
@@ -290,9 +294,14 @@ def test_mel_frontend_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("T", [20, 700, 1000])
-@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("T", [20, 700, 1000, -1, 0, 1],
+                         ids=["20", "700", "1000", "tile-1", "tile", "tile+1"])
+@pytest.mark.parametrize("C", chip_smoke.MRF_WIDTHS)
 def test_mrf_kernel_matches_plain(cuda, C, T, dtype):
+    """T 20 lies inside the stage's 60-frame halo; -1 / 0 / 1 are frames
+    around the kernel's time tile at width C (`tile_frames`)."""
+    if T <= 1:
+        T += tile_frames(C)
     g = torch.Generator(device=cuda).manual_seed(C + T)
     mats, bias = chip_smoke.mrf_weights(C, g, cuda)
     for B in (1, 4):
@@ -309,12 +318,36 @@ def test_mrf_kernel_matches_plain(cuda, C, T, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [16, 64, 256])
+@pytest.mark.parametrize("kernel_sizes,dilations", [
+    ((1, 5, 9), ((1, 1, 1), (2, 4, 8), (3, 3, 3))),
+    ((3, 3, 11), ((123, 1, 1), (1, 1, 1), (2, 2, 2))),
+], ids=["k1-5-9", "halo128"])
+def test_mrf_kernel_takes_other_kernel_sizes_and_dilations(cuda, kernel_sizes, dilations, C,
+                                                           dtype):
+    """Any odd k up to 11 and any dilations within the 128-frame halo: k 1
+    (no halo), and a conv reaching 123 frames (the widest window the kernel
+    stages)."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    mats = [(torch.randn(6, C, k * C, generator=g, device=cuda) * (0.5 / (k * C) ** 0.5))
+            for k in kernel_sizes]
+    bias = torch.randn(18, C, 1, generator=g, device=cuda) * 0.1
+    x = torch.randn(2, C, 300, generator=g, device=cuda)
+    out = mrf_stage_fused(x, *mats, bias, kernel_sizes, dilations, dtype=dtype)
+    ref = mrf_stage_fused_reference(x, *mats, bias, kernel_sizes, dilations, dtype=dtype)
+    scale = ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0.0,
+                               atol=chip_smoke.MRF_OF_SCALE[dtype] * scale)
+
+
+@pytest.mark.gpu
 def test_mrf_kernel_rejects_what_it_does_not_take(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     mats, bias = chip_smoke.mrf_weights(32, g, cuda)
     x = torch.randn(1, 32, 50, device=cuda)
     with pytest.raises(ValueError, match="C in"):
-        mrf_stage_fused(x[:, :16], *[m[:, :16, :16] for m in mats], bias[:, :16])
+        mrf_stage_fused(x[:, :24], *[m[:, :24, :24] for m in mats], bias[:, :24])
     with pytest.raises(ValueError, match="halo"):
         mrf_stage_fused(x, *mats, bias, dilations=((9, 9, 9),) * 3)
     with pytest.raises(ValueError, match="float32/bfloat16"):
@@ -330,6 +363,26 @@ def test_istftnet_on_the_card_launches_one_mrf_kernel_per_stage(cuda, preset, st
     torch.manual_seed(0)
     gen = build_istftnet(preset, upsample_initial_channel=128 if preset == "c8c8i" else 64).eval()
     mel = torch.randn(2, 37, 80) - 3.0
+    with torch.inference_mode():
+        ref = gen(mel)
+        gen.to(cuda)
+        before = mrf_stage_fused.launches
+        out = gen(mel.to(cuda))
+        torch.cuda.synchronize()
+    assert mrf_stage_fused.launches == before + stages
+    torch.testing.assert_close(out.cpu(), ref, rtol=0.0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resblock,stages", [("1", 4), ("2", 0)], ids=["v1-v2", "v3"])
+def test_hifigan_on_the_card_launches_one_mrf_kernel_per_resblock1_stage(cuda, resblock, stages):
+    """ResBlock1 stages (V1 / V2) run through the MRF kernel, at the demo's
+    widths (C 64 / 32 / 16 / 8); ResBlock2 stages (V3) stay on the modules."""
+    from visual_onoma_to_wave_tpu_torch.models import get_vocoder
+    torch.manual_seed(0)
+    preset = "HiFi-GAN" if resblock == "1" else "HiFi-GAN-v3"
+    gen = get_vocoder(preset, upsample_initial_channel=128).eval()
+    mel = torch.randn(2, 23, 80) - 3.0
     with torch.inference_mode():
         ref = gen(mel)
         gen.to(cuda)

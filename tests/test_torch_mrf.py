@@ -11,7 +11,9 @@ takes its plain version (the 18-conv chain in `F.conv1d`). Tolerances:
   TPU kernel does): 2e-2 x max |ref|. An order difference in an fp32 sum can
   flip the bf16 rounding of a conv input, one bf16 step (2^-8 relative), and
   the flip travels through the later convs of the branch;
-* packing: exact (the same numbers moved).
+* packing: exact (the same numbers moved), both `pack_mrf_weights` and the
+  kernel's stream built from it (`pack_mrf_kernel_weights`, fp32 as TF32 hi
+  + lo planes), and the generators' per-stage pack caches (`MRFStages`).
 """
 from __future__ import annotations
 
@@ -29,9 +31,14 @@ from visual_onoma_to_wave_tpu.ops import pallas_mrf
 from visual_onoma_to_wave_tpu_torch.bridge import hifigan_state_dict
 from visual_onoma_to_wave_tpu_torch.models.hifigan import ResBlock1
 from visual_onoma_to_wave_tpu_torch.ops import cuda_build
+from visual_onoma_to_wave_tpu_torch.models import build_istftnet, get_vocoder
+from visual_onoma_to_wave_tpu_torch.ops.convnext import tf32_round
 from visual_onoma_to_wave_tpu_torch.ops.mrf import (
     HALO,
+    kernel_tile,
+    kernel_weights_numel,
     mrf_stage_fused,
+    pack_mrf_kernel_weights,
     pack_mrf_weights,
     stage_halo,
 )
@@ -144,6 +151,123 @@ def test_pack_mrf_weights_equals_the_jax_packing_both_ways():
     assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
 
 
+def _unpack_kernel_weights(packed: torch.Tensor, C: int, k: int) -> torch.Tensor:
+    """The inverse of `pack_mrf_kernel_weights` for one branch: (6, C, k*C),
+    fp32 as hi + lo, the bf16 padding columns dropped."""
+    nt, kc, kcp = kernel_tile(C, packed.dtype)
+    ck, split = 16 // packed.element_size(), 2 if packed.dtype == torch.float32 else 1
+    planes = packed.reshape(6, C // nt, C // kc, k, split, kcp // ck, nt // 8, 8, ck)
+    planes = planes.sum(4) if split == 2 else planes[:, :, :, :, 0]
+    # (.., K groups, N cores, 8 rows, ck) -> (.., N, K)
+    blocks = planes.permute(0, 1, 2, 3, 5, 6, 4, 7).reshape(6, C // nt, C // kc, k, nt, kcp)
+    blocks = blocks[..., :kc]                          # [conv, co tile, ci chunk, j, co, ci]
+    return blocks.permute(0, 1, 4, 3, 2, 5).reshape(6, C, k * C)
+
+
+def _descriptor_read(plane: torch.Tensor, nt: int, n: int, kk: int) -> torch.Tensor:
+    """Element (row n, column kk) of one (NT, KCP) plane read as the kernel's
+    wgmma B descriptor addresses it: core matrices 128 bytes apart along N,
+    NT * 16 bytes (`lbo`) apart along K, 16 bytes a row."""
+    size = plane.element_size()
+    ck = 16 // size
+    byte = (kk // ck) * nt * 16 + (n // 8) * 128 + (n % 8) * 16 + (kk % ck) * size
+    return plane[byte // size]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [8, 16, 32, 64, 256])
+def test_kernel_weights_unpack_to_the_packed_matrices(c, dtype):
+    """`pack_mrf_kernel_weights` moves `pack_mrf_weights`'s numbers (rounded
+    to the operand type) and nothing else: undone, it gives the (6, C, k*C)
+    matrices exactly, and each plane holds tap j's A_j^T where the kernel's
+    descriptors read it (bf16 C 8: zero columns past the 8 channels)."""
+    g = torch.Generator().manual_seed(c)
+    mats = [torch.randn(6, c, k * c, generator=g) for k in KS]
+    packed = pack_mrf_kernel_weights(mats, dtype)
+    for a, p, k in zip(mats, packed, KS):
+        assert p.dtype == dtype and p.is_contiguous()
+        assert p.numel() == kernel_weights_numel(c, k, dtype)
+        assert torch.equal(_unpack_kernel_weights(p, c, k), a.to(dtype).to(p.dtype))
+        nt, kc, kcp = kernel_tile(c, dtype)
+        split = 2 if dtype == torch.float32 else 1
+        planes = p.reshape(6, c // nt, c // kc, k, split, nt * kcp)
+        for conv, nc, ch, j in ((0, 0, 0, 0), (5, c // nt - 1, c // kc - 1, k - 1)):
+            plane = planes[conv, nc, ch, j, 0]
+            for n, kk in ((0, 0), (nt - 1, kcp - 1), (nt // 2 + 1, kcp // 2 + 1)):
+                want = (a[conv, nc * nt + n, j * c + ch * kc + kk].to(dtype) if kk < kc
+                        else torch.zeros((), dtype=dtype))
+                got = _descriptor_read(plane, nt, n, kk)
+                if dtype == torch.float32:   # the hi plane: tf32 of the weight
+                    want = tf32_round(want.reshape(1))[0]
+                assert got == want, (conv, nc, ch, j, n, kk)
+
+
+def test_kernel_weights_fp32_split_reproduces_each_weight():
+    """fp32 planes: hi = tf32 (low 13 bits zero), hi + lo == w exactly, and
+    with lo as the tensor cores read it (truncated to TF32) hi + lo is w to
+    2^-21 relative: the remainder 3xTF32 leaves is that of lo's truncation."""
+    g = torch.Generator().manual_seed(7)
+    c = 64
+    mats = [torch.randn(6, c, k * c, generator=g) * 0.05 for k in KS]
+    for a, p, k in zip(mats, pack_mrf_kernel_weights(mats), KS):
+        nt, kc, kcp = kernel_tile(c, torch.float32)
+        hi, lo = p.reshape(-1, 2, nt * kcp).unbind(1)
+        assert not bool((hi.view(torch.int32) & 0x1FFF).any())
+        w = _unpack_kernel_weights(p, c, k)
+        assert torch.equal(w, a)
+        lo_tc = (lo.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+        seen = torch.stack([hi, lo_tc], 1).reshape(-1)
+        approx = _unpack_kernel_weights(seen, c, k)
+        assert bool(((approx - a).abs() <= 2.0 ** -21 * a.abs()).all())
+        assert not torch.equal(approx, a)     # the truncation does show
+
+
+@pytest.mark.parametrize("family", ["istftnet", "hifigan"])
+def test_stage_packs_follow_weight_changes(family):
+    """A generator's MRF stages are packed once per operand type, again only
+    after a weight changes (`load_state_dict` bumps the versions), and the
+    cached stream is the packing of the current weights."""
+    if family == "istftnet":
+        g = build_istftnet("melrate", upsample_initial_channel=32)
+        stage = g._stage_blocks(0)
+    else:
+        g = get_vocoder("HiFi-GAN", upsample_initial_channel=32)
+        stage = g.resblocks[0:3]
+    first = g._mrf.packed(0, stage, torch.float32)
+    assert g._mrf.packed(0, stage, torch.float32) is first
+    g.load_state_dict({k: v + 1.0 for k, v in g.state_dict().items()})
+    again = g._mrf.packed(0, stage, torch.float32)
+    assert again is not first
+    assert torch.equal(again[1], first[1] + 1.0)
+    mats, _ = pack_mrf_weights(stage)
+    for got, want in zip(again[2], pack_mrf_kernel_weights(mats)):
+        assert torch.equal(got, want)
+    bf16 = g._mrf.packed(0, stage, torch.bfloat16)
+    assert all(p.dtype == torch.bfloat16 for p in bf16[2])
+    assert g._mrf.packed(0, stage, torch.bfloat16) is bf16
+
+
+def test_hifigan_resblock1_stages_on_the_cpu_run_the_modules():
+    """Off the card the HiFi-GAN generator's stages are the modules averaged,
+    as before the kernel took them on the card: V1 / V2 go through
+    `MRFStages`, V3 (ResBlock2) keeps its own loop."""
+    torch.manual_seed(0)
+    mel = torch.randn(1, 9, 80)
+    for preset in ("HiFi-GAN", "HiFi-GAN-v3"):
+        g = get_vocoder(preset, upsample_initial_channel=32).eval()
+        assert (g._mrf is None) == (preset == "HiFi-GAN-v3")
+        with torch.no_grad():
+            x = g.conv_pre(mel.transpose(1, 2))
+            n = g.num_kernels
+            for i, up in enumerate(g.ups):
+                x = up(torch.nn.functional.leaky_relu(x, 0.1))
+                x = sum(b(x) for b in g.resblocks[i * n:(i + 1) * n]) / n
+            want = torch.tanh(g.conv_post(torch.nn.functional.leaky_relu(x, 0.01)))[:, 0]
+            before = mrf_stage_fused.launches
+            assert torch.allclose(g(mel), want, rtol=0, atol=1e-6)
+            assert mrf_stage_fused.launches == before
+
+
 def test_resblock_modules_equal_the_packed_plain_stage():
     """The CPU path of the generators (the ResBlock1 modules) and the plain
     version of the kernel compute the same stage."""
@@ -190,6 +314,11 @@ def test_refuses_other_widths_and_weights_that_do_not_fit():
     x, mats, bias = _meta_operands()
     with pytest.raises(ValueError, match="do not fit"):
         mrf_stage_fused(x, mats[1], mats[1], mats[2], bias)
+    packed = [torch.empty(kernel_weights_numel(32, k, torch.float32), device="meta") for k in KS]
+    with pytest.raises(ValueError, match="packed weights"):   # packed for other kernel sizes
+        mrf_stage_fused(x, *mats, bias, packed=packed[::-1])
+    with pytest.raises(ValueError, match="packed weights"):   # packed in another type
+        mrf_stage_fused(x, *mats, bias, dtype=torch.bfloat16, packed=packed)
 
 
 def test_a_cuda_call_without_a_compiler_raises_rather_than_running_plain():

@@ -52,7 +52,7 @@ def kernel_class(name: str) -> str:
         return "attention"
     if "convnext_kernel" in n:                         # csrc/convnext.cu
         return "convnext"
-    if "mrf_kernel" in n:                              # csrc/mrf.cu
+    if "mrf_" in n:                                    # csrc/mrf.cu (3 kernels)
         return "mrf"
     if any(w in n for w in ("conv", "fprop", "dgrad", "implicit", "winograd", "fft")):
         return "conv"

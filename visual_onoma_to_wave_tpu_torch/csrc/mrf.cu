@@ -1,4 +1,4 @@
-// One HiFi-GAN multi-receptive-field (MRF) stage in one launch (Hopper).
+// One HiFi-GAN multi-receptive-field (MRF) stage on Hopper's tensor cores.
 //
 // Replaces the TPU kernel visual_onoma_to_wave_tpu/ops/pallas_mrf.py::
 // mrf_stage_fused (body _mrf_kernel, packing pack_mrf_weights). On x (B, C, T),
@@ -14,265 +14,802 @@
 // operand type, products accumulate in fp32, the residual streams stay fp32
 // and the output is rounded once (pallas_mrf.py:90-127).
 //
-// What bounds it. Per output position a stage does 6 * (3 + 7 + 11) * C^2 =
-// 126 C^2 multiply-adds; the bytes are x, the output and 126 C^2 weights. At
-// the served shapes (C 32-512, B 16, T 1000-256000) that is ~250-2500 FLOP
-// per byte, so the stage is bound by arithmetic, on the CUDA cores in IEEE
-// fp32 here (67 TFLOP/s on an H100 SXM; TF32 is off for parity).
+// What bounds it. A stage does 6 * (3 + 7 + 11) * C^2 = 126 C^2 multiply-adds
+// per position. fp32 runs as 3xTF32 (three TF32 products a multiply-add), so
+// at 495 TFLOP/s the tensor-core bound is 6.4 ms at C 512 x T 1000 and C 32 x
+// T 256000, 12.8 at C 256 x 8000 and C 64 x 128000, 25.6 at C 128 x 64000 (B
+// 16); bf16 runs one product at 989 TFLOP/s (1.1 / 2.1 / 4.3 ms). The bytes
+// are set by the structure below: 53 fp32 planes of (B, T, C) a stage.
 //
-// Design. The TPU kernel keeps a (C, t_tile + 2 * 128) block and all 18
-// convs of a stage in VMEM. Here a stage's intermediates at C = 256-512 do
-// not fit a block's 227 KB of shared memory, and recomputing a 60-frame halo
-// per conv would waste most of a tile at small T. So the stage is one
-// persistent cooperative kernel that walks the 18 convs in 6 phases with a
-// grid barrier after each, the three branches' convs of one phase running
-// side by side:
-//   * scratch (the wrapper allocates it: 6 x (B, C, T) fp32) holds each
-//     branch's residual stream y_b and its conv1 output h_b, so every conv
-//     reads its input once from device memory (or L2) with its own halo;
-//   * phase 0 copies x into y_0, y_1, y_2; phases 1-6 are the convs (conv1
-//     writes h_b = lrelu(conv + bias), conv2 adds into y_b in place, each
-//     element by the one thread that read it); the last phase averages;
-//   * a conv is an implicit GEMM: out[co, t] = sum_{j, ci} A[co, j*C + ci] *
-//     in[ci, t + (j - (k-1)/2) * d]. A block computes a tile of 64 output
-//     channels (32 at C = 32) x 128 frames; per chunk of 16 input channels it
-//     stages the weights of all k taps and ONE input window of 128 + 2 * pad
-//     frames in shared memory (each tap is a shifted view of the window), and
-//     each of its 256 threads accumulates 4 (or 2) channels x 8 frames in
-//     registers with fp32 FMA on the CUDA cores (no tensor cores, no TMA);
-//   * the work items of a phase (branch, item, channel tile, frame tile) are
-//     spread over the resident blocks in a strided loop, branch-major so that
-//     every block gets a share of the heavy k = 11 tiles.
+// Layout: frames on wgmma's M, output channels on N. A conv is
+//     out^T[t, co] = sum_j sum_ci in^T[t + (j - (k-1)/2) d, ci] A_j^T[ci, co],
+// K = ci. wgmma's M is fixed at 64 while N takes any multiple of 8, so every
+// width (C 8 to 512) fills every product; co on M would waste half of each
+// product at C 32 and could not serve C 16 or 8.
+//   * The input window of a tile is staged once per chunk of input channels,
+//     channels-last, in the no-swizzle K-major layout: each 16-byte group of
+//     channels (4 fp32, 8 bf16) is its own column of W = M + 2 pad frames,
+//     one 16-byte row per frame, so 8 frames make one 128-byte core matrix
+//     and the next group lies W * 16 bytes on (the descriptor's `lbo`). A
+//     tap's shift by s frames is then the A descriptor's start address plus
+//     16 s bytes: each of the k taps is one more descriptor into the same
+//     window, with no copy per tap (core matrices need 16-byte alignment
+//     only without swizzle).
+//   * The leaky ReLU, the rounding to the operand type and, for fp32, the
+//     split into hi = tf32(v) and lo = v - hi happen once, as the window is
+//     staged; each tap then issues hi*lo, lo*hi and hi*hi (3xTF32; lo*lo,
+//     ~2^-22 relative, is dropped) or one bf16 product.
+//   * The weights of tap j are the B operand, K-major (co rows, ci
+//     contiguous), packed once by ops/mrf.py::pack_mrf_kernel_weights in
+//     core-matrix order, hi and lo TF32 planes for fp32. One stage of the
+//     stream is one (ci chunk, tap) plane for the tile's NT output channels,
+//     fetched by one cp.async.bulk completing on an mbarrier.
+//   * The tensor cores' own fp32 accumulation truncates, and K is up to
+//     11 * 512 deep: for fp32 each (16-channel chunk, tap) is one fresh
+//     tensor-core sum (K 16), which the consumers add to their fp32
+//     accumulators on the CUDA cores (tests/test_torch_mrf_tc.py repeats the
+//     arithmetic: 3xTF32 lands within 1e-5 of the fp32 chain; one TF32
+//     product does not). bf16 products are exact and its bound loose, so
+//     there up to GROUP_MAX = 4 taps of a chunk make one sum (K 128): one
+//     wait for the tensor cores per group, not per tap, keeps them fed
+//     longer. (Four fp32 taps a sum, K 64, took the demo iSTFTNet-mel's
+//     waveform from 6.3e-6 to 9.95e-6 of its 1e-5 bound against the JAX
+//     golden, chip_smoke phase 9.)
+//   * A CTA has 384 threads: two consumer warpgroups, each 64 * MB frames of
+//     the tile's M = 128 * MB, and a producer warpgroup whose first warp
+//     streams the weights (one thread) and whose other three stage the
+//     windows into a ring of two, 8 loads in flight a thread (setmaxnreg:
+//     200 registers a consumer thread, 104 a producer thread, 504 a lane in
+//     all). The weight ring holds up to 128 KB of stages (8 of 16 KB at C >=
+//     128 fp32, 16 of 4 KB at C 32), as many as the two windows leave room
+//     for and never fewer than two groups, so the next group streams while
+//     one is multiplied. Tile per width: NT = min(C, 128) output channels,
+//     MB = 1 (C >= 128), 2 (C 64), 4 (C <= 32), so that each consumer holds
+//     64 accumulators and 64 of the fresh sum. One CTA per SM walks the
+//     (branch, item, frame tile, channel tile) items of a conv in a strided
+//     loop, the k = 11 branch first. The epilogue issues all its loads (bias,
+//     conv2's residual) before its first store.
+//   * bf16 at C 8 has 8 channels, half of wgmma's k16: the window's second
+//     group is staged as zeros and the packed weights carry zero columns.
+//
+// Structure. A stage is 8 launches on the caller's stream: x to a
+// channels-last fp32 copy, then the 6 convs of the branches' chains (the
+// three branches' convs of one dilation side by side in one launch), then the
+// average back to (B, C, T). conv1 writes h_b = conv + bias; conv2 reads h_b
+// as its input and y_b (x at the first dilation) as its residual, and writes
+// y_b in place, each element by the thread that read it. The wrapper
+// allocates 7 fp32 planes of scratch: x^T, y_0..y_2, h_0..h_2.
+// Bytes a stage (chip_smoke.py::mrf_design_bytes), in planes of B*T*C*4: 1
+// (x^T) + per conv its input with the tile's halo, its output and conv2's
+// residual + 3 (the average's reads) = 51-53 planes, plus x and the output in
+// the operand type. At the served shapes (B 16): 1.73 GB at C 512 x T 1000
+// (0.5 ms at 3.35 TB/s, below the 3xTF32 bound), 6.9 GB at C 256 x 8000 (2.1
+// ms), 27.0-27.6 GB at C 128 x 64000, 64 x 128000 and 32 x 256000 (8.1-8.3
+// ms: above the 3xTF32 bound of 6.4 ms at C 32, 63% of the 12.8 at C 64).
+// The weight stream from L2, every tile reading its conv's taps once:
+// 33.8 GB fp32 at C 512 x T 1000, 8.3 GB at C 32 x 256000. Fusing conv1 into
+// conv2 per tile (h on chip) is the next lever at small C.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cooperative_groups.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;   // 16 (frames) x 16 (channels)
-constexpr int TT = 128;        // frames per tile
-constexpr int TN = TT / 16;    // frames per thread
-constexpr int KC = 16;         // input channels per shared-memory chunk
-constexpr int KMAX = 11;       // largest kernel size
-constexpr int NBR = 3;         // branches
-constexpr int NDIL = 3;        // dilations per branch
-constexpr int NCONV = 2 * NDIL;
+constexpr int CONSUMERS = 256;              // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;    // + the producer warpgroup
+constexpr int STAGERS = 96;                 // producer warps 1-3 stage windows
+constexpr int STAGES_MAX = 16;              // weight ring slots, at most
+constexpr int RING_BYTES = 131072;          // weight bytes in flight, at most
+constexpr int GROUP_MAX = 4;                // taps a fresh tensor-core sum, at most
+constexpr int KMAX = 11;                    // largest kernel size
+constexpr int NBR = 3;                      // branches
+constexpr int NDIL = 3;                     // dilations per branch
+constexpr int SMEM_MAX = 232448;
 constexpr float SLOPE = 0.1f;
 
-struct Params {
-  const void* x;
-  void* y;
-  float* scratch;          // (NBR, 2, B, C, T): y_b, h_b
-  const void* w[NBR];      // (NCONV, C, k_b * C) in the operand type
-  const float* bias;       // (NBR * NCONV, C)
-  int batch, C, T;
-  int k[NBR];
-  int d[NBR][NDIL];
+template <typename T>
+struct Op;
+template <>
+struct Op<float> {            // 3xTF32: hi and lo planes, wgmma k 8, 4 channels a group
+  static constexpr int SPLIT = 2, CPG = 4, KSTEP = 8, KCMAX = 16, GROUP = 1;
+};
+template <>
+struct Op<__nv_bfloat16> {    // one bf16 plane, wgmma k 16, 8 channels a group
+  static constexpr int SPLIT = 1, CPG = 8, KSTEP = 16, KCMAX = 32, GROUP = GROUP_MAX;
 };
 
+// Tile geometry: NT output channels (= C below 128), M = 128 * MB frames, KC
+// input channels a stage (KCP with bf16 C 8's zero padding), G 16-byte
+// groups a stage, KS wgmma k-steps a stage.
+template <typename T, int NT, int MB>
+struct Geom {
+  static constexpr int M = 128 * MB;
+  static constexpr int KC = NT < Op<T>::KCMAX ? NT : Op<T>::KCMAX;
+  static constexpr int KCP = KC < Op<T>::KSTEP ? Op<T>::KSTEP : KC;
+  static constexpr int G = KCP / Op<T>::CPG;
+  static constexpr int KS = KCP / Op<T>::KSTEP;
+  static constexpr int PLANE = NT * KCP * (int)sizeof(T);
+  static constexpr int WSTAGE = PLANE * Op<T>::SPLIT;
+  static constexpr int ACC = NT / 2;          // accumulators a thread per 64-frame block
+  static_assert(MB * ACC <= 64, "registers");
+};
+
+__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
 __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float ldg_f(const float* p, size_t i) { return __ldg(p + i); }
-__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(__ldg(p + i));
 }
 __device__ __forceinline__ void store_f(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
-// round to the operand type (the TPU kernel's astype(dtype) before a product)
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
+
+// ---- shared-memory barriers, bulk copies, wgmma ---------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
-
-// One conv tile: output channels [co0, co0 + CO_T) x frames [t0, t0 + TT) of
-// item n. `in` is y_b (conv1: leaky ReLU on load) or h_b (conv2: stored
-// activated); conv1 writes h_b = lrelu(acc + bias), conv2 adds acc + bias
-// into y_b. `in` and `out` are written by other blocks of this launch, so
-// they are read with plain (coherent) loads.
-template <typename T, int CO_T>
-__device__ void conv_tile(const float* in, float* out, bool first, const T* A, const float* bias,
-                          int k, int d, int n, int co0, int t0, int C, int seq, int lda_rows,
-                          float* smem) {
-  constexpr int TM = CO_T / 16;    // output channels per thread
-  constexpr int LDA = CO_T + 4;    // keeps float4 alignment, spreads banks
-  const int pad = (k - 1) / 2 * d;
-  const int W = TT + 2 * pad;      // input window of the tile
-  float* As = smem;                        // (KMAX, KC, LDA): weights of every tap
-  float* Bs = smem + lda_rows * LDA;       // (KC, W): the input window
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const size_t kc_row = (size_t)k * C;     // stride of an output channel in A
-  const float* item = in + (size_t)n * C * seq;
-
-  float acc[TM][TN];
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// one contiguous copy from device memory to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// the stagers' plain stores become visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[m][q] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    for (int e = tid; e < CO_T * k * KC; e += THREADS) {
-      const int cl = e % KC, j = (e / KC) % k, col = e / (KC * k);
-      As[(j * KC + cl) * LDA + col] = ldg_f(A, (size_t)(co0 + col) * kc_row + (size_t)j * C + c0 + cl);
+// Shared-memory matrix descriptor of a K-major operand without swizzle: 8-row
+// x 16-byte core matrices of 128 contiguous bytes, `lbo` bytes apart along K
+// and 128 bytes apart along M / N. The start address needs 16-byte alignment.
+__device__ __forceinline__ uint64_t desc_of(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// wgmma m64nNk8 (tf32) and m64nNk16 (bf16), A and B from shared memory (both
+// K-major), fp32 accumulators d[N / 2]: d = A B^T + (scale_d ? d : 0).
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3"
+                 "}, %4, %5, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3"
+                 "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7"
+                 "}, %8, %9, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7"
+                 "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15"
+                 "}, %16, %17, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15"
+                 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, %32, %33, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                   "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                   "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+                 "%60, %61, %62, %63"
+                 "}, %64, %65, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                   "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+                   "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+                   "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                   "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+                   "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+                 "%60, %61, %62, %63"
+                 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                   "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+                   "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+                   "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                   "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+                   "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+                 : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+// One k-step of a fresh sum: 3xTF32 (each operand's lo plane lies `a_lo` /
+// `b_lo` bytes past its hi plane) or one bf16 product.
+template <typename T, int N>
+__device__ __forceinline__ void mma(float* d, uint32_t a, uint32_t a_lbo, uint32_t a_lo,
+                                    uint32_t b, uint32_t b_lbo, uint32_t b_lo, int scale_d) {
+  if constexpr (sizeof(T) == 4) {
+    Wgmma<N>::tf32(d, desc_of(a, a_lbo), desc_of(b + b_lo, b_lbo), scale_d);  // hi * lo
+    Wgmma<N>::tf32(d, desc_of(a + a_lo, a_lbo), desc_of(b, b_lbo), 1);        // lo * hi
+    Wgmma<N>::tf32(d, desc_of(a, a_lbo), desc_of(b, b_lbo), 1);               // hi * hi
+  } else {
+    Wgmma<N>::bf16(d, desc_of(a, a_lbo), desc_of(b, b_lbo), scale_d);
+  }
+}
+
+// ---- rings ----------------------------------------------------------------
+
+struct Ring {
+  uint32_t full, empty;  // shared addresses of full[0], empty[0]
+  int slots, slot;
+  uint32_t phase;
+  __device__ __forceinline__ void advance() {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
     }
-    for (int e = tid; e < KC * W; e += THREADS) {
-      const int cl = e / W, u = e % W, t = t0 - pad + u;
-      float v = 0.f;
-      if (t >= 0 && t < seq) {
-        v = item[(size_t)(c0 + cl) * seq + t];
-        if (first) v = lrelu(v);
-        v = round_to(v, A);
+  }
+  // consumers: wait for the current slot to fill
+  __device__ __forceinline__ void acquire() {
+    mbar_wait(full + 8 * slot, phase);
+    __syncwarp();  // converged again before the warpgroup's .aligned wgmma
+  }
+  // consumers: every warp hands the slot back once its wgmma groups are done
+  __device__ __forceinline__ void release() {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * slot);
+    advance();
+  }
+  // producers: wait until the current slot is free
+  __device__ __forceinline__ void wait_empty() { mbar_wait(empty + 8 * slot, phase ^ 1); }
+};
+
+// ---- one conv of the three branches ----------------------------------------
+
+// Slot s of a launch is one branch's conv; slots are ordered by falling k.
+// `in` is read with its halo (leaky ReLU at staging), `res` is null (conv1:
+// out = conv + bias) or the residual (conv2: out = res + conv + bias; res may
+// be out).
+struct ConvArgs {
+  const float* in[NBR];
+  const float* res[NBR];
+  float* out[NBR];
+  const void* w[NBR];     // this conv's packed weight stream
+  const float* bias[NBR]; // (C)
+  int k[NBR], d[NBR];
+  int batch, C, T;
+  int wmax;               // window frames of the largest pad: the slot size
+  int stages;             // weight ring slots
+};
+
+struct Item {
+  int b, n, tile, nc;
+};
+
+template <typename T, int NT, int MB>
+__device__ __forceinline__ Item item_at(const ConvArgs& a, int i) {
+  using G = Geom<T, NT, MB>;
+  const int tiles = (a.T + G::M - 1) / G::M, nct = a.C / NT;
+  const int per_b = a.batch * tiles * nct;
+  Item it;
+  it.b = i / per_b;
+  int r = i % per_b;
+  it.nc = r % nct;
+  r /= nct;
+  it.tile = r % tiles;
+  it.n = r / tiles;
+  return it;
+}
+
+// Stage rows [t_lo, t_lo + W) x channels [c0, c0 + KC) of item n of `in`
+// into a window slot: leaky ReLU, rounded to the operand type, fp32 split
+// into the hi plane and the lo plane (`lo` bytes on); zero outside [0, T)
+// and in bf16 C 8's padding group.
+template <typename T, int NT, int MB>
+__device__ __forceinline__ void stage_window(const float* in, uint8_t* slot, int lo, int n,
+                                             int t_lo, int W, int c0, int C, int seq, int sid) {
+  using G = Geom<T, NT, MB>;
+  constexpr int V = sizeof(T) == 4 ? 1 : 2;   // float4 loads a 16-byte group
+  constexpr int BATCH = 8;                     // groups a thread has in flight
+  const size_t item = (size_t)n * seq;
+  const int total = W * G::G;
+  for (int e0 = sid; e0 < total; e0 += BATCH * STAGERS) {
+    float4 v[BATCH][V];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = e0 + i * STAGERS;
+      const int u = e / G::G, g = e % G::G, t = t_lo + u;
+      const bool ok = e < total && t >= 0 && t < seq && g * Op<T>::CPG < G::KC;
+      const float4* src = reinterpret_cast<const float4*>(
+          in + (item + (size_t)(ok ? t : 0)) * C + c0 + g * Op<T>::CPG);
+#pragma unroll
+      for (int h = 0; h < V; ++h)
+        v[i][h] = ok ? __ldg(src + h) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = e0 + i * STAGERS;
+      if (e >= total) break;
+      uint8_t* dst = slot + (size_t)(e % G::G) * W * 16 + (size_t)(e / G::G) * 16;
+      if constexpr (sizeof(T) == 4) {
+        const float f[4] = {lrelu(v[i][0].x), lrelu(v[i][0].y), lrelu(v[i][0].z),
+                            lrelu(v[i][0].w)};
+        uint32_t hi[4], lw[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi[j]) : "f"(f[j]));
+          lw[j] = __float_as_uint(f[j] - __uint_as_float(hi[j]));  // exact
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(dst + lo) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
+      } else {
+        const float4 a = v[i][0], b = v[i][V - 1];
+        __nv_bfloat162 p[4] = {__floats2bfloat162_rn(lrelu(a.x), lrelu(a.y)),
+                               __floats2bfloat162_rn(lrelu(a.z), lrelu(a.w)),
+                               __floats2bfloat162_rn(lrelu(b.x), lrelu(b.y)),
+                               __floats2bfloat162_rn(lrelu(b.z), lrelu(b.w))};
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(p);
       }
-      Bs[e] = v;
     }
-    __syncthreads();
-    for (int cl = 0; cl < KC; ++cl) {
-      const float* brow = Bs + cl * W + tx;
-      for (int j = 0; j < k; ++j) {
-        const float* ap = As + (j * KC + cl) * LDA + ty * TM;
-        float a[TM], b[TN];
-        if constexpr (TM == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(ap);
-          a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-        } else {
+  }
+}
+
+template <typename T, int NT, int MB>
+__global__ void __launch_bounds__(THREADS, 1) mrf_conv_kernel(const ConvArgs a) {
+  using G = Geom<T, NT, MB>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int slot_bytes = G::G * a.wmax * 16 * Op<T>::SPLIT;
+  uint8_t* windows = smem + a.stages * G::WSTAGE;
+  const uint32_t bars = smem_addr(windows + 2 * slot_bytes);
+  const uint32_t wfull = bars, wempty = bars + 8 * STAGES_MAX;
+  const uint32_t xfull = bars + 16 * STAGES_MAX, xempty = xfull + 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, CONSUMERS / 32);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(xfull + 8 * s, STAGERS);
+      mbar_init(xempty + 8 * s, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles = (a.T + G::M - 1) / G::M;
+  const int items = NBR * a.batch * tiles * (a.C / NT);
+  const int chunks = a.C / G::KC;
+
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+    const int ptid = threadIdx.x - CONSUMERS;
+    if (ptid < 32) {
+      // warp 0: one thread streams every weight stage, in the consumers' order
+      if (ptid == 0) {
+        Ring ring{wfull, wempty, a.stages, 0, 0};
+        const uint32_t base = smem_addr(smem);
+        for (int i = blockIdx.x; i < items; i += gridDim.x) {
+          const Item it = item_at<T, NT, MB>(a, i);
+          const int stages = chunks * a.k[it.b];
+          const uint8_t* src =
+              static_cast<const uint8_t*>(a.w[it.b]) + (size_t)it.nc * stages * G::WSTAGE;
+          for (int s = 0; s < stages; ++s) {
+            ring.wait_empty();
+            mbar_expect_tx(wfull + 8 * ring.slot, G::WSTAGE);
+            bulk_load(base + ring.slot * G::WSTAGE, src + (size_t)s * G::WSTAGE, G::WSTAGE,
+                      wfull + 8 * ring.slot);
+            ring.advance();
+          }
+        }
+      }
+    } else {
+      // warps 1-3: stage each chunk's input window
+      const int sid = ptid - 32;
+      Ring ring{xfull, xempty, 2, 0, 0};
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const Item it = item_at<T, NT, MB>(a, i);
+        const int pad = (a.k[it.b] - 1) / 2 * a.d[it.b];
+        const int W = G::M + 2 * pad;
+        for (int c = 0; c < chunks; ++c) {
+          ring.wait_empty();
+          stage_window<T, NT, MB>(a.in[it.b], windows + ring.slot * slot_bytes,
+                                  G::G * W * 16, it.n, it.tile * G::M - pad, W, c * G::KC, a.C,
+                                  a.T, sid);
+          fence_async_shared();
+          mbar_arrive(xfull + 8 * ring.slot);
+          ring.advance();
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;
+  const int r = 16 * (warp & 3) + (lane >> 2);   // accumulator rows r, r + 8
+  const int q = lane & 3;
+  Ring wring{wfull, wempty, a.stages, 0, 0};   // the stages taken
+  Ring wfree = wring;                          // the stages handed back
+  Ring xring{xfull, xempty, 2, 0, 0};
+  const uint32_t wbase = smem_addr(smem), xbase = smem_addr(windows);
+  constexpr uint32_t B_LBO = NT * 16;
+
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Item it = item_at<T, NT, MB>(a, i);
+    const int k = a.k[it.b], dil = a.d[it.b];
+    const int W = G::M + 2 * ((k - 1) / 2 * dil);
+    const uint32_t a_lbo = W * 16, a_lo = G::G * W * 16;
+    float acc[MB][G::ACC];
 #pragma unroll
-          for (int m = 0; m < TM; ++m) a[m] = ap[m];
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int e = 0; e < G::ACC; ++e) acc[mb][e] = 0.f;
+
+    for (int c = 0; c < chunks; ++c) {
+      xring.acquire();
+      const uint32_t xw = xbase + xring.slot * slot_bytes;
+      // the chunk's taps in groups of GROUP: one fresh tensor-core sum each
+      constexpr int GROUP = Op<T>::GROUP;
+#pragma unroll 1
+      for (int j0 = 0; j0 < k; j0 += GROUP) {
+        const int jn = k - j0 < GROUP ? k - j0 : GROUP;
+        float t[MB][G::ACC];
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) reg_fence(t[mb]);
+        wg_fence();
+#pragma unroll 1
+        for (int j = j0; j < j0 + jn; ++j) {
+          wring.acquire();
+          const uint32_t wb = wbase + wring.slot * G::WSTAGE;
+          wring.advance();
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            const uint32_t xa = xw + (uint32_t)(64 * (wg * MB + mb) + j * dil) * 16;
+#pragma unroll
+            for (int ks = 0; ks < G::KS; ++ks)
+              mma<T, NT>(t[mb], xa + ks * 2 * a_lbo, a_lbo, a_lo, wb + ks * 2 * B_LBO, B_LBO,
+                         G::PLANE, j > j0 || ks > 0);
+          }
+        }
+        wg_commit();
+        wg_wait0();
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) reg_fence(t[mb]);
+        for (int j = 0; j < jn; ++j) wfree.release();
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int e = 0; e < G::ACC; ++e) acc[mb][e] += t[mb][e];
+      }
+      xring.release();
+    }
+
+    // epilogue: rows are frames, columns output channels
+    const float* bias = a.bias[it.b];
+    const float* res = a.res[it.b];
+    float* out = a.out[it.b];
+    const size_t item = (size_t)it.n * a.T;
+    // every load of the item first, all in flight together (res may be out:
+    // the compiler would not move a load above an earlier store)
+    float2 bv[NT / 8], rv[MB][NT / 8][2];
+#pragma unroll
+    for (int jn = 0; jn < NT / 8; ++jn) {
+      const int co = it.nc * NT + 8 * jn + 2 * q;
+      bv[jn] = make_float2(__ldg(bias + co), __ldg(bias + co + 1));
+    }
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int jn = 0; jn < NT / 8; ++jn)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = it.tile * G::M + 64 * (wg * MB + mb) + r + 8 * h;
+          const int co = it.nc * NT + 8 * jn + 2 * q;
+          rv[mb][jn][h] = res != nullptr && t < a.T
+                              ? *reinterpret_cast<const float2*>(res + (item + t) * a.C + co)
+                              : make_float2(0.f, 0.f);
         }
 #pragma unroll
-        for (int q = 0; q < TN; ++q) b[q] = brow[j * d + 16 * q];
+    for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-        for (int m = 0; m < TM; ++m)
+      for (int jn = 0; jn < NT / 8; ++jn)
 #pragma unroll
-          for (int q = 0; q < TN; ++q) acc[m][q] = fmaf(a[m], b[q], acc[m][q]);
-      }
-    }
-    __syncthreads();   // the next chunk overwrites As and Bs
-  }
-
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int co = co0 + ty * TM + m;
-    const float bv = __ldg(bias + co);
-#pragma unroll
-    for (int q = 0; q < TN; ++q) {
-      const int t = t0 + tx + 16 * q;
-      if (t >= seq) continue;
-      const size_t idx = ((size_t)n * C + co) * seq + t;
-      const float v = acc[m][q] + bv;
-      if (first)
-        out[idx] = lrelu(v);
-      else
-        out[idx] = out[idx] + v;
-    }
+        for (int h = 0; h < 2; ++h) {
+          const int t = it.tile * G::M + 64 * (wg * MB + mb) + r + 8 * h;
+          const int co = it.nc * NT + 8 * jn + 2 * q;
+          if (t >= a.T) continue;
+          // conv2: res + (conv + bias); conv1: conv + bias (rv is 0)
+          const float2 v = make_float2(acc[mb][4 * jn + 2 * h] + bv[jn].x,
+                                       acc[mb][4 * jn + 2 * h + 1] + bv[jn].y);
+          *reinterpret_cast<float2*>(out + (item + t) * a.C + co) =
+              make_float2(rv[mb][jn][h].x + v.x, rv[mb][jn][h].y + v.y);
+        }
   }
 }
 
-template <typename T, int CO_T>
-__global__ void __launch_bounds__(THREADS) mrf_kernel(Params p, int lda_rows) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)p.batch * p.C * p.T;
-  const size_t stride = (size_t)gridDim.x * THREADS;
-  const size_t first_i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+// ---- the stage's ends: x to channels-last fp32, the average back ------------
 
-  // phase 0: every branch's residual stream starts as x (rounded to the operand type)
-  const T* x = static_cast<const T*>(p.x);
-  for (size_t i = first_i; i < plane; i += stride) {
-    const float v = load_f(x, i);
-#pragma unroll
-    for (int b = 0; b < NBR; ++b) p.scratch[(size_t)(2 * b) * plane + i] = v;
+// xt[n, t, c] = x[n, c, t] (rounded to the operand type already: exact)
+template <typename T>
+__global__ void mrf_to_channels_last(const T* x, float* xt, int C, int seq) {
+  __shared__ float tile[32][33];
+  const int n = blockIdx.z, c0 = blockIdx.y * 32, t0 = blockIdx.x * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, t = t0 + threadIdx.x;
+    if (c < C && t < seq) tile[i][threadIdx.x] = load_f(x, ((size_t)n * C + c) * seq + t);
   }
-  grid.sync();
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int t = t0 + i, c = c0 + threadIdx.x;
+    if (c < C && t < seq) xt[((size_t)n * seq + t) * C + c] = tile[threadIdx.x][i];
+  }
+}
 
-  const int co_tiles = p.C / CO_T;
-  const int t_tiles = (p.T + TT - 1) / TT;
-  const int per_branch = p.batch * co_tiles * t_tiles;
-  for (int conv = 0; conv < NCONV; ++conv) {
+// y[n, c, t] = ((y_0 + y_1) + y_2)[n, t, c] / 3, in the plain version's order
+template <typename T>
+__global__ void mrf_average_channels_first(const float* y0, const float* y1, const float* y2,
+                                           T* y, int C, int seq) {
+  __shared__ float tile[32][33];
+  const int n = blockIdx.z, c0 = blockIdx.y * 32, t0 = blockIdx.x * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int t = t0 + i, c = c0 + threadIdx.x;
+    if (c < C && t < seq) {
+      const size_t idx = ((size_t)n * seq + t) * C + c;
+      tile[i][threadIdx.x] = (y0[idx] + y1[idx] + y2[idx]) / 3.f;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, t = t0 + threadIdx.x;
+    if (c < C && t < seq) store_f(y, ((size_t)n * C + c) * seq + t, tile[threadIdx.x][i]);
+  }
+}
+
+// ---- the stage --------------------------------------------------------------
+
+struct Stage {
+  const void* x;
+  void* y;
+  float* scratch;        // 7 planes (B, T, C) fp32: x^T, y_0..y_2, h_0..h_2
+  const void* w[NBR];    // per branch: (6, C / NT, C / KC, k, SPLIT, plane) in the operand type
+  const float* bias;     // (NBR * 6, C)
+  int batch, C, T;
+  int k[NBR];
+  int d[NBR][NDIL];
+};
+
+template <typename T, int NT, int MB>
+cudaError_t run_convs(const Stage& s, int sms, cudaStream_t stream) {
+  using G = Geom<T, NT, MB>;
+  auto kernel = mrf_conv_kernel<T, NT, MB>;
+  const size_t plane = (size_t)s.batch * s.T * s.C;
+  const float* xt = s.scratch;
+  float* y[NBR];
+  float* h[NBR];
+  for (int b = 0; b < NBR; ++b) {
+    y[b] = s.scratch + (1 + b) * plane;
+    h[b] = s.scratch + (4 + b) * plane;
+  }
+  // branches by falling k, so that the heavy items come first
+  int order[NBR] = {0, 1, 2};
+  for (int i = 0; i < NBR; ++i)
+    for (int j = i + 1; j < NBR; ++j)
+      if (s.k[order[j]] > s.k[order[i]]) {
+        const int o = order[i];
+        order[i] = order[j];
+        order[j] = o;
+      }
+  const int tiles = (s.T + G::M - 1) / G::M;
+  const int items = NBR * s.batch * tiles * (s.C / NT);
+  const int grid = items < sms ? items : sms;
+  for (int conv = 0; conv < 2 * NDIL; ++conv) {
     const int di = conv / 2;
     const bool first = conv % 2 == 0;
-    for (int item = blockIdx.x; item < NBR * per_branch; item += gridDim.x) {
-      const int b = item / per_branch;
-      int r = item % per_branch;
-      const int tt = r % t_tiles;
-      r /= t_tiles;
-      const int ct = r % co_tiles;
-      const int n = r / co_tiles;
-      const int k = p.k[b];
-      float* yb = p.scratch + (size_t)(2 * b) * plane;
-      float* hb = yb + plane;
-      const T* A = static_cast<const T*>(p.w[b]) + (size_t)conv * p.C * k * p.C;
-      const float* bias = p.bias + (size_t)(NCONV * b + conv) * p.C;
-      conv_tile<T, CO_T>(first ? yb : hb, first ? hb : yb, first, A, bias, k,
-                         first ? p.d[b][di] : 1, n, ct * CO_T, tt * TT, p.C, p.T, lda_rows, smem);
+    ConvArgs a{};
+    a.batch = s.batch;
+    a.C = s.C;
+    a.T = s.T;
+    int pad_max = 0;
+    for (int slot = 0; slot < NBR; ++slot) {
+      const int b = order[slot];
+      const int k = s.k[b];
+      const size_t conv_elems = (size_t)k * s.C * G::KCP * (s.C / G::KC) * Op<T>::SPLIT;
+      a.in[slot] = first ? (di == 0 ? xt : y[b]) : h[b];
+      a.res[slot] = first ? nullptr : (di == 0 ? xt : y[b]);
+      a.out[slot] = first ? h[b] : y[b];
+      a.w[slot] = static_cast<const T*>(s.w[b]) + conv * conv_elems;
+      a.bias[slot] = s.bias + (size_t)(2 * NDIL * b + conv) * s.C;
+      a.k[slot] = k;
+      a.d[slot] = first ? s.d[b][di] : 1;
+      const int pad = (k - 1) / 2 * a.d[slot];
+      pad_max = pad > pad_max ? pad : pad_max;
     }
-    grid.sync();   // conv `conv` of every branch is complete and visible
+    a.wmax = G::M + 2 * pad_max;
+    // the weight ring takes up to RING_BYTES of what the two windows leave
+    const size_t fixed = 2 * (size_t)G::G * a.wmax * 16 * Op<T>::SPLIT + 16 * STAGES_MAX + 32;
+    const long room = ((long)SMEM_MAX - (long)fixed) / G::WSTAGE;
+    a.stages = (int)(room < RING_BYTES / G::WSTAGE ? room : RING_BYTES / G::WSTAGE);
+    a.stages = a.stages < STAGES_MAX ? a.stages : STAGES_MAX;
+    // room for two groups: the next streams while one is multiplied
+    if (a.stages < 2 * GROUP_MAX) return cudaErrorInvalidValue;
+    const size_t smem = fixed + (size_t)a.stages * G::WSTAGE;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, THREADS, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-
-  // the average of the branches, in the plain version's order
-  T* y = static_cast<T*>(p.y);
-  for (size_t i = first_i; i < plane; i += stride) {
-    float s = p.scratch[i] + p.scratch[2 * plane + i];
-    s = s + p.scratch[4 * plane + i];
-    store_f(y, i, s / 3.f);
-  }
-}
-
-template <typename T, int CO_T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  int kmax = 1, pad = 0;
-  for (int b = 0; b < NBR; ++b) {
-    kmax = p.k[b] > kmax ? p.k[b] : kmax;
-    for (int i = 0; i < NDIL; ++i) {
-      const int pb = (p.k[b] - 1) / 2 * p.d[b][i];
-      pad = pb > pad ? pb : pad;
-    }
-  }
-  const int lda_rows = kmax * KC;
-  const size_t smem = ((size_t)lda_rows * (CO_T + 4) + (size_t)KC * (TT + 2 * pad)) * sizeof(float);
-  auto kernel = mrf_kernel<T, CO_T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long items = (long)NBR * p.batch * (p.C / CO_T) * ((p.T + TT - 1) / TT);
-  const int grid = (long)per_sm * sms < items ? per_sm * sms : (int)items;
-  Params args = p;
-  int rows = lda_rows;
-  void* kargs[] = {&args, &rows};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, THREADS, kargs, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t dispatch_width(const Params& p, cudaStream_t s) {
-  switch (p.C) {
-    case 32: return launch<T, 32>(p, s);
-    case 64: case 128: case 256: case 512: return launch<T, 64>(p, s);
+cudaError_t run_stage(const Stage& s, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const size_t plane = (size_t)s.batch * s.T * s.C;
+  const dim3 tgrid((s.T + 31) / 32, (s.C + 31) / 32, s.batch), tblock(32, 8);
+  mrf_to_channels_last<T><<<tgrid, tblock, 0, stream>>>(static_cast<const T*>(s.x), s.scratch,
+                                                        s.C, s.T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  switch (s.C) {
+    case 8: err = run_convs<T, 8, 4>(s, sms, stream); break;
+    case 16: err = run_convs<T, 16, 4>(s, sms, stream); break;
+    case 32: err = run_convs<T, 32, 4>(s, sms, stream); break;
+    case 64: err = run_convs<T, 64, 2>(s, sms, stream); break;
+    case 128: case 256: case 512: err = run_convs<T, 128, 1>(s, sms, stream); break;
     default: return cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
+  mrf_average_channels_first<T><<<tgrid, tblock, 0, stream>>>(
+      s.scratch + plane, s.scratch + 2 * plane, s.scratch + 3 * plane, static_cast<T*>(s.y),
+      s.C, s.T);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16 (x, y and
-// the weights); scratch and biases are float32. C in {32, 64, 128, 256, 512},
+// the packed weights); scratch (7 x B x T x C) and biases (18 x C) are
+// float32. `w0`..`w2`: each branch's weights from
+// ops/mrf.py::pack_mrf_kernel_weights. C in {8, 16, 32, 64, 128, 256, 512},
 // odd kernel sizes up to 11, dilations >= 1. Returns a cudaError_t (0 =
 // launched).
 extern "C" int mrf_stage_fwd(const void* x, void* y, void* scratch, const void* w0,
@@ -280,16 +817,16 @@ extern "C" int mrf_stage_fwd(const void* x, void* y, void* scratch, const void* 
                              int T, int k0, int k1, int k2, int d00, int d01, int d02, int d10,
                              int d11, int d12, int d20, int d21, int d22, int dtype,
                              void* stream) {
-  Params p{x, y, static_cast<float*>(scratch), {w0, w1, w2}, static_cast<const float*>(bias),
-           batch, C, T, {k0, k1, k2}, {{d00, d01, d02}, {d10, d11, d12}, {d20, d21, d22}}};
+  const Stage s{x, y, static_cast<float*>(scratch), {w0, w1, w2}, static_cast<const float*>(bias),
+                batch, C, T, {k0, k1, k2}, {{d00, d01, d02}, {d10, d11, d12}, {d20, d21, d22}}};
   if (batch <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   for (int b = 0; b < NBR; ++b) {
-    if (p.k[b] < 1 || p.k[b] > KMAX || p.k[b] % 2 == 0) return (int)cudaErrorInvalidValue;
+    if (s.k[b] < 1 || s.k[b] > KMAX || s.k[b] % 2 == 0) return (int)cudaErrorInvalidValue;
     for (int i = 0; i < NDIL; ++i)
-      if (p.d[b][i] < 1) return (int)cudaErrorInvalidValue;
+      if (s.d[b][i] < 1) return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_width<float>(p, s);
-  if (dtype == 1) return (int)dispatch_width<__nv_bfloat16>(p, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)run_stage<float>(s, st);
+  if (dtype == 1) return (int)run_stage<__nv_bfloat16>(s, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,6 +7,10 @@ leaky ReLU 0.1 inside the network and PyTorch's default 0.01 before
 `conv_post`, then tanh. Module names follow the reference checkpoint layout
 (conv_pre / ups.N / resblocks.M.convs1|convs2|convs.J / conv_post) that
 `visual_onoma_to_wave_tpu/models/hifigan.py::convert_torch_state_dict` reads.
+On the card every ResBlock1 stage (V1, V2) is one launch of the fused MRF
+kernel (`ops/mrf.py`, `csrc/mrf.cu`), which beat the cuDNN chain at all four
+V1 stage shapes (PERF.md); ResBlock2 stages (V3) and every stage on the CPU
+run through the modules.
 `receptive_halo_frames` and chunked vocoding are not ported yet.
 """
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
 
 LRELU_SLOPE = 0.1
 
@@ -83,14 +89,20 @@ class HiFiGANGenerator(nn.Module):
             for i in range(len(upsample_rates))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations))
         self.conv_post = nn.Conv1d(ch0 // 2 ** len(upsample_rates), 1, 7, padding=3)
+        self._mrf = (None if resblock_type == "2"
+                     else MRFStages(resblock_kernel_sizes, resblock_dilations))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(mel.transpose(1, 2))
         n = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
+            blocks = self.resblocks[i * n:(i + 1) * n]
+            if self._mrf is not None:
+                x = self._mrf(i, blocks, x)
+                continue
             acc = None
-            for block in self.resblocks[i * n:(i + 1) * n]:
+            for block in blocks:
                 y = block(x)
                 acc = y if acc is None else acc + y
             x = acc / n

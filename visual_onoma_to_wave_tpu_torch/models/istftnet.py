@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.models.hifigan import LRELU_SLOPE, ResBlock1
-from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, pack_mrf_weights
+from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
 from visual_onoma_to_wave_tpu_torch.ops.stft import hann_window
 
 # mag = exp(min(logmag, ln(_MAX_MAG))), as the reference caps it
@@ -124,7 +124,7 @@ class ISTFTNetGenerator(nn.Module):
             for rk, rd in zip(self.resblock_kernel_sizes, self.resblock_dilations))
         self.conv_post = nn.Conv1d(widths[-1], 2 * (istft_n_fft // 2 + 1), post_kernel_size,
                                    padding=(post_kernel_size - 1) // 2)
-        self._packed: dict[int, tuple] = {}   # stage -> (weights' identity, packed weights)
+        self._mrf = MRFStages(self.resblock_kernel_sizes, self.resblock_dilations)
 
     @property
     def istft_hop(self) -> int:
@@ -138,35 +138,12 @@ class ISTFTNetGenerator(nn.Module):
         n = self.num_kernels
         return self.resblocks[i * n:(i + 1) * n]
 
-    def _packed_stage(self, i: int):
-        """The stage's weights packed for the kernel, packed again only when a
-        weight changed (a new tensor, or an in-place write such as
-        `load_state_dict`, which bumps its version counter)."""
-        params = list(self._stage_blocks(i).parameters())
-        key = tuple((p.data_ptr(), p._version) for p in params)
-        cached = self._packed.get(i)
-        if cached is None or cached[0] != key:
-            cached = (key, pack_mrf_weights(self._stage_blocks(i)))
-            self._packed[i] = cached
-        return cached[1]
-
-    def _mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cuda":
-            (w3, w7, w11), bias = self._packed_stage(i)
-            return mrf_stage_fused(x, w3, w7, w11, bias, self.resblock_kernel_sizes,
-                                   self.resblock_dilations)
-        acc = None
-        for block in self._stage_blocks(i):
-            y = block(x)
-            acc = y if acc is None else acc + y
-        return acc / self.num_kernels
-
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(mel.transpose(1, 2))
         for i, up in enumerate(self.ups):
-            x = self._mrf(i, up(F.leaky_relu(x, LRELU_SLOPE)))
+            x = self._mrf(i, self._stage_blocks(i), up(F.leaky_relu(x, LRELU_SLOPE)))
         if not self.ups:
-            x = self._mrf(0, x)
+            x = self._mrf(0, self._stage_blocks(0), x)
         spec = self.conv_post(F.leaky_relu(x, 0.01)).float().transpose(1, 2)  # head in fp32
         n_bins = self.istft_n_fft // 2 + 1
         logmag, phase = spec[..., :n_bins], spec[..., n_bins:]

@@ -98,7 +98,7 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _core_tiled(b: torch.Tensor, ck: int) -> torch.Tensor:
+def core_tiled(b: torch.Tensor, ck: int) -> torch.Tensor:
     """(..., N, K) -> (..., N * K): 8-row x `ck`-column core matrices (16
     bytes a row), rows inside a core, cores along N, then along K."""
     *lead, N, K = b.shape
@@ -135,9 +135,9 @@ def pack_convnext_weights(w1: torch.Tensor, w2: torch.Tensor,
         # W1^T (L, M, C) -> (L, J, S1, 2, MC, KS1 / 2): a stage holds one slice of
         # each half of C; W2^T (L, C, M) -> (L, J, S2, C, KS2)
         b1 = w1.transpose(1, 2).reshape(L, J, _MC, 2, C // ks1, ks1 // 2)
-        b1 = _core_tiled(b1.permute(0, 1, 4, 3, 2, 5), ck).reshape(L, J, C // ks1, plane)
+        b1 = core_tiled(b1.permute(0, 1, 4, 3, 2, 5), ck).reshape(L, J, C // ks1, plane)
         b2 = w2.transpose(1, 2).reshape(L, C, J, _MC // ks2, ks2).permute(0, 2, 3, 1, 4)
-        stream = torch.cat([b1, _core_tiled(b2, ck)], dim=2)
+        stream = torch.cat([b1, core_tiled(b2, ck)], dim=2)
         if dtype == torch.float32:
             hi = tf32_round(stream)
             stream = torch.stack([hi, stream - hi], dim=3)

@@ -20,15 +20,22 @@ a (6, C, k*C) matrix holding its convs in execution order (conv1 of d_0,
 conv2 of d_0, conv1 of d_1, ...) with A[co, j*C + ci] = W[co, ci, j] for a
 Conv1d weight W (Cout, Cin, k), and the 18 biases as (18, C, 1) fp32.
 
+The kernel reads a second layout built from that packing,
+`pack_mrf_kernel_weights`: per branch the stream of (input-channel chunk,
+tap) planes it fetches, in core-matrix order, fp32 as TF32 hi and lo
+planes. `MRFStages` keeps both per stage of a generator and packs again
+only when a weight changes.
+
 `mrf_stage_fused` launches the CUDA kernel (`csrc/mrf.cu`, built at first
 use by `ops/cuda_build.py`) for tensors on the card and takes
 `mrf_stage_fused_reference` for tensors on the CPU. It never falls back: a
-CUDA tensor the kernel does not take (C outside 32/64/128/256/512, other
-than three branches of three dilations, an even kernel size or one above
-11, a stage reaching further than `HALO` frames), a failed build, a refused
-launch or a call that would need a gradient raises. Any T is taken: the TPU
-kernel's t_tile % 128 and C-per-sublane rules are tiling rules of the TPU.
-`mrf_stage_fused.launches` counts kernel launches.
+CUDA tensor the kernel does not take (C outside 8/16/32/64/128/256/512,
+other than three branches of three dilations, an even kernel size or one
+above 11, a stage reaching further than `HALO` frames), a failed build, a
+refused launch or a call that would need a gradient raises. Any T is
+taken: the TPU kernel's t_tile % 128 and C-per-sublane rules are tiling
+rules of the TPU. `mrf_stage_fused.launches` counts the stages run on the
+card: one per call, which enqueues the kernel's 8 launches of one stage.
 
 What bounds the kernel on the card, and its design, is written in
 `csrc/mrf.cu`.
@@ -40,6 +47,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from visual_onoma_to_wave_tpu_torch.ops.convnext import core_tiled, tf32_round
 from visual_onoma_to_wave_tpu_torch.ops.cuda_build import (
     check_inference,
     check_launch,
@@ -51,8 +59,13 @@ KERNEL_SIZES = (3, 7, 11)
 DILATIONS = ((1, 3, 5),) * 3
 SLOPE = 0.1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_WIDTHS = (32, 64, 128, 256, 512)
+_WIDTHS = (8, 16, 32, 64, 128, 256, 512)
 _MAX_K = 11
+# csrc/mrf.cu's tile: at most 128 output channels; input channels a weight
+# stage (KC) and one wgmma k-step (KSTEP), both per operand type
+_NT_MAX = 128
+_KC_MAX = {torch.float32: 16, torch.bfloat16: 32}
+_KSTEP = {torch.float32: 8, torch.bfloat16: 16}
 
 
 def stage_halo(kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> int:
@@ -78,6 +91,59 @@ def pack_mrf_weights(resblocks) -> tuple[list[torch.Tensor], torch.Tensor]:
                     biases.append(conv.bias.detach().float())
             mats.append(torch.stack(rows).contiguous())
         return mats, torch.stack(biases)[:, :, None].contiguous()
+
+
+def kernel_tile(C: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """(NT, KC, KCP) of `csrc/mrf.cu` at width C: output channels a tile,
+    input channels a weight stage, and KC padded to one wgmma k-step (bf16 C
+    8: 16, the upper 8 zero)."""
+    nt = min(C, _NT_MAX)
+    kc = min(nt, _KC_MAX[dtype])
+    return nt, kc, max(kc, _KSTEP[dtype])
+
+
+def tile_frames(C: int) -> int:
+    """Frames of one tile of `csrc/mrf.cu` at width C: 128 * MB, MB = 1 (C >=
+    128), 2 (C 64), 4 (C <= 32), each consumer warpgroup 64 * MB frames."""
+    return 128 * (1 if C >= 128 else 2 if C == 64 else 4)
+
+
+def pack_mrf_kernel_weights(mats, dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
+    """`pack_mrf_weights`'s (6, C, k*C) matrices as the kernel streams them:
+    per branch a flat tensor of `dtype` laid out (conv, C / NT output-channel
+    tiles, C / KC input-channel chunks, k taps, SPLIT, NT * KCP), each plane
+    the (NT, KCP) block A_j^T of one tap, K-major in 8-row x 16-byte core
+    matrices (rows inside a core, cores along N, then along K). fp32: SPLIT
+    2, the plane hi = `tf32_round(w)` then lo = w - hi (hi + lo == w); bf16:
+    SPLIT 1, with zero columns past KC. Copies the weights: pack once per
+    weight change, not per call."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"pack_mrf_kernel_weights takes float32/bfloat16; got {dtype}")
+    packed = []
+    with torch.no_grad():
+        for a in mats:
+            C = a.shape[1]
+            k = a.shape[2] // C
+            if C not in _WIDTHS or tuple(a.shape) != (6, C, k * C):
+                raise ValueError(f"pack_mrf_kernel_weights takes (6, C, k*C) with C in {_WIDTHS}; "
+                                 f"got {tuple(a.shape)}")
+            nt, kc, kcp = kernel_tile(C, dtype)
+            # A[conv, co, j * C + ci] -> [conv, co tile, co, j, ci chunk, ci]
+            w = a.detach().to(dtype).reshape(6, C // nt, nt, k, C // kc, kc)
+            if kcp > kc:
+                w = F.pad(w, (0, kcp - kc))
+            w = core_tiled(w.permute(0, 1, 4, 3, 2, 5), 16 // w.element_size())
+            if dtype == torch.float32:
+                hi = tf32_round(w)
+                w = torch.stack([hi, w - hi], dim=-2)
+            packed.append(w.reshape(-1).contiguous())
+    return packed
+
+
+def kernel_weights_numel(C: int, k: int, dtype: torch.dtype) -> int:
+    """Elements of one branch's `pack_mrf_kernel_weights` stream."""
+    nt, kc, kcp = kernel_tile(C, dtype)
+    return 6 * k * C * kcp * (C // kc) * (2 if dtype == torch.float32 else 1)
 
 
 def mrf_stage_fused_reference(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor,
@@ -112,7 +178,7 @@ def mrf_stage_fused_reference(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tenso
     return (acc / len(kernel_sizes)).to(dtype)
 
 
-def _checked(x, mats, biases, kernel_sizes, dilations, dtype) -> None:
+def _checked(x, mats, biases, kernel_sizes, dilations, dtype, packed=None) -> None:
     """Raise on what the kernel does not take; the device is checked last."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"mrf_stage_fused kernel takes float32/bfloat16; got {dtype}")
@@ -121,6 +187,8 @@ def _checked(x, mats, biases, kernel_sizes, dilations, dtype) -> None:
     C = x.shape[1]
     if C not in _WIDTHS:
         raise ValueError(f"mrf_stage_fused kernel takes C in {_WIDTHS}; got {C}")
+    if packed is not None and len(packed) != 3:
+        raise ValueError(f"mrf_stage_fused: {len(packed)} packed branches, expected 3")
     if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or len(dilations) != 3:
         raise ValueError("mrf_stage_fused kernel takes three branches of three dilations; got "
                          f"kernel_sizes {kernel_sizes}, dilations {dilations}")
@@ -139,6 +207,13 @@ def _checked(x, mats, biases, kernel_sizes, dilations, dtype) -> None:
     if biases.numel() != 18 * C or biases.device != x.device:
         raise ValueError(f"mrf_stage_fused: biases {tuple(biases.shape)} on {biases.device} "
                          f"do not fit (18, {C}, 1)")
+    if packed is not None:
+        for p, k in zip(packed, kernel_sizes):
+            if p.dtype != dtype or p.numel() != kernel_weights_numel(C, k, dtype) or \
+                    p.device != x.device or not p.is_contiguous():
+                raise ValueError(f"mrf_stage_fused: packed weights {tuple(p.shape)} {p.dtype} on "
+                                 f"{p.device} do not fit C {C}, k {k}, {dtype} on {x.device} "
+                                 "(pack_mrf_kernel_weights)")
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage_fused: unsupported device {x.device}")
 
@@ -151,29 +226,34 @@ def _load_library() -> ctypes.CDLL:
 
 def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
                     biases: torch.Tensor, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
-                    dtype: torch.dtype | None = None) -> torch.Tensor:
+                    dtype: torch.dtype | None = None,
+                    packed: list[torch.Tensor] | None = None) -> torch.Tensor:
     """One MRF stage. x: (B, C, T); weights from `pack_mrf_weights`; returns
     (B, C, T) in `dtype` (x.dtype by default). CPU tensors take
-    `mrf_stage_fused_reference`; CUDA tensors launch the kernel or raise."""
+    `mrf_stage_fused_reference`; CUDA tensors launch the kernel or raise.
+    `packed`: the weights' `pack_mrf_kernel_weights(.., dtype)`, packed here
+    when not given."""
     if x.device.type == "cpu":
         return mrf_stage_fused_reference(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype)
     dtype = dtype or x.dtype
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in ds) for ds in dilations)
-    _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype)
+    _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype, packed)
     check_inference("mrf_stage", x, w3, w7, w11, biases)
+    if packed is None:
+        packed = pack_mrf_kernel_weights((w3, w7, w11), dtype)
     B, C, T = x.shape
     xk = x.to(dtype).contiguous()
-    mats = [a.to(dtype).contiguous() for a in (w3, w7, w11)]
     bias = biases.float().contiguous()
     out = torch.empty(B, C, T, dtype=dtype, device=x.device)
-    # per branch its residual stream y_b and its conv1 output h_b, fp32
-    scratch = torch.empty(6, B, C, T, dtype=torch.float32, device=x.device)
+    # x channels-last, then per branch its residual stream y_b and its conv1
+    # output h_b, all (B, T, C) fp32
+    scratch = torch.empty(7, B, T, C, dtype=torch.float32, device=x.device)
     lib = _load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mrf_stage_fwd(
-            xk.data_ptr(), out.data_ptr(), scratch.data_ptr(), *(a.data_ptr() for a in mats),
+            xk.data_ptr(), out.data_ptr(), scratch.data_ptr(), *(p.data_ptr() for p in packed),
             bias.data_ptr(), B, C, T, *kernel_sizes, *(d for ds in dilations for d in ds),
             _DTYPE_CODES[dtype], stream)
     check_launch("mrf_stage", err)
@@ -182,3 +262,38 @@ def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: to
 
 
 mrf_stage_fused.launches = 0
+
+
+class MRFStages:
+    """The MRF stages of a generator whose stages are `ResBlock1` branches:
+    stage i of `blocks` runs through the kernel on CUDA tensors, with its
+    weights packed once (`pack_mrf_weights`, then `pack_mrf_kernel_weights`
+    in x's type) and packed again only when a weight changed (a new tensor,
+    or an in-place write such as `load_state_dict`, which bumps its version
+    counter); on the CPU the branches run as modules and are averaged."""
+
+    def __init__(self, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS):
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.dilations = tuple(tuple(ds) for ds in dilations)
+        self._packed: dict[int, tuple] = {}   # stage -> (identity, (mats, biases, packed))
+
+    def packed(self, i: int, blocks, dtype: torch.dtype):
+        params = list(blocks.parameters())
+        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        cached = self._packed.get(i)
+        if cached is None or cached[0] != key:
+            mats, biases = pack_mrf_weights(blocks)
+            cached = (key, (mats, biases, pack_mrf_kernel_weights(mats, dtype)))
+            self._packed[i] = cached
+        return cached[1]
+
+    def __call__(self, i: int, blocks, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda":
+            mats, biases, packed = self.packed(i, blocks, x.dtype)
+            return mrf_stage_fused(x, *mats, biases, self.kernel_sizes, self.dilations,
+                                   packed=packed)
+        acc = None
+        for block in blocks:
+            y = block(x)
+            acc = y if acc is None else acc + y
+        return acc / len(blocks)
