@@ -40,14 +40,20 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      mel-Vocos widths (dim 512, intermediate 1536, 8 blocks, n_fft 1024),
      random weights from a seed, beside phase 4's HiFi-GAN numbers;
   7. mel frontend: holds the fused mel kernel and `fused_clip_features`
-     against their plain versions over the case grid of
-     tests/test_pallas_mel.py (adversarial inputs included), then drives
-     pass 1 of corpus preprocessing (`data/features.extract_features`) over
-     640 seeded clips of 0.3-6 s in length-sorted 64-clip batches, one
-     kernel launch per batch; prints the feature stage's clips/s and
-     frames/s with the kernel and with the plain version, and kernel vs
-     plain vs `torch.stft` + mel product ms at one 64-clip batch of the
-     largest bucket;
+     against their plain versions, and the kernel's log-mel within 1e-5 of
+     float64, over the case grid of tests/test_pallas_mel.py (adversarial
+     inputs included) and over every n_fft the kernel takes (16 ... 2048, B
+     3, a clip shorter than a block's frames and one of three blocks);
+     prints ptxas's registers and spills per instantiation of the kernel and
+     fails on any spill; then drives pass 1 of corpus preprocessing
+     (`data/features.extract_features`) over 640 seeded clips of 0.3-6 s in
+     length-sorted 64-clip batches, one kernel launch per batch, each
+     batch's log-mel within 1e-5 of float64; prints the feature stage's
+     clips/s and frames/s with the kernel and with the plain version, and
+     kernel vs plain vs `torch.stft` + mel product in fp32 and in float64
+     (with the frame sums) ms at one 64-clip batch of the largest bucket,
+     beside the bound at each operation's own rate (float64 for the FFT and
+     each bin's power) and at the fp32 rate;
   8. mrf: holds the fused MRF stage kernel against its plain version (the
      cuDNN 18-conv chain, also the library yardstick) over fp32 / bf16, C 8 /
      16 / 32 / 64 / 128 / 256 / 512, T 20 (inside the 60-frame halo), one
@@ -77,7 +83,10 @@ launches on its main path, its error against the plain version, kernel,
 plain and library ms and the card's bound at the timed shape; for the
 attention, ConvNeXt and MRF kernels the bound is that of the tensor cores,
 fp32 as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside
-it, and for attention the same numbers under the served mask); the last line
+it, and for attention the same numbers under the served mask; for the mel
+kernel the float64 operations at the float64 rate, with the bound at the
+fp32 rate, the float64 library call, the log-mel's distance to float64 and
+ptxas's registers and spills beside it); the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX and nothing of the
 JAX package (`visual_onoma_to_wave_tpu`).
 """
@@ -118,9 +127,10 @@ CONVNEXT_WIDTHS = ((128, 384), (512, 1536))
 # the ConvNeXt parity cases' T: short, around one and two 64-frame tiles, long
 CONVNEXT_T = (20, 63, 64, 65, 129, 512, 1000)
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense, at the
-# full 700 W): fp32 outside the tensor cores, TF32 and bf16 on the tensor
-# cores, and HBM3
+# full 700 W): fp32 and float64 outside the tensor cores, TF32 and bf16 on
+# the tensor cores, and HBM3
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BF16_FLOPS = 67e12, 495e12, 989e12
+PEAK_FP64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -783,14 +793,42 @@ SUM_RTOL = 1e-5                     # frame energy, power sum, char energy
 # ~-5000 in the sum, 6e-4 per bin (CPU, the port vs the JAX kernel)
 LOG_POWER_PER_BIN_ATOL = 1e-3
 KURT_ATOL, KURT_RTOL = 1e-4, 1e-4
+# the kernel's log-mel against float64 (logmel_float64): the FFT, the split
+# and each bin's power are float64, the rest fp32 (its rounding, ~1e-7
+# relative on the magnitudes, and the fp32 output, 4.8e-7 at |log-mel| ~ 8)
+MEL_FLOAT64_ATOL = 1e-5
+# the n_fft sweep: every size the kernel takes, B 3, hop n_fft / 4, a clip of
+# 5 frames (shorter than any block of the kernel) and one of three blocks
+# and a ragged tail (ops/mel.py::block_frames), odd lengths so that every
+# other item's rows are not 8-byte aligned
+MEL_SWEEP_N_FFT = tuple(1 << e for e in range(4, 12))
 
 
-def mel_frame_flops(n_fft: int, fb_nonzeros: int) -> float:
-    """Operations of the mel frontend per frame, counted for an FFT: the
-    window, a real FFT (2.5 n log2 n), power and magnitude, the mel product
-    over the filterbank's nonzero weights, and the three frame sums."""
+def mel_sweep_cases() -> list[tuple[str, np.ndarray, int, int]]:
+    """(name, clips (3, L) float32, n_fft, hop) of the sweep; the middle
+    item is 60 dB quieter."""
+    from visual_onoma_to_wave_tpu_torch.ops.mel import block_frames
+
+    cases = []
+    for n_fft in MEL_SWEEP_N_FFT:
+        hop = n_fft // 4
+        for kind, frames in (("short", 5), ("blocks", 3 * block_frames(n_fft) + 7)):
+            x = np.random.default_rng(n_fft + frames).uniform(
+                -1.1, 1.1, (3, n_fft + (frames - 1) * hop + 1)).astype(np.float32)
+            x[1] *= 1e-3
+            cases.append((f"n_fft{n_fft}_{kind}", x, n_fft, hop))
+    return cases
+
+
+def mel_frame_flops(n_fft: int, fb_nonzeros: int) -> tuple[float, float]:
+    """Operations of the mel frontend per frame, counted for an FFT, as
+    (float64, fp32): in float64 the window, a real FFT (2.5 n log2 n), each
+    bin's power (3) and the power and log-power sums (2 a bin); in fp32 each
+    bin's magnitude and log (2) and the mel product over the filterbank's
+    nonzero weights."""
     bins = n_fft // 2 + 1
-    return n_fft + 2.5 * n_fft * np.log2(n_fft) + 4.0 * bins + 2.0 * fb_nonzeros + 3.0 * bins
+    return (n_fft + 2.5 * n_fft * np.log2(n_fft) + 5.0 * bins,
+            2.0 * bins + 2.0 * fb_nonzeros)
 
 
 def mel_cases() -> list[tuple[str, np.ndarray, int]]:
@@ -840,7 +878,7 @@ def _worst(err: np.ndarray) -> float:
     return float(err.max()) if err.size else 0.0
 
 
-def check_mel_frontend(what: str, got, ref, loose: bool = False) -> dict:
+def check_mel_frontend(what: str, got, ref, loose: bool = False, n_fft: int = MEL_N_FFT) -> dict:
     """Hold mel_frontend outputs `got` = (logmel, energy, power_sum,
     log_power_sum), numpy, against `ref`; raise beyond the bounds above.
     Returns the errors."""
@@ -856,7 +894,7 @@ def check_mel_frontend(what: str, got, ref, loose: bool = False) -> dict:
     errs = {"mel_max_abs": _worst(mel_err), "mel_mae": float(mel_err.mean()),
             "energy_rel": _worst(np.abs(e - re_) / np.maximum(re_, 1e-30) * (e != re_)),
             "power_sum_rel": _worst(np.abs(ps - rps) / np.maximum(rps, 1e-30) * (ps != rps)),
-            "log_power_per_bin": _worst(np.abs(lps - rlps)) / (MEL_N_FFT // 2 + 1)}
+            "log_power_per_bin": _worst(np.abs(lps - rlps)) / (n_fft // 2 + 1)}
     if (mel_err > tol["atol"] + tol["rtol"] * np.abs(rm)).any() or errs["mel_mae"] >= MEL_MAE:
         raise AssertionError(f"{what}: logmel off by {errs['mel_max_abs']:.3e} "
                              f"(mae {errs['mel_mae']:.3e}); bound {tol}, mae < {MEL_MAE}")
@@ -909,15 +947,27 @@ def check_clip_features(what: str, got, ref, loose: bool = False) -> dict:
     return {**errs, **_check_char_stats(what, ce, k, rce, rk)}
 
 
-def logmel_float64(x: torch.Tensor) -> torch.Tensor:
-    """The log-mel of pre-padded clips x (B, L) computed in float64: the
-    arbiter of the path check."""
-    from visual_onoma_to_wave_tpu_torch.ops import stft
+def logmel_float64(x: torch.Tensor, n_fft: int = MEL_N_FFT, hop: int = MEL_HOP,
+                   win_length: int | None = None) -> torch.Tensor:
+    """The log-mel of pre-padded clips x (B, L) computed in float64, with
+    the kernel's own fp32 window and filterbank: the arbiter of the kernel's
+    log-mel."""
+    from visual_onoma_to_wave_tpu_torch.ops import mel, stft
 
-    window, fb = _window_and_fb(MEL_N_FFT, x.device)
-    mag = stft.framed_magnitude(x.double().clamp(-1.0, 1.0), window.double(), MEL_N_FFT,
-                                MEL_HOP)
-    return torch.log(torch.clamp(mag @ fb.double(), min=1.0e-5)).transpose(-1, -2)
+    window, _, _, _, fb = mel._host_constants(n_fft, win_length or n_fft, 80, SR, 0.0, 8000.0)
+    mag = stft.framed_magnitude(x.double().clamp(-1.0, 1.0),
+                                torch.from_numpy(window).double().to(x.device), n_fft, hop)
+    return torch.log(torch.clamp(mag @ torch.from_numpy(fb).double().to(x.device),
+                                 min=1.0e-5)).transpose(-1, -2)
+
+
+def check_mel_float64(what: str, logmel: np.ndarray, exact: np.ndarray) -> float:
+    """The kernel's log-mel against float64: within MEL_FLOAT64_ATOL (its
+    fp32 output rounding and the fp32 stage after each bin's power)."""
+    err = _worst(np.abs(logmel - exact))
+    if not err <= MEL_FLOAT64_ATOL:
+        raise AssertionError(f"{what}: logmel {err:.3e} off float64 > {MEL_FLOAT64_ATOL}")
+    return err
 
 
 def check_path_batch(what: str, got, plain, exact: np.ndarray) -> dict:
@@ -926,9 +976,10 @@ def check_path_batch(what: str, got, plain, exact: np.ndarray) -> dict:
     is rounding noise: the plain fp32 version is up to 1.3e-2 off float64 in
     log-mel there (CPU, these 640 clips), beyond any bound the kernel could
     be held to against it. So the kernel's log-mel is held against float64
-    (`exact`), within MEL_LOOSE everywhere and MAE < MEL_MAE; char energy and
-    kurtosis against the plain version."""
+    (`exact`), within MEL_FLOAT64_ATOL (and so within MEL_LOOSE and MAE <
+    MEL_MAE); char energy and kurtosis against the plain version."""
     lm, ce, k = got
+    check_mel_float64(what, lm, exact)
     kernel_err, plain_err = np.abs(lm - exact), np.abs(plain[0] - exact)
     errs = {"mel_vs_float64_max": _worst(kernel_err),
             "mel_vs_float64_mae": float(kernel_err.mean()),
@@ -939,6 +990,53 @@ def check_path_batch(what: str, got, plain, exact: np.ndarray) -> dict:
             (kernel_err > tol).any():
         raise AssertionError(f"{what}: logmel vs float64 {errs}, bound {MEL_LOOSE}")
     return {**errs, **_check_char_stats(what, ce, k, plain[1], plain[2])}
+
+
+def check_mel_sweep_case(dev, x: np.ndarray, n_fft: int, hop: int) -> dict:
+    """The kernel at one case of the n_fft sweep against its plain version
+    (check_mel_frontend's bounds) and against float64 (MEL_FLOAT64_ATOL)."""
+    from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend, mel_frontend_reference
+
+    xt = torch.from_numpy(x).to(dev)
+    got = _host(mel_frontend(xt, n_fft=n_fft, hop_length=hop, win_length=n_fft))
+    ref = _host(mel_frontend_reference(xt, n_fft=n_fft, hop_length=hop, win_length=n_fft))
+    what = f"mel n_fft {n_fft} hop {hop} {tuple(x.shape)}"
+    errs = check_mel_frontend(what, got, ref, n_fft=n_fft)
+    exact = logmel_float64(xt, n_fft, hop).cpu().numpy()
+    return {**errs, "mel_vs_float64": check_mel_float64(what, got[0], exact)}
+
+
+def parse_ptxas(log: str) -> dict[int, dict]:
+    """Registers, stack and spills of each instantiation of the mel kernel
+    in `nvcc -Xptxas -v` output, by n_fft."""
+    import re
+
+    report: dict[int, dict] = {}
+    n_fft = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"mel_frontend_kernelILi(\d+)E", m.group(1))
+            n_fft = 2 << int(k.group(1)) if k else None
+            continue
+        if n_fft is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report.setdefault(n_fft, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(n_fft, {})["registers"] = int(m.group(1))
+    return report
+
+
+def mel_ptxas_report() -> dict[int, dict]:
+    """`parse_ptxas` of the built mel library's ptxas.log."""
+    from visual_onoma_to_wave_tpu_torch.ops.cuda_build import library_path
+
+    return parse_ptxas((library_path("mel_frontend").parent / "ptxas.log").read_text())
 
 
 def feature_clips(n: int = 640, seed: int = 0) -> tuple[list[np.ndarray], list[np.ndarray]]:
@@ -1026,15 +1124,26 @@ def phase_mel(dev, card: str) -> dict:
         ref = _host(mel_frontend_reference(xt, win_length=win))
         loose = name == "full_scale"
         keep(check_mel_frontend(f"{phase} {name}", got, ref, loose), "")
+        keep({"mel_vs_float64": check_mel_float64(
+            f"{phase} {name}", got[0], logmel_float64(xt, win_length=win).cpu().numpy())}, "")
         d = torch.from_numpy(mel_durations(x.shape[0], got[1].shape[-1])).to(dev)
         keep(check_clip_features(f"{phase} clip_features {name}",
                                  _host(fused_clip_features(xt, d, 8, win_length=win)),
                                  _host(plain_clip_features(xt, d, 8, win)), loose), "clip_")
+    sweep = {name: check_mel_sweep_case(dev, x, n_fft, hop)
+             for name, x, n_fft, hop in mel_sweep_cases()}
     torch.cuda.synchronize()
     say(phase + " parity", card=card, cases=[c[0] for c in cases], max_err=worst,
         bounds={"mel_atol": MEL_ATOL, "mel_full_scale": MEL_LOOSE, "mel_mae": MEL_MAE,
-                "sums_rel": SUM_RTOL, "log_power_per_bin": LOG_POWER_PER_BIN_ATOL,
+                "mel_vs_float64": MEL_FLOAT64_ATOL, "sums_rel": SUM_RTOL,
+                "log_power_per_bin": LOG_POWER_PER_BIN_ATOL,
                 "kurtosis": [KURT_ATOL, KURT_RTOL]})
+    say(phase + " n_fft sweep", card=card, max_err=sweep)
+    spills = mel_ptxas_report()
+    say(phase + " ptxas", card=card, instances=spills)
+    spilled = {n: r for n, r in spills.items() if r["spill_stores"] or r["spill_loads"]}
+    if len(spills) != len(MEL_SWEEP_N_FFT) or spilled:
+        raise AssertionError(f"{phase}: ptxas instances {sorted(spills)}, spilling {spilled}")
 
     # pass 1 at real scale: 640 clips in length-sorted 64-clip batches
     clips, durs = feature_clips()
@@ -1080,18 +1189,35 @@ def phase_mel(dev, card: str) -> dict:
     x, d = torch.from_numpy(batch).to(dev), torch.from_numpy(dur).to(dev)
     window, fb = _window_and_fb(MEL_N_FFT, dev)
 
+    window64, fb64 = window.double(), fb.double()
+
     def library():
-        """torch.stft and the mel product (cuFFT, cuBLAS): the log-mel alone."""
+        """torch.stft and the mel product (cuFFT, cuBLAS) in fp32: the log-mel alone."""
         spec = torch.stft(x, MEL_N_FFT, MEL_HOP, window=window, center=False,
                           return_complex=True)
         return torch.log(torch.clamp(fb.t() @ spec.abs(), min=1.0e-5))
 
+    def library_fp64():
+        """The kernel's function in float64 (cuFFT, cuBLAS): the clipped
+        audio's log-mel and the three frame sums."""
+        spec = torch.stft(x.double().clamp(-1.0, 1.0), MEL_N_FFT, MEL_HOP, window=window64,
+                          center=False, return_complex=True).abs()
+        power = spec * spec
+        p_sum = power.sum(-2)
+        return (torch.log(torch.clamp(fb64.t() @ spec, min=1.0e-5)), torch.sqrt(p_sum), p_sum,
+                torch.log(power + 1.0e-8).sum(-2))
+
     runs = {"mel_frontend": lambda: mel_frontend(x),
             "mel_frontend_plain": lambda: mel_frontend_reference(x),
             "mel_frontend_library": library,
+            "mel_frontend_library_fp64": library_fp64,
             "clip_features": lambda: fused_clip_features(x, d, MAX_CHARS),
             "clip_features_plain": lambda: plain_clip_features(x, d, MAX_CHARS)}
+    exact = logmel_float64(x)
     lib_err = float((library() - mel_frontend_reference(x)[0]).abs().max().item())
+    vs_float64 = {"kernel": float((mel_frontend(x)[0] - exact).abs().max().item()),
+                  "library_fp32": float((library() - exact).abs().max().item()),
+                  "library_fp64": float((library_fp64()[0] - exact).abs().max().item())}
     times = {k: [] for k in runs}
     for order in (list(runs), list(runs)[::-1]):
         for k in order:
@@ -1099,19 +1225,33 @@ def phase_mel(dev, card: str) -> dict:
     ms = {k: float(np.mean(v)) for k, v in times.items()}
     outs = mel_frontend(x)
     n_frames = x.shape[0] * outs[0].shape[-1]
-    b = bound(n_frames * mel_frame_flops(MEL_N_FFT, int((fb != 0).sum().item())),
-              nbytes(x, *outs))
+    flops64, flops32 = (n_frames * f for f in mel_frame_flops(MEL_N_FFT,
+                                                              int((fb != 0).sum().item())))
+    moved = nbytes(x, *outs)
+    # float64 operations at the float64 rate and fp32 ones at the fp32 rate;
+    # beside it every operation at the fp32 rate (the bound before the
+    # kernel's float64 was counted)
+    b = bound(flops64 + flops32 * PEAK_FP64_FLOPS / PEAK_FP32_FLOPS, moved, PEAK_FP64_FLOPS)
+    b32 = bound(flops64 + flops32, moved, PEAK_FP32_FLOPS)
     say(phase + " path", card=card, clips=len(clips), batches=len(batches),
         frames=frames, kernel_launches=launches, max_err_vs_plain=path_err,
         stage_ms=per_stage, stage_ms_runs=stage_ms,
         clips_per_s={k: len(clips) / (v / 1e3) for k, v in per_stage.items()},
         frames_per_s={k: frames / (v / 1e3) for k, v in per_stage.items()},
         shape_timed=f"B=64 L={batch.shape[1]} n_fft={MEL_N_FFT} hop={MEL_HOP} 80 mels",
-        ms=ms, ms_runs=times, **b, library_logmel_vs_plain=lib_err)
+        ms=ms, ms_runs=times, **b, bound_fp32_rate_ms=b32["bound_ms"],
+        share_of_bound=b["bound_ms"] / ms["mel_frontend"],
+        share_of_fp32_rate_bound=b32["bound_ms"] / ms["mel_frontend"],
+        flops_float64=flops64, flops_fp32=flops32, bytes=moved,
+        library_logmel_vs_plain=lib_err, logmel_vs_float64=vs_float64)
     return {"launches": launches["mel_frontend"],
             "max_abs_err": worst["mel_max_abs"],
             "ms": ms["mel_frontend"], "plain_ms": ms["mel_frontend_plain"], **b,
-            "library_ms": ms["mel_frontend_library"]}
+            "library_ms": ms["mel_frontend_library"],
+            "library_fp64_ms": ms["mel_frontend_library_fp64"],
+            "bound_fp32_rate_ms": b32["bound_ms"], "logmel_vs_float64": vs_float64,
+            "n_fft_sweep_mel_vs_float64": max(v["mel_vs_float64"] for v in sweep.values()),
+            "ptxas": spills}
 
 
 # Fused MRF stage (phase 8). fp32: the kernel (3xTF32, a fresh tensor-core

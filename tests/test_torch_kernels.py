@@ -18,7 +18,9 @@ the trunk must equal L block launches exactly. Mel frontend bounds are
 chip_smoke's `check_mel_frontend` / `check_clip_features` (log-mel 1e-4
 absolute, the JAX package's 2e-3 + 1e-4 |ref| for the full-scale case where
 fp32 spectra sit at their rounding noise; frame sums 1e-5 relative; kurtosis
-1e-4 + 1e-4 |ref|), over the case grid of tests/test_pallas_mel.py. Fused
+1e-4 + 1e-4 |ref|), over the case grid of tests/test_pallas_mel.py, and
+its log-mel within 1e-5 of float64 (`check_mel_float64`), there and over
+chip_smoke's n_fft sweep (16 ... 2048, B 3, two clip lengths). Fused
 MRF stage bounds are chip_smoke's `MRF_OF_SCALE` (fp32 1e-5 x max |plain|,
 summation order over 18 convs; bf16 2e-2 x max |plain|, rounding flips of the
 bf16 conv inputs carried by the later convs); the iSTFTNet generators on the
@@ -51,6 +53,7 @@ from visual_onoma_to_wave_tpu_torch.ops.mrf import (
 from visual_onoma_to_wave_tpu_torch.ops.stft import char_stats_from_frame_sums
 
 MEL_CASES = [pytest.param(*case, id=case[0]) for case in chip_smoke.mel_cases()]
+MEL_SWEEP = [pytest.param(*case, id=case[0]) for case in chip_smoke.mel_sweep_cases()]
 
 
 def _mask(lens, T, device=None) -> torch.Tensor:
@@ -276,9 +279,20 @@ def test_mel_frontend_kernel_matches_plain(cuda, name, prepadded, win):
     chip_smoke.check_mel_frontend(name, chip_smoke._host(got),
                                   chip_smoke._host(mel_frontend_reference(x, win_length=win)),
                                   loose)
+    chip_smoke.check_mel_float64(name, got[0].cpu().numpy(),
+                                 chip_smoke.logmel_float64(x, win_length=win).cpu().numpy())
     chip_smoke.check_clip_features(name, chip_smoke._host(features),
                                    chip_smoke._host(chip_smoke.plain_clip_features(x, d, 8, win)),
                                    loose)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,clips,n_fft,hop", MEL_SWEEP)
+def test_mel_frontend_kernel_matches_plain_and_float64_at_every_n_fft(cuda, name, clips, n_fft,
+                                                                      hop):
+    before = mel_frontend.launches
+    chip_smoke.check_mel_sweep_case(cuda, clips, n_fft, hop)
+    assert mel_frontend.launches == before + 1
 
 
 @pytest.mark.gpu

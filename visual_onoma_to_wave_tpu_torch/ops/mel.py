@@ -13,10 +13,11 @@ the sum of log(|rfft|^2 + 1e-8) (the two kurtosis moments). w is the Hann
 window of win_length zero-padded to the centre of n_fft. The JAX kernel's
 three spare mel columns become their own outputs here.
 
-The kernel computes in float64 and rounds each output once to fp32, so it
-is the float64 result to within fp32 rounding; the plain version is fp32
-throughout (`torch.fft.rfft`), as the JAX package's functions are. Where
-they differ, near the log's 1e-5 clamp, the plain version is the noisier.
+The kernel takes the FFT and each bin's power in float64 and the rest in
+fp32 (its log-mel is within 1e-5 of the float64 result); the plain version
+is fp32 throughout (`torch.fft.rfft`), as the JAX package's functions are.
+Where they differ, near the log's 1e-5 clamp, the plain version is the
+noisier.
 
 `fused_logmel_energy` and `fused_clip_features` are the counterparts of
 `pallas_logmel_energy` and `pallas_clip_features`; the second reduces the
@@ -55,21 +56,56 @@ from visual_onoma_to_wave_tpu_torch.ops.stft import (
     pad_window,
 )
 
-MIN_N_FFT, MAX_N_FFT = 16, 2048   # the kernel's shared memory holds 1.5 n_fft floats per warp
+MIN_N_FFT, MAX_N_FFT = 16, 2048   # the kernel's instantiations: 8- to 1024-point complex FFTs
 _MAX_BATCH = 65535                # grid y
+# the kernel's block geometry (`THREADS`, `ROUNDS`, `LANE_VALUES` in
+# csrc/mel_frontend.cu): threads a block, rounds of frames a block takes,
+# complex float64 values a lane holds
+THREADS, ROUNDS, LANE_VALUES = 128, 4, 16
+
+
+def block_frames(n_fft: int) -> int:
+    """Frames one block of the kernel takes at n_fft: ROUNDS rounds of
+    THREADS / (lanes a frame), a frame taking n_fft / 2 / LANE_VALUES lanes
+    (one at n_fft <= 32)."""
+    return ROUNDS * THREADS // max(1, n_fft // 2 // LANE_VALUES)
+
+
+def fft_plan(n_fft: int) -> list[tuple[int, int]]:
+    """The kernel's FFT over n_fft / 2 complex points as (radix, stride) per
+    Stockham pass: one radix-2 or radix-4 pass where log2(n_fft / 2) is not a
+    multiple of 3, then radix-8 passes; pass p reads stride Ns = the product
+    of the earlier radices (`Plan` in `csrc/mel_frontend.cu`)."""
+    log2_half = (n_fft // 2).bit_length() - 1
+    radices = ([1 << (log2_half % 3)] if log2_half % 3 else []) + [8] * (log2_half // 3)
+    strides = np.cumprod([1] + radices[:-1]).tolist()
+    return list(zip(radices, strides))
+
+
+def twiddle_table(n_fft: int) -> np.ndarray:
+    """The kernel's float64 twiddles (entries, 2) as (cos, -sin): first
+    W_{n_fft}^k for k < n_fft / 2 (the split of the packed real FFT), then
+    for each pass after the first, radix R and stride Ns, the block
+    W_{Ns R}^{s r} at row (r - 1) * Ns + s for 1 <= r < R and s < Ns."""
+    angles = [2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft]
+    for radix, stride in fft_plan(n_fft)[1:]:
+        r = np.arange(1, radix, dtype=np.float64)[:, None]
+        s = np.arange(stride, dtype=np.float64)[None, :]
+        angles.append((2.0 * np.pi * r * s / (stride * radix)).ravel())
+    ang = np.concatenate(angles)
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
 
 
 @functools.lru_cache(maxsize=8)
 def _host_constants(n_fft: int, win_length: int, n_mels: int, sampling_rate: int,
                     f_min: float, f_max: float):
-    """The kernel's constants: the padded fp32 window (n_fft,); float64
-    twiddles (n_fft/2, 2) = (cos, -sin)(2 pi k / n_fft); per mel filter its
-    non-zero bin range and offset (3, n_mels) int32 and the packed fp32
-    weights; and the dense fp32 filterbank (F, n_mels) of the plain version.
-    Window and filterbank are the plain version's own."""
+    """The kernel's constants: the padded fp32 window (n_fft,); the float64
+    twiddle table (`twiddle_table`); per mel filter its non-zero bin range
+    and offset (3, n_mels) int32 and the packed fp32 weights; and the dense
+    fp32 filterbank (F, n_mels) of the plain version. Window and filterbank
+    are the plain version's own."""
     window = pad_window(torch.from_numpy(hann_window(win_length)), n_fft).numpy()
-    ang = 2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
-    twiddle = np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+    twiddle = twiddle_table(n_fft)
     fb = melscale_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sampling_rate)
     index = np.zeros((3, n_mels), np.int32)
     weights, offset = [], 0
