@@ -72,9 +72,26 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
   11. melgan full width: the same with MelGAN at the melgan-neurips widths
      (no kernel of the vocoder; the acoustic model's attention only);
   12. served: the port's own `serve.BatchingServer` over the demo
-     iSTFTNet-mel on the card, 4 concurrent HTTP requests.
+     iSTFTNet-mel on the card, 4 concurrent HTTP requests;
+  13. acoustic training: the port's synthetic corpus (2 classes x 24 clips)
+     through its `format`, `prepare-tg` and `Preprocessor` on the card (B3
+     launches printed); the ICASSP model (`configs/icassp.yaml` geometry,
+     parameter count printed) trained by the port's `Trainer` at batch 16 in
+     fp32 for 200 steps (warm_up_step 40; evaluate with metrics at 100 and
+     200; checkpoints at 100 and 200). Checks: the first step's loss terms
+     and grad norm on the card against the same step on the CPU with every
+     dropout rate 0 (1e-4 relative); every loss and grad norm finite; the
+     mean total loss of the last 20 steps below the first 20's; no attention
+     kernel launch in the train steps, some in evaluate. Prints the step's
+     median ms (CUDA events recorded by the trainer's `on_step` callback:
+     the period from one step's end to the next's, the batch's load and copy
+     included, over the steps that neither evaluate nor save), mel frames/s
+     and peak memory. Then a fresh
+     `Trainer(restore_step=-1)` restores the parameters bit for bit and takes
+     one more step, and `Synthesizer.from_checkpoint` serves
+     `<ckpt>/200/acoustic.npz` with finite mels through the attention kernel.
 
-Each path (phases 4-7, 9-12) is driven with every launch count set to 0 just
+Each path (phases 4-7, 9-13) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
@@ -657,13 +674,13 @@ def phase_vocos_golden(dev) -> None:
     say(phase + " apply_fused", trunk_launches=1, max_abs_err_vs_served=err, atol=1e-6)
 
 
-def icassp_b16(dev, vocoder: str = "HiFi-GAN"):
-    """ICASSP acoustic model (the `Config()` defaults = configs/icassp.yaml)
-    and a vocoder at its published widths (HiFi-GAN V1, or Vocos: dim 512,
-    intermediate 1536, 8 blocks), random weights from seed 0, and one padded
-    batch of 16 requests of 8 characters. Returns (model, vocoder, batch) on
-    `dev`; the acoustic model and batch do not depend on the vocoder."""
-    from visual_onoma_to_wave_tpu_torch.models import VTTS, get_vocoder
+@functools.lru_cache(maxsize=None)
+def icassp_acoustic(dev):
+    """The ICASSP acoustic model (the `Config()` defaults = configs/icassp.yaml)
+    with random weights from seed 0 and one padded batch of 16 requests of 8
+    characters, on `dev`; built once per device and shared by the phases
+    (they run it in `.eval()` and change no weight)."""
+    from visual_onoma_to_wave_tpu_torch.models import VTTS
 
     torch.manual_seed(0)
     model = VTTS(n_vocab=64, n_audiotype=10, max_mel_len=MAX_MEL)
@@ -673,10 +690,6 @@ def icassp_b16(dev, vocoder: str = "HiFi-GAN"):
     with torch.no_grad():
         dur.weight.mul_(0.01)
         dur.bias.fill_(float(np.log(FRAMES + 1)))
-    gen = get_vocoder(vocoder)
-    for mod in gen.modules():
-        if isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
-            torch.nn.init.normal_(mod.weight, 0.0, 0.01)  # the reference's init
     rng = np.random.default_rng(0)
     batch = {
         "audiotypes": torch.from_numpy((np.arange(B) % 10).astype(np.int64)),
@@ -684,7 +697,23 @@ def icassp_b16(dev, vocoder: str = "HiFi-GAN"):
         "src_lens": torch.full((B,), C, dtype=torch.int64),
         "image_cells": torch.from_numpy(rng.uniform(0, 1, (B, C, 24, 102)).astype(np.float32)),
     }
-    return model.to(dev).eval(), gen.to(dev).eval(), {k: v.to(dev) for k, v in batch.items()}
+    return model.to(dev).eval(), {k: v.to(dev) for k, v in batch.items()}
+
+
+def icassp_b16(dev, vocoder: str = "HiFi-GAN"):
+    """`icassp_acoustic` and a vocoder at its published widths (HiFi-GAN V1,
+    or Vocos: dim 512, intermediate 1536, 8 blocks), random weights from seed
+    0. Returns (model, vocoder, batch) on `dev`; the acoustic model and batch
+    do not depend on the vocoder."""
+    from visual_onoma_to_wave_tpu_torch.models import get_vocoder
+
+    model, batch = icassp_acoustic(torch.device(dev))
+    torch.manual_seed(0)
+    gen = get_vocoder(vocoder)
+    for mod in gen.modules():
+        if isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+            torch.nn.init.normal_(mod.weight, 0.0, 0.01)  # the reference's init
+    return model, gen.to(dev).eval(), batch
 
 
 def phase_full(dev, card: str, phase: str = "4 full width", vocoder: str = "HiFi-GAN",
@@ -1486,6 +1515,166 @@ def phase_served(dev, card: str) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+# phase 13: the synthetic corpus, the model and the training cadence
+TRAIN_CLIPS_PER_CLASS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_WARMUP = 24, 200, 16, 40
+FIRST_STEP_RTOL = 1e-4
+
+
+def train_config(work: pathlib.Path, raw_root_ono: pathlib.Path):
+    """The port's `Config` of phase 13's run on the corpus under `work`
+    (the ICASSP model; no model block)."""
+    from visual_onoma_to_wave_tpu_torch.config import config_from_dict
+    from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import work_config
+
+    cfg = work_config(work, raw_root_ono, TRAIN_STEPS)
+    cfg["train"]["optimizer"].update(batch_size=TRAIN_BATCH, warm_up_step=TRAIN_WARMUP)
+    cfg["train"]["step"].update(total_step=TRAIN_STEPS, log_step=20, val_step=100,
+                                val_metrics=True, save_step=100, synth_step=10 ** 9)
+    return config_from_dict(cfg)
+
+
+def first_step_parity(trainer, dev) -> dict:
+    """One train step of the trainer's initial model, every dropout rate 0,
+    on `dev` and on the CPU, on the first batch of epoch 1: the loss terms
+    and grad norm agree within FIRST_STEP_RTOL (relative)."""
+    import copy
+
+    from visual_onoma_to_wave_tpu_torch.data.dataset import to_device
+    from visual_onoma_to_wave_tpu_torch.models.layers import Dropout
+    from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
+    from visual_onoma_to_wave_tpu_torch.training.train_state import TrainState, train_step
+
+    batch = next(trainer.train_ds.batches(group_size=4, seed=trainer.config.train.seed + 1))
+    opt = trainer.config.train.optimizer
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model = copy.deepcopy(trainer.state.model).to(where)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        optimizer = NoamAdam(model.parameters(), init_lr=opt.init_lr,
+                             warmup_steps=opt.warm_up_step, grad_clip=opt.grad_clip_thresh)
+        state = TrainState(model, optimizer, torch.Generator(device=where).manual_seed(0))
+        losses = train_step(state, to_device(batch, where))
+        out[where.type] = {k: float(v) for k, v in losses.items()}
+        del model, optimizer, state
+    rel = {k: abs(out[dev.type][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"].items()}
+    if max(rel.values()) > FIRST_STEP_RTOL:
+        raise AssertionError(f"first train step on {dev} vs the CPU: relative errors {rel}")
+    return {"card": out[dev.type], "cpu": out["cpu"], "max_rel_err": max(rel.values())}
+
+
+def phase_train(dev, card: str) -> dict:
+    """The port's corpus pipeline and acoustic trainer on `dev` (see the
+    module docstring, phase 13)."""
+    import tempfile
+
+    from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
+    from visual_onoma_to_wave_tpu_torch.data.labels import prepare_textgrids
+    from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
+    from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import build_corpus
+    from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+    from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
+
+    phase = "13 acoustic training"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        work = pathlib.Path(tmp)
+        raw_root, ono_root = build_corpus(work, TRAIN_CLIPS_PER_CLASS)
+        cfg = train_config(work, ono_root)
+        format_dataset(cfg, raw_root)
+        prepare_textgrids(cfg.path.formatted, list(cfg.dataset.extract_labels))
+        zero_launch_counts()
+        Preprocessor(cfg, device=dev).build(verbose=False)
+        corpus_launches = launch_counts()
+        expect_launches(phase + " preprocess", corpus_launches,
+                        {"mel_frontend": max(corpus_launches["mel_frontend"], 1)})
+
+        trainer = Trainer(cfg, device=dev)
+        first = first_step_parity(trainer, dev)
+        every = (cfg.train.step.val_step, cfg.train.step.save_step)
+        marks, frames, losses, seen = [], [], [], [0]
+        b1 = {"train": 0, "evaluate": 0}
+
+        def on_step(step, step_losses):
+            """Called by the trainer after each step and its evaluate and save:
+            one CUDA event per step, the step's frames and losses, and the
+            attention launches since the last call, charged to the train steps
+            or, at a val step, to evaluate."""
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+            marks.append((step, mark))
+            frames.append(trainer.timer.frames[-1])
+            losses.append(step_losses)
+            launched, seen[0] = attention_core.launches - seen[0], attention_core.launches
+            b1["evaluate" if step % every[0] == 0 else "train"] += launched
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        trainer.train(on_step=on_step)
+        torch.cuda.synchronize(dev)
+        train_launches = launch_counts()
+        n_val = trainer.state.step // every[0]
+        before = attention_core.launches
+        trainer.evaluate(metrics=True)
+        per_evaluate = attention_core.launches - before
+        # a period that ends at a val or save step holds that evaluate or save
+        timed = [i for i in range(1, len(marks))
+                 if all(marks[i][0] % e for e in every)]
+        step_ms = np.array([marks[i - 1][1].elapsed_time(marks[i][1]) for i in timed])
+        frames = np.array([int(frames[i]) for i in timed])
+        table = {k: np.array([float(x[k]) for x in losses]) for k in losses[0]}
+        if not all(np.isfinite(v).all() for v in table.values()):
+            raise AssertionError(f"{phase}: a loss or grad norm is not finite")
+        total = table["total_loss"]
+        if not total[-20:].mean() < total[:20].mean():
+            raise AssertionError(f"{phase}: total loss did not fall: first 20 "
+                                 f"{total[:20].mean()}, last 20 {total[-20:].mean()}")
+        # the val steps' count is their evaluates' alone: none in their train steps
+        if b1["train"] != 0 or per_evaluate == 0 or b1["evaluate"] != n_val * per_evaluate:
+            raise AssertionError(f"{phase}: attention kernel launches {b1} with {per_evaluate} "
+                                 f"per evaluate: expected none in the train steps")
+        expect_launches(phase + " train", train_launches, {"flash_mha": b1["evaluate"]})
+        say(phase, card=card, params=trainer.n_params(), clips=len(trainer.train_ds),
+            steps=trainer.state.step, corpus_kernel_launches=corpus_launches,
+            first_step=first, step_ms_median=float(np.median(step_ms)),
+            step_ms_mean=float(step_ms.mean()),
+            mel_frames_per_s=float(frames.sum() / (step_ms.sum() / 1e3)),
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            loss_first20=float(total[:20].mean()), loss_last20=float(total[-20:].mean()),
+            grad_norm_max=float(table["grad_norm"].max()), flash_mha_launches=b1,
+            val=[json.loads(line) for line in
+                 (pathlib.Path(cfg.path.log) / "val" / "metrics.jsonl").read_text().splitlines()])
+
+        saved = {k: v.detach().cpu().clone() for k, v in trainer.state.model.state_dict().items()}
+        resumed = Trainer(cfg, restore_step=-1, device=dev)
+        restored = resumed.state.model.state_dict()
+        same = all(torch.equal(saved[k], restored[k].cpu()) for k in saved
+                   if not k.endswith("num_batches_tracked"))
+        if not same or resumed.state.step != TRAIN_STEPS:
+            raise AssertionError(f"{phase}: restore at step {resumed.state.step} is not the "
+                                 "saved state")
+        resumed.train(max_steps=TRAIN_STEPS + 1)
+        if resumed.state.step != TRAIN_STEPS + 1:
+            raise AssertionError(f"{phase}: the resumed trainer is at {resumed.state.step}")
+
+        synth = Synthesizer.from_checkpoint(
+            cfg, str(pathlib.Path(cfg.path.ckpt) / str(TRAIN_STEPS) / "acoustic.npz"),
+            device=dev)
+        zero_launch_counts()
+        result = synth.synthesize("パンドン", "drum")
+        synth_launches = launch_counts()
+        if not (np.isfinite(result.mel).all() and result.mel.shape[1] == 80
+                and synth_launches["flash_mha"] > 0):
+            raise AssertionError(f"{phase}: synthesis from the checkpoint gave mel "
+                                 f"{result.mel.shape} with launches {synth_launches}")
+        expect_launches(phase + " synthesis", synth_launches,
+                        {"flash_mha": synth_launches["flash_mha"]})
+        say(phase, resumed_step=resumed.state.step, restored_bit_exact=same,
+            synth_mel_frames=int(result.mel.shape[0]), synth_kernel_launches=synth_launches)
+    return {"step_ms": float(np.median(step_ms))}
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -1505,6 +1694,7 @@ def main() -> int:
     phase_full(dev, probe["smi"], "10 istftnet c8c8i full width", "iSTFTNet", beside=full)
     phase_full(dev, probe["smi"], "11 melgan full width", "MelGAN", beside=full)
     phase_served(dev, probe["smi"])
+    phase_train(dev, probe["smi"])
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"

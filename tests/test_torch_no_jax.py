@@ -9,8 +9,11 @@ through the port's own config, symbols and renderer; the port's
 may use the JAX package); `chip_smoke.py` (its demo golden phases, the
 construction of its full-width models, phase 7's and phase 8's inputs, and
 phase 12's HTTP server over the demo iSTFTNet-mel) and
-`tools/profile_torch.py` run. A source scan of every port module and those
-scripts backs this up for imports inside functions.
+`tools/profile_torch.py` run; the train path runs (`cli format`,
+`prepare-tg`, `preprocess`, `train` and `evaluate` on a tiny corpus, on the
+CPU, the trainer's loader with spawned workers), and so does
+`tools/acoustic_floor_torch.py` at a small size. A source scan of every port
+module and those scripts backs this up for imports inside functions.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "visual_onoma_to_wave_tpu_torch"
-SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py")
+SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
+           ROOT / "tools" / "acoustic_floor_torch.py")
 JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 NO_JAX = JAX_STACK + (JAX_PACKAGE,)
@@ -80,6 +84,56 @@ out = pathlib.Path(cfg.path.preprocessed)
 assert len(list((out / "mel" / "label0").glob("*.npy"))) >= 6
 assert (out / "stats.json").exists() and (out / "train.txt").exists()
 """
+
+# the train path through the port's command line on a tiny corpus (the
+# generator is the port's own; a tiny model; 4 steps; two loader workers).
+# The blocker lives in this interpreter only, so before the loader's pool
+# shuts down each worker reports the blocked modules it holds: none.
+TRAIN = """
+import json, pathlib, tempfile, torch
+torch.set_num_threads(1)
+from visual_onoma_to_wave_tpu_torch.cli import main
+from visual_onoma_to_wave_tpu_torch.data.loader import ProcessLoader
+ProcessLoader.MIN_BATCHES_FOR_PROCS = 1      # the workers load even this tiny epoch
+in_workers, close = [], ProcessLoader.close
+probe = f"{{m.split('.')[0] for m in __import__('sys').modules}} & set({BLOCKED!r})"
+def probed_close(self):
+    if self._pool is not None:
+        in_workers.append(set().union(*self._pool.map(eval, [probe] * 8)))
+    close(self)
+ProcessLoader.close = probed_close
+from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import build_corpus, work_config
+sys.path.insert(0, "tools")
+from acoustic_floor_torch import SMALL_MODEL
+root = pathlib.Path(tempfile.mkdtemp())
+raw, ono = build_corpus(root, 6)
+cfg = work_config(root, ono, 4)
+cfg["dataset"]["valtest_id"] = [1, 3]
+cfg["model"] = SMALL_MODEL
+cfg["train"]["optimizer"]["batch_size"] = 2
+cfg["train"]["step"].update(val_step=2, val_metrics=True, save_step=2, synth_step=4)
+path = root / "cfg.json"
+path.write_text(json.dumps(cfg))
+main(["format", str(path), str(raw)])
+main(["prepare-tg", str(path)])
+main(["preprocess", str(path), "--device", "cpu", "--num-workers", "1"])
+main(["train", str(path), "--device", "cpu", "--loader-workers", "2"])
+main(["evaluate", str(path), "--device", "cpu", "--restore-step", "-1", "--metrics"])
+assert sorted(p.name for p in (root / "out" / "ckpt").iterdir()) == ["2", "4", "symbols.json"]
+assert in_workers == [set()], in_workers
+"""
+
+TOOL = """
+sys.path.insert(0, "tools")
+import tempfile, torch, acoustic_floor_torch
+import visual_onoma_to_wave_tpu_torch.data.preprocess as preprocess
+torch.set_num_threads(1)
+preprocess.NUM_HOST_WORKERS = 2        # a small pool beside the other test workers
+assert acoustic_floor_torch.main(["--small", "--steps", "2", "--val-step", "1", "--n-per-class",
+                                  "14", "--batch", "4", "--device", "cpu",
+                                  "--work", tempfile.mkdtemp()]) == 0
+"""
+
 
 # what chip_smoke's phases and the profiler build, on the CPU (phase 3's
 # models run on the golden inputs; phase 4's full-width models are only built)
@@ -144,11 +198,19 @@ assert out["stats"]["batches"] >= 1 and out["stats"]["requests"] == 4
 
 
 def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
-    prelude = ("import sys\n"
-               f"for name in {tuple(blocked)!r}:\n"
-               "    sys.modules[name] = None   # import raises ImportError\n")
-    epilogue = (f"\nleaked = [m for m in sys.modules if m.split('.')[0] in {tuple(blocked)!r}"
-                " and sys.modules[m] is not None]\nassert not leaked, leaked\n")
+    """Run `code` in a fresh interpreter whose imports of `blocked` (and their
+    submodules) raise ImportError. A finder on sys.meta_path does it rather
+    than None entries in sys.modules, which scipy's array-API checks read as
+    imported modules."""
+    prelude = ("import importlib.abc, sys\n"
+               f"BLOCKED = {tuple(blocked)!r}\n"
+               "class Block(importlib.abc.MetaPathFinder):\n"
+               "    def find_spec(self, name, path=None, target=None):\n"
+               "        if name.split('.')[0] in BLOCKED:\n"
+               "            raise ImportError(f'{name} is blocked')\n"
+               "sys.meta_path.insert(0, Block())\n")
+    epilogue = ("\nleaked = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+                "assert not leaked, leaked\n")
     return subprocess.run([sys.executable, "-c", prelude + code + epilogue], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
 
@@ -159,9 +221,12 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), PREPROCESS),
     (NO_JAX + ("yaml", "PIL"), SMOKE),
     (NO_JAX + ("yaml",), SMOKE_SERVED),
+    (NO_JAX + ("yaml",), TRAIN),
+    (NO_JAX + ("yaml",), TOOL),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
-        "chip-smoke-server-without-the-jax-package"])
+        "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
+        "acoustic-floor-tool-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus

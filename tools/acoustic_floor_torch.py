@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""The acoustic quality floor through the PyTorch port: the acoustic half of
+`benchmarks/bench_acoustic_floor.py`, with nothing of JAX.
+
+    python3 tools/acoustic_floor_torch.py [--steps 10000] [--n-per-class 60]
+        [--batch 16] [--val-step 2000] [--train-seed 0] [--work DIR] [--device cuda]
+
+Builds the port's synthetic corpus (`data/synthetic_corpus.py`, the
+examples' generator: 2 classes x --n-per-class clips, seed 0), formats it,
+writes its TextGrids and preprocesses it on --device (the mel kernel on the
+card), then trains the ICASSP geometry (34.30 M parameters, the default
+`Config`) at --batch in fp32 with warm_up_step 400, max_mel_len 512 and seed
+0, evaluating with the quality metrics (teacher-forced mel L1 and MCD,
+free-running DTW-MCD) every --val-step steps, to --steps. Prints one JSON
+line per phase: the corpus, each validation (the trajectory, with the
+steps/s since the last one), and the final metrics with the training wall
+time and the card's name and power limit. `--train-seed` seeds the
+training alone (initial weights, dropout, batch order) while the corpus and
+its val split stay those of seed 0. `--small` swaps in a model of a few
+layers and narrow widths (a CPU rehearsal of the tool, not a floor).
+The work directory (default `build/acoustic_floor/`) is emptied first.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+# the rehearsal model of --small
+SMALL_MODEL = {
+    "transformer": {"encoder_layer": 1, "decoder_layer": 1, "encoder_hidden": 32,
+                    "decoder_hidden": 32, "conv_filter_size": 64, "conv_kernel_size": [3, 1]},
+    "visual_feature_extractor": {"layer_num": 1},
+    "variance_predictor": {"filter_size": 32},
+    "max_seq_len": 128, "postnet_channels": 32,
+}
+
+
+def card_name() -> str:
+    """`nvidia-smi`'s name and power limit of the card, or "cpu"."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=10_000)
+    ap.add_argument("--n-per-class", type=int, default=60)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--val-step", type=int, default=2000)
+    ap.add_argument("--train-seed", type=int, default=0)
+    ap.add_argument("--work", default=str(ROOT / "build" / "acoustic_floor"))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--small", action="store_true")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from visual_onoma_to_wave_tpu_torch.config import config_from_dict
+    from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
+    from visual_onoma_to_wave_tpu_torch.data.labels import prepare_textgrids
+    from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
+    from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import build_corpus, work_config
+    from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
+
+    card = card_name() if args.device.startswith("cuda") else "cpu"
+    work = pathlib.Path(args.work)
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    raw_root, ono_root = build_corpus(work, args.n_per_class)
+    cfg_dict = work_config(work, ono_root, args.steps)
+    if args.small:
+        cfg_dict["model"] = SMALL_MODEL
+    cfg_dict["train"]["optimizer"]["batch_size"] = args.batch
+    # the tool evaluates itself, from the trainer's `on_step` callback
+    cfg_dict["train"]["step"].update(val_step=10 ** 9, save_step=args.steps,
+                                     synth_step=10 ** 9)
+    (work / "cfg.json").write_text(json.dumps(cfg_dict))
+    cfg = config_from_dict(cfg_dict)
+    format_dataset(cfg, raw_root)
+    prepare_textgrids(cfg.path.formatted, list(cfg.dataset.extract_labels))
+    Preprocessor(cfg, device=args.device).build(verbose=False)
+    val_rows = (work / "preprocessed" / "val.txt").read_text().splitlines()
+    if not val_rows:
+        raise SystemExit(f"the val split is empty (n_per_class={args.n_per_class} holds no "
+                         "clip number of dataset.valtest_id)")
+    print(json.dumps({"metric": "acoustic_floor_corpus", "device": card,
+                      "prep_s": time.perf_counter() - t0, "val_clips": len(val_rows)}),
+          flush=True)
+
+    trainer = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, seed=args.train_seed)),
+                      device=args.device)
+    last = {"t": time.perf_counter(), "step": 0}
+
+    def on_step(step, losses):
+        """Every --val-step steps: the steps/s since the last validation, then
+        the validation with the quality metrics, as one JSON line."""
+        if step % args.val_step:
+            return
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        now = time.perf_counter()
+        steps_per_s = (step - last["step"]) / (now - last["t"])
+        means = trainer.evaluate(step, metrics=True)
+        print(json.dumps({"metric": "acoustic_floor_val", "step": step,
+                          "steps_per_s": steps_per_s, **means}), flush=True)
+        last.update(t=time.perf_counter(), step=step)
+
+    t0 = time.perf_counter()
+    trainer.train(max_steps=args.steps, on_step=on_step)
+    train_s = time.perf_counter() - t0
+    means = trainer.evaluate(metrics=True)
+    print(json.dumps({"metric": "acoustic_floor_quality", "device": card, "steps": args.steps,
+                      "train_seed": args.train_seed, "batch": args.batch,
+                      "n_params": trainer.n_params(),
+                      "train_wall_s": train_s, "steps_per_s": args.steps / train_s,
+                      **means}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

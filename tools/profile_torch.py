@@ -2,7 +2,7 @@
 """Where the device time goes in the port's fused step, ICASSP B16, one GPU.
 
     python3 tools/profile_torch.py [--vocoder HiFi-GAN|Vocos|iSTFTNet-mel|iSTFTNet|MelGAN]
-                                   [--out build/profile_torch]
+                                   [--train] [--out build/profile_torch]
 
 Builds the model, vocoder and batch of `chip_smoke.py` phase 4 (ICASSP
 configuration + HiFi-GAN V1, random weights from seed 0, 16 requests) or,
@@ -19,6 +19,15 @@ prints, one JSON object per line:
     attention, convnext, gemm, other), device time inside the `acoustic` and
     `vocoder` ranges, and the device idle share (1 - union of the kernel
     and copy intervals / their span).
+
+With `--train` it profiles the acoustic train step instead (`training/
+train_state.train_step`: forward with dropout, loss, backward, clip, Adam),
+ICASSP model at B 16 with 8 characters of 28 frames (224 of 256 padded mel
+frames, the size of the synthetic corpus's batches), random weights and
+targets from seed 0: `train_step_ms` (CUDA events, each of 10 steps after 3
+warm-ups) and `profile` over 3 steps, with the classes above plus `optimizer`
+(Adam's multi-tensor kernels) and `attention` empty (no kernel runs under
+autograd).
 
 The full kernel table and the Chrome trace go to `--out`. Imports nothing of
 JAX.
@@ -48,13 +57,15 @@ from visual_onoma_to_wave_tpu_torch.precision import pin_fp32  # noqa: E402
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    if "multi_tensor" in n or "adam" in n:             # the optimizer's foreach kernels
+        return "optimizer"
     if "mha_fwd_kernel" in n:
         return "attention"
     if "convnext_kernel" in n:                         # csrc/convnext.cu
         return "convnext"
     if "mrf_" in n:                                    # csrc/mrf.cu (3 kernels)
         return "mrf"
-    if any(w in n for w in ("conv", "fprop", "dgrad", "implicit", "winograd", "fft")):
+    if any(w in n for w in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft")):
         return "conv"
     if "gemm" in n or "gemv" in n:
         return "gemm"
@@ -81,10 +92,76 @@ def idle_share(trace: dict) -> dict:
             "idle_share": 1.0 - busy / span if span else None}
 
 
+def class_table(trace: dict, calls: int) -> tuple[dict, float]:
+    """Device ms and launches per call by kernel class, and their total."""
+    classes: dict[str, dict] = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "kernel" and "dur" in e:
+            c = classes.setdefault(kernel_class(e["name"]), {"ms": 0.0, "launches": 0})
+            c["ms"] += e["dur"] / 1e3 / calls
+            c["launches"] += 1
+    total = sum(c["ms"] for c in classes.values())
+    for c in classes.values():
+        c["share"] = c["ms"] / total
+        c["launches"] //= calls
+    return classes, total
+
+
+def train_batch(dev, model_batch: dict, frames: int = 28, mel_len: int = 256) -> dict:
+    """Phase 4's model inputs with targets: `frames` per character, random
+    mels and energies from seed 0, mels padded to `mel_len`."""
+    g = torch.Generator().manual_seed(0)
+    B, C = model_batch["texts"].shape
+    valid = torch.arange(C, device=dev)[None, :] < model_batch["src_lens"][:, None]
+    return {**model_batch,
+            "durations": torch.where(valid, frames, 0).to(torch.int32),
+            "mels": torch.randn(B, mel_len, 80, generator=g).to(dev),
+            "energies": torch.randn(B, C, generator=g).to(dev)}
+
+
+def profile_train(dev, out_dir: pathlib.Path) -> None:
+    from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
+    from visual_onoma_to_wave_tpu_torch.training.train_state import TrainState, train_step
+
+    model, _, batch = chip_smoke.icassp_b16(dev, "MelGAN")
+    batch = train_batch(dev, {k: batch[k] for k in ("audiotypes", "texts", "src_lens",
+                                                     "image_cells")})
+    state = TrainState(model, NoamAdam(model.parameters()),
+                       torch.Generator(device=dev).manual_seed(1))
+    ms = []
+    for i in range(13):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append(start.elapsed_time(end))
+    print(json.dumps({"train_step_ms": {
+        "shape": "ICASSP B16, 8 characters x 28 frames, mels padded to 256",
+        "runs": ms, "median": float(np.median(ms))}}), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
+    trace_path = out_dir / "train_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    (out_dir / "train_kernels.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+    trace = json.loads(trace_path.read_text())
+    classes, total = class_table(trace, CALLS)
+    print(json.dumps({"profile": {
+        "train_steps": CALLS, "wall_ms_per_step": wall_ms, "kernel_ms_per_step": total,
+        "classes_per_step": classes, "device": idle_share(trace)}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vocoder", default="HiFi-GAN",
                     choices=("HiFi-GAN", "Vocos", "iSTFTNet-mel", "iSTFTNet", "MelGAN"))
+    ap.add_argument("--train", action="store_true", help="profile the acoustic train step")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -94,9 +171,12 @@ def main() -> int:
     pin_fp32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"card": smi, "vocoder": args.vocoder}), flush=True)
-
     dev = torch.device("cuda", 0)
+    if args.train:
+        print(json.dumps({"card": smi, "train": True}), flush=True)
+        profile_train(dev, out_dir)
+        return 0
+    print(json.dumps({"card": smi, "vocoder": args.vocoder}), flush=True)
     model, gen, batch = chip_smoke.icassp_b16(dev, args.vocoder)
 
     def acoustic():
@@ -140,16 +220,7 @@ def main() -> int:
     (out_dir / "kernels.txt").write_text(events.table(sort_by="self_cuda_time_total",
                                                        row_limit=80))
     trace = json.loads(trace_path.read_text())
-    classes: dict[str, dict] = {}
-    for e in trace["traceEvents"]:
-        if e.get("cat") == "kernel" and "dur" in e:
-            c = classes.setdefault(kernel_class(e["name"]), {"ms": 0.0, "launches": 0})
-            c["ms"] += e["dur"] / 1e3 / CALLS
-            c["launches"] += 1
-    total = sum(c["ms"] for c in classes.values())
-    for c in classes.values():
-        c["share"] = c["ms"] / total
-        c["launches"] //= CALLS
+    classes, total = class_table(trace, CALLS)
     ranges = {e.key: getattr(e, "device_time_total", 0) / 1e3 / CALLS
               for e in events if e.key in ("acoustic", "vocoder")}
     print(json.dumps({"profile": {

@@ -23,6 +23,8 @@ share HiFi-GAN's names (conv_pre, up_i, resblock_i_j, conv_post).
 Trees travel between the frameworks as `.npz` files keyed by the
 '/'-joined flax path ("params/encoder/layer_0/slf_attn/w_qs/kernel").
 Every leaf must be consumed; a leaf the bridge does not know raises.
+`vtts_tree` is the inverse of `vtts_state_dict`: the port's trainer writes
+its checkpoints through it, in the flax layout the Synthesizer reads.
 """
 from __future__ import annotations
 
@@ -148,6 +150,65 @@ def vtts_state_dict(variables: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"bridge: unknown flax module {group!r} with leaves {sorted(names)}")
     leaves.finish()
     return sd
+
+
+# reference PyTorch prefix -> flax module path: `_ACOUSTIC_RENAMES` backwards
+_ACOUSTIC_TREE_RENAMES = [
+    (r"^(encoder|decoder)\.layer_stack\.(\d+)\.", r"\1/layer_\2/"),
+    (r"^encoder\.VisualFeatureExtractor\.embedder\.(\d+)$",
+     lambda m: f"vfe/{'conv' if int(m[1]) % 3 == 0 else 'bn'}_{int(m[1]) // 3}"),
+    (r"^encoder\.VisualFeatureExtractor\.bridge\.0$", "vfe/bridge"),
+    (r"^encoder\.src_word_emb$", "src_word_emb"),
+    (r"_predictor\.conv_layer\.(conv1d_\d)\.conv$", r"_predictor/\1"),
+    (r"_predictor\.conv_layer\.(layer_norm_\d)$", r"_predictor/\1"),
+    (r"^postnet\.convolutions\.(\d+)\.0\.conv$", r"postnet/conv_\1"),
+    (r"^postnet\.convolutions\.(\d+)\.1$", r"postnet/bn_\1"),
+]
+
+
+def _flax_module(torch_prefix: str) -> str:
+    for pattern, repl in _ACOUSTIC_TREE_RENAMES:
+        torch_prefix = re.sub(pattern, repl, torch_prefix)
+    return torch_prefix.replace(".", "/")
+
+
+def vtts_tree(state_dict: dict[str, torch.Tensor]) -> dict:
+    """state_dict of the port's `VTTS` -> {"params", "batch_stats"} of the JAX
+    `VTTS` as numpy arrays: the inverse of `vtts_state_dict`."""
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    flat: dict[str, np.ndarray] = {}
+    conv0 = sd.get("encoder.VisualFeatureExtractor.embedder.0.weight")
+    vfe_channels = conv0.shape[0] if conv0 is not None else 1
+    for out in sorted({k.rsplit(".", 1)[0] for k in sd}):
+        module = _flax_module(out)
+        w = sd.pop(f"{out}.weight")
+        if f"{out}.running_mean" in sd:          # BatchNorm
+            flat[f"params/{module}/scale"] = w
+            flat[f"params/{module}/bias"] = sd.pop(f"{out}.bias")
+            flat[f"batch_stats/{module}/mean"] = sd.pop(f"{out}.running_mean")
+            flat[f"batch_stats/{module}/var"] = sd.pop(f"{out}.running_var")
+        elif f"{out}.bias" not in sd:            # Embedding
+            flat[f"params/{module}/embedding"] = w
+        elif w.ndim == 1:                        # LayerNorm
+            flat[f"params/{module}/scale"] = w
+            flat[f"params/{module}/bias"] = sd.pop(f"{out}.bias")
+        else:
+            if w.ndim == 2:      # Linear (out, in) -> Dense (in, out)
+                k = w.T
+                if module == "vfe/bridge" and vfe_channels > 1:
+                    # rows (c, h, w) -> (h, w, c): flax flattens NHWC
+                    hw = k.shape[0] // vfe_channels
+                    k = k.reshape(vfe_channels, hw, -1).transpose(0, 1).reshape(k.shape[0], -1)
+            elif w.ndim == 3:    # Conv1d (Cout, Cin, K) -> Conv (K, Cin, Cout)
+                k = w.permute(2, 1, 0)
+            else:                # Conv2d (Cout, Cin, kh, kw) -> Conv (kh, kw, Cin, Cout)
+                k = w.permute(2, 3, 1, 0)
+            flat[f"params/{module}/kernel"] = k
+            flat[f"params/{module}/bias"] = sd.pop(f"{out}.bias")
+    if sd:
+        raise ValueError(f"vtts_tree left {len(sd)} tensors unmapped: {sorted(sd)[:8]}")
+    return unflatten_tree({k: np.ascontiguousarray(v.numpy()) for k, v in flat.items()})
 
 
 def hifigan_state_dict(variables: dict) -> dict[str, torch.Tensor]:

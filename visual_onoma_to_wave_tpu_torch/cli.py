@@ -1,16 +1,24 @@
-"""Command line of the PyTorch port: `synthesize`, `serve` and `preprocess`.
+"""Command line of the PyTorch port: the reference's numbered scripts and
+serving as subcommands.
 
+    python -m visual_onoma_to_wave_tpu_torch.cli format      <config> <audio_dir>
+    python -m visual_onoma_to_wave_tpu_torch.cli prepare-tg  <config>
+    python -m visual_onoma_to_wave_tpu_torch.cli preprocess  <config> [--device cpu]
+    python -m visual_onoma_to_wave_tpu_torch.cli train       <config> [--restore-step N]
+        [--max-steps N] [--vocoder voc.npz] [--loader-workers N] [--device cpu]
+    python -m visual_onoma_to_wave_tpu_torch.cli evaluate    <config> [--restore-step N]
+        [--metrics] [--vocoder voc.npz] [--device cpu]
     python -m visual_onoma_to_wave_tpu_torch.cli synthesize \\
         examples/checkpoints/demo/config.json \\
         --acoustic examples/checkpoints/demo/torch/acoustic.npz \\
         --vocoder examples/checkpoints/demo/torch/vocoder.npz \\
         --text パンパン --audiotype drum --out out.wav
+    python -m visual_onoma_to_wave_tpu_torch.cli serve <config> --acoustic ... [--vocoder ...]
 
-    python -m visual_onoma_to_wave_tpu_torch.cli preprocess <config> [--device cpu]
-
-Weights are the `.npz` trees written by `examples/export_demo_for_torch.py`;
-configs load through `config.load_config` (JSON, YAML or the reference's
-three-YAML directory).
+Weights are `.npz` trees: those written by `examples/export_demo_for_torch.py`,
+or a training checkpoint's `<ckpt>/<step>/acoustic.npz`. Configs load through
+`config.load_config` (JSON, YAML or the reference's three-YAML directory).
+Every command that computes runs on `cuda` unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -61,6 +69,43 @@ def cmd_preprocess(args) -> None:
     print(json.dumps(result))
 
 
+def cmd_format(args) -> None:
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
+
+    counts = format_dataset(load_config(args.config), args.audio_dir,
+                            missing_acc="keep" if args.keep_missing_acc else "skip")
+    print(json.dumps(counts))
+
+
+def cmd_prepare_tg(args) -> None:
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.data.labels import prepare_textgrids
+
+    cfg = load_config(args.config)
+    print(json.dumps(prepare_textgrids(cfg.path.formatted,
+                                       list(cfg.dataset.extract_labels) or None)))
+
+
+def _trainer(args):
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.synthesis import load_vocoder
+    from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(args.config)
+    vocoder = load_vocoder(cfg, args.vocoder) if args.vocoder else None
+    return Trainer(cfg, restore_step=args.restore_step, vocoder=vocoder, device=args.device,
+                   loader_workers=getattr(args, "loader_workers", None))
+
+
+def cmd_train(args) -> None:
+    _trainer(args).train(max_steps=args.max_steps)
+
+
+def cmd_evaluate(args) -> None:
+    print(json.dumps(_trainer(args).evaluate(metrics=args.metrics)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="visual-onoma-to-wave-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -101,6 +146,41 @@ def main(argv=None):
     s.add_argument("--device", default="cuda",
                    help="torch device of the feature pass; 'cuda' fails when no GPU is visible")
     s.set_defaults(fn=cmd_preprocess)
+
+    s = sub.add_parser("format", help="raw RWCP-SSD corpus -> formatted corpus (01_format)")
+    s.add_argument("config")
+    s.add_argument("audio_dir", help="root of the RWCP-SSD audio")
+    s.add_argument("--keep-missing-acc", action="store_true",
+                   help="write the rows of clips without an .acc file (others_score 0) "
+                        "instead of skipping them")
+    s.set_defaults(fn=cmd_format)
+
+    s = sub.add_parser("prepare-tg", help="lab -> TextGrid and length stats (02_prepare_tg)")
+    s.add_argument("config")
+    s.set_defaults(fn=cmd_prepare_tg)
+
+    def trained(s, what: str):
+        s.add_argument("config")
+        s.add_argument("--restore-step", type=int, default=None,
+                       help="checkpoint step to start from (-1 = the latest)")
+        s.add_argument("--vocoder", default=None,
+                       help=f"vocoder weights (.npz) for {what}")
+        s.add_argument("--device", default="cuda",
+                       help="torch device; 'cuda' fails when no GPU is visible")
+
+    s = sub.add_parser("train", help="train the acoustic model (04_train)")
+    trained(s, "the sample synthesis's audio")
+    s.add_argument("--max-steps", type=int, default=None)
+    s.add_argument("--loader-workers", type=int, default=None,
+                   help="batch-loader worker processes (default: min(10, cpus); <= 1 loads "
+                        "in this process behind a prefetch thread)")
+    s.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("evaluate", help="validation losses (evaluate.py)")
+    trained(s, "the waveform metrics under --metrics (needs preprocess --save-audio)")
+    s.add_argument("--metrics", action="store_true",
+                   help="also teacher-forced mel_l1 and MCD, free-running DTW-MCD (dB)")
+    s.set_defaults(fn=cmd_evaluate)
 
     args = p.parse_args(argv)
     return args.fn(args)

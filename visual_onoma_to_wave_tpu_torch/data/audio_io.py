@@ -4,6 +4,7 @@
 minimal RIFF parser), mixes it to mono and resamples it with a polyphase
 FIR (scipy's resample_poly, imported where used). `wav_bytes` is the one
 float -> 16-bit PCM encoder, shared by `write_wav` and the HTTP server.
+`raw_to_wav` converts RWCP-SSD's headerless 48 kHz PCM for `data.formatting`.
 """
 from __future__ import annotations
 
@@ -92,6 +93,18 @@ def wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
 def write_wav(path: str | pathlib.Path, audio: np.ndarray, sample_rate: int) -> None:
     """Write float [-1, 1] mono audio as a 16-bit PCM wav."""
     pathlib.Path(path).write_bytes(wav_bytes(audio, sample_rate))
+
+
+def read_raw_pcm16(path: str | pathlib.Path, big_endian: bool = False) -> np.ndarray:
+    """A headerless 16-bit signed mono PCM file -> float32 in [-1, 1)."""
+    data = np.fromfile(str(path), dtype=">i2" if big_endian else "<i2")
+    return data.astype(np.float32) / 32768.0
+
+
+def raw_to_wav(raw_path: str | pathlib.Path, wav_path: str | pathlib.Path,
+               sample_rate: int = 48000, big_endian: bool = False) -> None:
+    """RWCP-SSD .raw -> .wav (reference 01_format.py:40-47)."""
+    write_wav(wav_path, read_raw_pcm16(raw_path, big_endian=big_endian), sample_rate)
 
 
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

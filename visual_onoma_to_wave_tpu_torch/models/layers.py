@@ -1,18 +1,34 @@
 """Acoustic-model layers (port of visual_onoma_to_wave_tpu/models/layers.py).
 
-Inference only: dropout is the identity and BatchNorm uses its running
-statistics (call `.eval()`). Public functions keep the reference's
-feature-last (B, T, C) layout; convolutions transpose to PyTorch's (B, C, T)
-internally. Parameter names follow the reference state_dict layout that
+`.train()` is the reference's `deterministic=False`: dropout at the
+reference's sites, BatchNorm on batch statistics, attention through its
+plain version with autograd. `.eval()` is `deterministic=True`: no dropout,
+BatchNorm on its running statistics, attention through the CUDA kernel on
+the card. Dropout masks come from the `torch.Generator` that
+`set_dropout_generator` hands every `Dropout` of a model, never from the
+global RNG. Public functions keep the reference's feature-last (B, T, C)
+layout; convolutions transpose to PyTorch's (B, C, T) internally. Parameter
+names follow the reference state_dict layout that
 `visual_onoma_to_wave_tpu/models/convert_acoustic.py` reads.
+
+Initialisation is flax's, leaf by leaf (`init_like_flax`): lecun-normal
+kernels (a normal truncated at two standard deviations, scaled to variance
+1/fan_in) and zero biases for every linear and convolution, N(0, 1/features)
+embeddings, ones and zeros for the norms; the visual feature extractor
+draws everything from U(-0.08, 0.08) (`models/vfe.py`).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 from torch import nn
 
-from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+from visual_onoma_to_wave_tpu_torch.ops.attention import (
+    attention_core,
+    attention_core_reference,
+)
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -24,6 +40,90 @@ def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table.astype(np.float32)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose masks come from `self.generator` (a
+    `torch.Generator` on the input's device, set by `set_dropout_generator`);
+    the identity under `.eval()` or at rate 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Every `Dropout` of `model` draws its masks from `generator`."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class _FlaxBatchNorm:
+    """flax `nn.BatchNorm(momentum=0.9)` semantics for torch's BatchNorm
+    modules (same parameter and buffer names; flax's momentum 0.9 is torch's
+    0.1, the default). Training: normalise by the batch mean and the biased
+    variance E[x^2] - E[x]^2, and move the running statistics 10% of the way
+    to them, the running variance to the *biased* batch variance (torch
+    would use the unbiased one). Eval: the running statistics, as torch does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's default kernel init: N(0, 1) truncated to [-2, 2], scaled to
+    variance 1/fan_in (the 0.8796 undoes the truncation's shrink)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, skip=()) -> None:
+    """Re-initialise every leaf of `model` from the distribution flax gives
+    its counterpart: Linear and Conv weights lecun-normal (fan_in = in
+    features x kernel taps), biases 0, Embedding N(0, 1/features), LayerNorm
+    and BatchNorm 1 and 0 with running statistics 0 and 1. Modules under a
+    module in `skip` keep theirs."""
+    skipped = {id(m) for s in skip for m in s.modules()}
+    for m in model.modules():
+        if id(m) in skipped:
+            continue
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            lecun_normal_(m.weight, m.weight[0].numel())
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(m.weight.shape[1]))
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+                m.reset_running_stats()
 
 
 class Conv(nn.Module):
@@ -41,14 +141,16 @@ class Conv(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Post-LN multi-head self-attention with a key-padding mask.
 
-    The softmax core always goes through `ops.attention.attention_core`: the
-    CUDA kernel for tensors on the card, its plain version on the CPU, at any
-    T and for dk 64 or 128 on the card. The config key `model.fused_attention`,
-    which gated the reference's TPU kernel on TPU tiling rules, is ignored:
-    the card has one formulation.
+    Under `.eval()` the softmax core goes through `ops.attention.attention_core`:
+    the CUDA kernel for tensors on the card, its plain version on the CPU, at
+    any T and for dk 64 or 128 on the card. Under `.train()` it takes the plain
+    version (`attention_core_reference`) with autograd through it, as the
+    reference takes its XLA path whenever it is not deterministic: the kernel
+    has no backward. The config key `model.fused_attention`, which gated the
+    reference's TPU kernel on TPU tiling rules, is ignored.
     """
 
-    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int):
+    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, dropout: float = 0.1):
         super().__init__()
         if d_k != d_v:
             raise ValueError(f"attention core needs d_k == d_v; got {d_k}, {d_v}")
@@ -58,36 +160,38 @@ class MultiHeadAttention(nn.Module):
         self.w_vs = nn.Linear(d_model, n_head * d_v)
         self.fc = nn.Linear(n_head * d_v, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, key_pad_mask: torch.Tensor) -> torch.Tensor:
         # x: (B, T, D); key_pad_mask: (B, T) True = padding
-        ctx = attention_core(self.w_qs(x), self.w_ks(x), self.w_vs(x),
-                             key_pad_mask, self.n_head)
-        return self.layer_norm(self.fc(ctx) + x)
+        core = attention_core_reference if self.training else attention_core
+        ctx = core(self.w_qs(x), self.w_ks(x), self.w_vs(x), key_pad_mask, self.n_head)
+        return self.layer_norm(self.dropout(self.fc(ctx)) + x)
 
 
 class PositionwiseFeedForward(nn.Module):
     """Conv FFN: k=9 expand -> ReLU -> k=1 project, post-LN."""
 
-    def __init__(self, d_in: int, d_hid: int, kernel_size=(9, 1)):
+    def __init__(self, d_in: int, d_hid: int, kernel_size=(9, 1), dropout: float = 0.1):
         super().__init__()
         self.w_1 = nn.Conv1d(d_in, d_hid, kernel_size[0], padding="same")
         self.w_2 = nn.Conv1d(d_hid, d_in, kernel_size[1], padding="same")
         self.layer_norm = nn.LayerNorm(d_in, eps=1e-5)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.w_2(torch.relu(self.w_1(x.transpose(1, 2)))).transpose(1, 2)
-        return self.layer_norm(h + x)
+        return self.layer_norm(self.dropout(h) + x)
 
 
 class FFTBlock(nn.Module):
     """Attention + conv FFN, each followed by zeroing the padding positions."""
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
-                 d_inner: int, kernel_size=(9, 1)):
+                 d_inner: int, kernel_size=(9, 1), dropout: float = 0.1):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size)
+        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size, dropout)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         pad = pad_mask[:, :, None]
@@ -96,9 +200,10 @@ class FFTBlock(nn.Module):
 
 
 class VariancePredictor(nn.Module):
-    """Two [conv k=3 -> ReLU -> LN] blocks + Linear -> 1, 0 at padding."""
+    """Two [conv k=3 -> ReLU -> LN -> dropout] blocks + Linear -> 1, 0 at padding."""
 
-    def __init__(self, d_in: int, filter_size: int = 256, kernel_size: int = 3):
+    def __init__(self, d_in: int, filter_size: int = 256, kernel_size: int = 3,
+                 dropout: float = 0.5):
         super().__init__()
         self.conv_layer = nn.ModuleDict({
             "conv1d_1": Conv(d_in, filter_size, kernel_size),
@@ -107,25 +212,28 @@ class VariancePredictor(nn.Module):
             "layer_norm_2": nn.LayerNorm(filter_size, eps=1e-5),
         })
         self.linear_layer = nn.Linear(filter_size, 1)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         c = self.conv_layer
-        h = c["layer_norm_1"](torch.relu(c["conv1d_1"](x)))
-        h = c["layer_norm_2"](torch.relu(c["conv1d_2"](h)))
+        h = self.dropout(c["layer_norm_1"](torch.relu(c["conv1d_1"](x))))
+        h = self.dropout(c["layer_norm_2"](torch.relu(c["conv1d_2"](h))))
         return self.linear_layer(h)[..., 0].masked_fill(pad_mask, 0.0)
 
 
 class PostNet(nn.Module):
-    """5-layer conv PostNet: [conv -> BatchNorm -> tanh] x 4, conv -> BatchNorm."""
+    """5-layer conv PostNet: [conv -> BatchNorm -> tanh -> dropout] x 4,
+    conv -> BatchNorm -> dropout (the reference drops after the last layer too)."""
 
     def __init__(self, n_mel_channels: int = 80, embedding_dim: int = 512,
-                 kernel_size: int = 5, n_convolutions: int = 5):
+                 kernel_size: int = 5, n_convolutions: int = 5, dropout: float = 0.5):
         super().__init__()
         dims = [n_mel_channels] + [embedding_dim] * (n_convolutions - 1) + [n_mel_channels]
         self.convolutions = nn.ModuleList(
             nn.Sequential(Conv(dims[i], dims[i + 1], kernel_size),
-                          nn.BatchNorm1d(dims[i + 1], eps=1e-5))
+                          BatchNorm1d(dims[i + 1], eps=1e-5))
             for i in range(n_convolutions))
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, T, n_mels); BatchNorm1d wants channels second
@@ -135,4 +243,5 @@ class PostNet(nn.Module):
             h = bn(conv.conv(h))
             if i < last:
                 h = torch.tanh(h)
+            h = self.dropout(h)
         return h.transpose(1, 2)

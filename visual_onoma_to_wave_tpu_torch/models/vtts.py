@@ -1,10 +1,13 @@
-"""vTTS acoustic model, inference (port of visual_onoma_to_wave_tpu/models/vtts.py).
+"""vTTS acoustic model (port of visual_onoma_to_wave_tpu/models/vtts.py).
 
 Encoder (VFE or token embedding + FFT stack) -> audiotype embedding ->
 VarianceAdaptor -> decoder FFT stack -> mel_linear -> PostNet. Module names
 follow the reference state_dict layout that
 `visual_onoma_to_wave_tpu/models/convert_acoustic.py` reads, so that
-converter is the inverse of `bridge.vtts_state_dict`.
+converter is the inverse of `bridge.vtts_state_dict`. `.train()` /
+`.eval()` are the reference's `deterministic=False` / `True`
+(`models/layers.py`); the forward takes the teacher-forcing targets of
+training and of the eval step.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from torch import nn
 from visual_onoma_to_wave_tpu_torch.models.layers import (
     FFTBlock,
     PostNet,
+    init_like_flax,
     sinusoid_position_table,
 )
 from visual_onoma_to_wave_tpu_torch.models.variance_adaptor import VarianceAdaptor
@@ -41,11 +45,11 @@ class FFTStack(nn.Module):
     """A stack of FFT blocks sharing one padding mask (`layer_stack.{i}`)."""
 
     def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int,
-                 kernel_size):
+                 kernel_size, dropout: float = 0.2):
         super().__init__()
         d_k = d_model // n_head
         self.layer_stack = nn.ModuleList(
-            FFTBlock(d_model, n_head, d_k, d_k, d_inner, kernel_size)
+            FFTBlock(d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout)
             for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
@@ -69,8 +73,10 @@ class Encoder(FFTStack):
 class VTTS(nn.Module):
     """Full acoustic model; build with `VTTS.from_config(config, metadata, n_vocab)`.
 
-    Inference only (deterministic forward, predicted durations). A model
-    built with use_image=True embeds image cells, otherwise token ids.
+    A model built with use_image=True embeds image cells, otherwise token
+    ids. Parameters start from flax's initialisers (`layers.init_like_flax`,
+    the VFE's U(-0.08, 0.08)), drawn from torch's global RNG. The PostNet's
+    dropout rate is not in the config (the reference fixes it at 0.5).
     """
 
     def __init__(self, n_vocab: int, n_audiotype: int, hidden: int = 256,
@@ -83,7 +89,9 @@ class VTTS(nn.Module):
                  is_energy: bool = True, is_kurtosis: bool = False,
                  energy_quantization: str = "linear", kurtosis_quantization: str = "linear",
                  energy_stats=(-1.0, 1.0, 0.0, 1.0), kurtosis_stats=(-1.0, 1.0, 0.0, 1.0),
-                 multi_audiotype: bool = True, postnet_dim: int = 512):
+                 multi_audiotype: bool = True, postnet_dim: int = 512,
+                 encoder_dropout: float = 0.2, decoder_dropout: float = 0.2,
+                 vp_dropout: float = 0.5):
         super().__init__()
         self.use_image = use_image
         self.max_mel_len = max_mel_len
@@ -92,7 +100,7 @@ class VTTS(nn.Module):
             vfe=dict(embed_dim=hidden, cell_hw=tuple(cell_hw), kernel_size=tuple(vfe_kernel),
                      num_convolutions=vfe_layers, channels=vfe_channels),
             n_layers=encoder_layers, d_model=hidden, n_head=n_head, d_inner=d_inner,
-            kernel_size=tuple(ffn_kernel))
+            kernel_size=tuple(ffn_kernel), dropout=encoder_dropout)
         self.audiotype_emb = nn.Embedding(n_audiotype, hidden) if multi_audiotype else None
         self.variance_adaptor = VarianceAdaptor(
             hidden=hidden, n_bins=n_bins, filter_size=vp_filter, kernel_size=vp_kernel,
@@ -100,12 +108,16 @@ class VTTS(nn.Module):
             energy_quantization=energy_quantization,
             kurtosis_quantization=kurtosis_quantization,
             energy_stats=energy_stats, kurtosis_stats=kurtosis_stats,
-            max_mel_len=max_mel_len)
+            max_mel_len=max_mel_len, dropout=vp_dropout)
         self.decoder = FFTStack(decoder_layers, hidden, decoder_n_head or n_head, d_inner,
-                                tuple(ffn_kernel))
+                                tuple(ffn_kernel), decoder_dropout)
         self.mel_linear = nn.Linear(hidden, n_mels)
         self.postnet = PostNet(n_mels, postnet_dim)
         self.position = _PositionTable(max_seq_len, hidden)
+        vfe = [self.encoder.VisualFeatureExtractor] if use_image else []
+        init_like_flax(self, skip=vfe)
+        for m in vfe:
+            m.init_uniform()
 
     @classmethod
     def from_config(cls, config, metadata=None, n_vocab: int = 64,
@@ -139,7 +151,9 @@ class VTTS(nn.Module):
             is_kurtosis=m.variance_embedding.is_kurtosis_condition,
             energy_quantization=m.variance_embedding.energy_quantization,
             kurtosis_quantization=m.variance_embedding.kurtosis_quantization,
-            multi_audiotype=m.multi_audiotype, postnet_dim=m.postnet_channels)
+            multi_audiotype=m.multi_audiotype, postnet_dim=m.postnet_channels,
+            encoder_dropout=t.encoder_dropout, decoder_dropout=t.decoder_dropout,
+            vp_dropout=m.variance_predictor.dropout)
         if metadata is not None:
             kwargs["cell_hw"] = (metadata.image_height, metadata.max_pixelsize)
             e, k = metadata.energy_stats, metadata.kurtosis_stats
@@ -149,9 +163,13 @@ class VTTS(nn.Module):
 
     def forward(self, audiotypes: torch.Tensor, texts: torch.Tensor, src_lens: torch.Tensor,
                 image_cells: torch.Tensor | None = None, e_control=1.0, d_control=1.0,
-                max_mel_len: int | None = None) -> dict:
+                max_mel_len: int | None = None, energy_targets: torch.Tensor | None = None,
+                kurtosis_targets: torch.Tensor | None = None,
+                duration_targets: torch.Tensor | None = None) -> dict:
         """audiotypes (B,), texts (B, C) 0-padded ids, src_lens (B,), image_cells
-        (B, C, H, Wc) in [0, 1]; controls are scalars or per-item (B,)."""
+        (B, C, H, Wc) in [0, 1]; controls are scalars or per-item (B,). The
+        (B, C) targets teacher-force the variance adaptor; in training
+        max_mel_len is the batch's padded mel length."""
         B, C = texts.shape
         src_pad_mask = get_mask_from_lengths(src_lens, C)
         enc = self.encoder
@@ -165,7 +183,8 @@ class VTTS(nn.Module):
 
         (x, e_pred, k_pred, log_d_pred, d_rounded, mel_len,
          mel_pad_mask) = self.variance_adaptor(x, src_pad_mask, e_control, d_control,
-                                               max_mel_len)
+                                               max_mel_len, energy_targets, kurtosis_targets,
+                                               duration_targets)
         x = self.decoder(x + self.position(x.shape[1])[None], mel_pad_mask)
         mel = self.mel_linear(x)
         return {

@@ -44,18 +44,31 @@ def make_fused_infer(model: VTTS, gen):
     audiotypes, texts, src_lens and, on the image path, image_cells, as
     tensors on the models' device; controls are scalars or per-item (B,).
     A MelGAN generator takes log10 mels, so it is fed mel / ln 10 (the
-    reference's vocoder_infer, JAX synthesis.py:67)."""
-    mel_scale = LN10 if isinstance(gen, MelGANGenerator) else None
+    reference's vocoder_infer, JAX synthesis.py:67; `vocode`)."""
 
     @torch.inference_mode()
     def fused(batch: dict, e_control=1.0, d_control=1.0) -> dict:
         out = model(batch["audiotypes"], batch["texts"], batch["src_lens"],
                     image_cells=batch.get("image_cells"),
                     e_control=e_control, d_control=d_control)
-        mel = out["postnet_mel"]
-        return {**out, "wav": gen(mel if mel_scale is None else mel / mel_scale)}
+        return {**out, "wav": vocode(gen, out["postnet_mel"])}
 
     return fused
+
+
+def load_vocoder(config, path: str):
+    """The configured vocoder family (`model.vocoder_model`, its
+    `vocoder_kwargs`) with the weights of the `.npz` tree at `path`."""
+    family = config.model.vocoder_model
+    gen = get_vocoder(family, **dict(config.model.vocoder_kwargs))
+    gen.load_state_dict(vocoder_state_dict(family, load_npz(path)))
+    return gen
+
+
+def vocode(gen, mel: torch.Tensor) -> torch.Tensor:
+    """(B, T, n_mels) natural-log mels -> (B, samples) waveforms; a MelGAN
+    generator takes log10 mels, so it is fed mel / ln 10."""
+    return gen(mel / LN10 if isinstance(gen, MelGANGenerator) else mel)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -110,11 +123,7 @@ class Synthesizer:
                       or build_symbol_map(config.path.preprocessed))
         model = VTTS.from_config(config, metadata, n_vocab=len(symbol_map))
         model.load_state_dict(vtts_state_dict(load_npz(acoustic)))
-        gen = None
-        if vocoder is not None:
-            family = config.model.vocoder_model
-            gen = get_vocoder(family, **dict(config.model.vocoder_kwargs))
-            gen.load_state_dict(vocoder_state_dict(family, load_npz(vocoder)))
+        gen = load_vocoder(config, vocoder) if vocoder is not None else None
         return cls(config, model, metadata, symbol_map, gen, device=device)
 
     # ------------------------------------------------------------ inputs
