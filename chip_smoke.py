@@ -89,9 +89,28 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      and peak memory. Then a fresh
      `Trainer(restore_step=-1)` restores the parameters bit for bit and takes
      one more step, and `Synthesizer.from_checkpoint` serves
-     `<ckpt>/200/acoustic.npz` with finite mels through the attention kernel.
+     `<ckpt>/200/acoustic.npz` with finite mels through the attention kernel;
+  14. bigvgan full width: phase 4 with BigVGAN base (random weights N(0,
+     0.01), log-alpha / log-beta 0; no hand-written kernel: convs, AA FIRs
+     and snake run as PyTorch ops), beside phase 4's HiFi-GAN numbers; the
+     same weights without anti-aliasing (the AA's share of the vocoder ms);
+     the AA FIRs' device time from a `torch.profiler` pass; the card against the
+     same module on the CPU at B 2 x T 64; then the large preset (1536
+     channels, rates 4, 4, 2, 2, 2, 2) at B16, checked against the CPU at B
+     1 x T 16;
+  15. chunked and vocode: `vocoder_infer_chunked` (chunk 256 frames) on
+     phase 4's first 4 mels (T 1000) through HiFi-GAN V1, iSTFTNet-mel,
+     Vocos and BigVGAN base at published widths, one forward over every
+     window (MRF / ConvNeXt kernel launches counted), the interior against
+     the full forward, and the whole waveform against the same windows
+     through the plain path on the card (no kernel launched); then
+     `Synthesizer.vocode` on the demo HiFi-GAN fed the golden requests' mels
+     cut to their lengths, against the fused path's waveforms away from
+     their last halo x hop samples; then `cli synthesize-batch` on the card
+     with the demo checkpoint (5 rows, 2 batches), each file of mel_len x
+     hop samples and within one 16-bit step of `synthesize_batch`.
 
-Each path (phases 4-7, 9-13) is driven with every launch count set to 0 just
+Each path (phases 4-7, 9-15) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
@@ -109,6 +128,7 @@ JAX package (`visual_onoma_to_wave_tpu`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import pathlib
@@ -1675,6 +1695,327 @@ def phase_train(dev, card: str) -> dict:
     return {"step_ms": float(np.median(step_ms))}
 
 
+
+# phases 14-15: the vocoder surface. Card against CPU (the same BigVGAN
+# module), chunked against full forward (the interior, a halo from each true
+# edge) and the chunked kernel path against the same windows through the
+# plain path on the card (the kernels' fp32 is 3xTF32) differ in summation
+# order only: held to 1e-4 absolute and to 1e-4 of the reference's max
+# |sample| (BigVGAN's waveforms at random weights of scale 0.01 are O(1e-3),
+# where 1e-4 absolute alone would hold nothing)
+VOCODE_ATOL = 1e-4
+CHUNK_FRAMES, CHUNK_B = 256, 4
+
+
+def check_vocode(what: str, err: float, scale: float) -> None:
+    if not (err <= VOCODE_ATOL and err <= VOCODE_ATOL * scale):
+        raise AssertionError(f"{what}: max error {err:.3e} at max |reference| {scale:.3e} "
+                             f"(bounds {VOCODE_ATOL} absolute and of the max)")
+
+
+@contextlib.contextmanager
+def plain_on_card(gen):
+    """While the context lasts, `gen`'s MRF stages run as their ResBlock1
+    modules (cuDNN convs) and its ConvNeXt blocks as
+    `convnext_block_reference`, on the card: the plain path its kernels are
+    held against."""
+    import visual_onoma_to_wave_tpu_torch.models.vocos as vocos
+    from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block_reference
+
+    def plain_stage(i, blocks, x):
+        acc = None
+        for block in blocks:
+            y = block(x)
+            acc = y if acc is None else acc + y
+        return acc / len(blocks)
+
+    def plain_block(x, *weights, packed=None, **kw):
+        return convnext_block_reference(x, *weights, **kw)
+
+    mrf, block = getattr(gen, "_mrf", None), vocos.convnext_block
+    if mrf is not None:
+        gen._mrf = plain_stage
+    vocos.convnext_block = plain_block
+    try:
+        yield
+    finally:
+        if mrf is not None:
+            gen._mrf = mrf
+        vocos.convnext_block = block
+
+
+def aa_fir_times(gen, mel: torch.Tensor) -> dict:
+    """Device time of the anti-aliasing FIRs in one BigVGAN forward on `mel`,
+    from one `torch.profiler` pass: each `upsample2` / `downsample2` call is
+    wrapped in a `record_function` range, and its kernels' device time under
+    the ranges is held against all kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import visual_onoma_to_wave_tpu_torch.models.bigvgan as bv
+
+    originals = {"upsample2": bv.upsample2, "downsample2": bv.downsample2}
+    calls = [0]
+
+    def annotated(fn):
+        def run(x, w):
+            calls[0] += 1
+            with record_function("aa_fir"):
+                return fn(x, w)
+        return run
+
+    def kernel_us(evt) -> float:
+        return (sum(k.duration for k in evt.kernels)
+                + sum(kernel_us(c) for c in evt.cpu_children))
+
+    for name, fn in originals.items():
+        setattr(bv, name, annotated(fn))
+    try:
+        with torch.inference_mode():
+            gen(mel)
+            torch.cuda.synchronize()
+            calls[0] = 0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                gen(mel)
+                torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(bv, name, fn)
+    events = prof.events()
+    total_us = sum(k.duration for e in events for k in e.kernels)
+    fir_us = sum(kernel_us(e) for e in events if e.name == "aa_fir")
+    return {"fir_calls": calls[0], "profiler_kernel_ms": total_us / 1e3,
+            "profiler_fir_ms": fir_us / 1e3,
+            "profiler_fir_share": fir_us / total_us if total_us else None}
+
+
+def check_card_vs_cpu(phase: str, gen, mel: torch.Tensor) -> dict:
+    """The module on the card against a copy of it on the CPU, same input."""
+    import copy
+
+    with torch.inference_mode():
+        card = gen(mel).cpu()
+        ref = copy.deepcopy(gen).cpu()(mel.cpu())
+    err = float((card - ref).abs().max())
+    scale = float(ref.abs().max())
+    check_vocode(f"{phase}: card vs CPU", err, scale)
+    return {"shape": list(mel.shape), "max_abs_err": err, "max_abs_cpu": scale}
+
+
+def phase_bigvgan(dev, card: str, hifigan: dict) -> dict:
+    """BigVGAN base at ICASSP B16 through the fused step (phase 4 with the
+    vocoder swapped), the same weights without anti-aliasing for the AA's
+    share of the vocoder ms, the AA FIRs' share from a profiler pass, the
+    card against the CPU at B 2 x T 64; then the large preset at B16."""
+    import time
+
+    from visual_onoma_to_wave_tpu_torch.models import get_vocoder
+
+    phase = "14 bigvgan full width"
+    served, (gen, out) = phase_full(dev, card, phase, "BigVGAN", beside=hifigan)
+    mel = out["postnet_mel"]
+    plain = get_vocoder("BigVGAN", anti_aliased=False)
+    plain.load_state_dict(gen.state_dict())
+    plain = plain.to(dev).eval()
+    runs = {"anti_aliased": lambda: gen(mel), "no_anti_aliasing": lambda: plain(mel)}
+    times = {k: [] for k in runs}
+    with torch.inference_mode():
+        for order in (("anti_aliased", "no_anti_aliasing"), ("no_anti_aliasing", "anti_aliased")):
+            for k in order:
+                times[k].append(time_cuda(runs[k], 3, warmup=1))
+    aa_ms, plain_ms = (float(np.mean(times[k])) for k in runs)
+    fir = aa_fir_times(gen, mel)
+    g = torch.Generator().manual_seed(0)
+    small = (torch.randn(2, 64, 80, generator=g) - 4.0).to(dev)
+    cpu = check_card_vs_cpu(phase, gen, small)
+    say(phase + " anti-aliasing", card=card, vocoder_ms=aa_ms,
+        vocoder_ms_without_aa=plain_ms, aa_share=1.0 - plain_ms / aa_ms, runs=times,
+        **fir, card_vs_cpu=cpu,
+        atol=VOCODE_ATOL)
+    t0 = time.perf_counter()
+    large, (large_gen, _) = phase_full(dev, card, "14 bigvgan-large full width", "BigVGAN-large",
+                                       beside=hifigan)
+    large_cpu = check_card_vs_cpu("14 bigvgan-large", large_gen,
+                                  (torch.randn(1, 16, 80, generator=g) - 4.0).to(dev))
+    say("14 bigvgan-large card vs cpu", card=card, card_vs_cpu=large_cpu, atol=VOCODE_ATOL,
+        phase_s=time.perf_counter() - t0)
+    return {"base": served, "large": large, "aa_share": 1.0 - plain_ms / aa_ms}
+
+
+def phase_chunked(dev, card: str, mel: torch.Tensor) -> dict:
+    """`vocoder_infer_chunked` on the card for HiFi-GAN V1, iSTFTNet-mel,
+    Vocos and BigVGAN base at their published widths (phase 4's first
+    CHUNK_B mels, T 1000, chunk CHUNK_FRAMES): one forward over every window,
+    with its MRF / ConvNeXt kernel launches counted, the interior within
+    VOCODE_ATOL (absolute and of the max) of the full forward. Then `Synthesizer.vocode` on the demo
+    HiFi-GAN checkpoint fed the golden requests' mels cut to their lengths:
+    mel_len x hop finite samples each, within VOCODE_ATOL of the fused path's
+    waveform away from its last halo x hop samples (past them the two see
+    different padding: zeros to the 64-frame bucket against the acoustic
+    model's own padded frames)."""
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.models.hifigan import (
+        generator_halo_frames,
+        vocoder_infer_chunked,
+    )
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer, make_fused_infer
+
+    phase = "15 chunked and vocode"
+    mel = mel[:CHUNK_B].contiguous()
+    result = {}
+    for family in ("HiFi-GAN", "iSTFTNet-mel", "Vocos", "BigVGAN"):
+        _, gen, _ = icassp_b16(dev, family)
+        halo = generator_halo_frames(gen)
+        n_windows = CHUNK_B * -(-mel.shape[1] // CHUNK_FRAMES)
+        want = {"mrf_stage": mrf_stages(gen), "convnext_block": convnext_blocks(gen)}
+        zero_launch_counts()
+        wav = vocoder_infer_chunked(gen, mel, chunk_frames=CHUNK_FRAMES)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        expect_launches(f"{phase} {family}", launches, want)
+        with torch.inference_mode():
+            full = gen(mel)
+        h = halo * HOP
+        if tuple(wav.shape) != tuple(full.shape) or not bool(torch.isfinite(wav).all()):
+            raise AssertionError(f"{phase} {family}: chunked {tuple(wav.shape)} vs full "
+                                 f"{tuple(full.shape)}, finite={bool(torch.isfinite(wav).all())}")
+        err = float((wav[:, h:-h] - full[:, h:-h]).abs().max())
+        check_vocode(f"{phase} {family}: chunked interior vs the full forward", err,
+                     float(full[:, h:-h].abs().max()))
+        plain_err = None      # BigVGAN runs no kernel: its path is the plain one
+        if any(want.values()):
+            zero_launch_counts()
+            with plain_on_card(gen):
+                plain = vocoder_infer_chunked(gen, mel, chunk_frames=CHUNK_FRAMES)
+            torch.cuda.synchronize()
+            expect_launches(f"{phase} {family} plain", launch_counts(), {})
+            plain_err = float((wav - plain).abs().max())
+            check_vocode(f"{phase} {family}: chunked through the kernels vs the plain path",
+                         plain_err, float(plain.abs().max()))
+        with torch.inference_mode():
+            chunked_ms = time_cuda(lambda: vocoder_infer_chunked(gen, mel, CHUNK_FRAMES), 3, 1)
+            full_ms = time_cuda(lambda: gen(mel), 3, 1)
+        result[family] = {"halo_frames": halo, "windows": n_windows,
+                          "window_frames": CHUNK_FRAMES + 2 * halo,
+                          "kernel_launches": {k: launches[k] for k in want},
+                          "interior_max_abs_err": err, "max_abs_err_vs_plain": plain_err,
+                          "max_abs_full": float(full.abs().max()),
+                          "chunked_ms": chunked_ms, "full_ms": full_ms}
+        say(f"{phase} {family}", card=card, batch=CHUNK_B, frames=int(mel.shape[1]),
+            chunk_frames=CHUNK_FRAMES, atol=VOCODE_ATOL, **result[family])
+
+    cfg = load_config(DEMO / "config.json")
+    cfg = cfg.replace(path=cfg.path.__class__(
+        corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
+        ckpt="", log="", result=""))
+    synth = Synthesizer.from_checkpoint(cfg, str(DEMO / "torch" / "acoustic.npz"),
+                                        str(DEMO / "torch" / "vocoder.npz"), device=dev)
+    g = dict(np.load(DEMO / "torch" / "golden.npz"))
+    out = make_fused_infer(synth.model, synth.vocoder)(
+        {k: torch.from_numpy(g[k]).to(dev)
+         for k in ("audiotypes", "texts", "src_lens", "image_cells")},
+        **{k: torch.from_numpy(g[k]).to(dev) for k in ("e_control", "d_control")})
+    lens = out["mel_lens"].cpu().numpy().astype(int)
+    postnet = out["postnet_mel"].cpu().numpy()
+    cut = np.zeros((len(lens), int(lens.max()), postnet.shape[-1]), np.float32)
+    for i, n in enumerate(lens):
+        cut[i, :n] = postnet[i, :n]
+    zero_launch_counts()
+    wavs = synth.vocode(cut, lens)
+    expect_launches(phase + " vocode", launch_counts(), {"mrf_stage": mrf_stages(synth.vocoder)})
+    fused = out["wav"].cpu().numpy()
+    halo = generator_halo_frames(synth.vocoder)
+    errs = []
+    for i, (w, n) in enumerate(zip(wavs, lens)):
+        if w.shape != (n * HOP,) or not np.isfinite(w).all():
+            raise AssertionError(f"{phase} vocode: item {i} has {w.shape} samples for "
+                                 f"mel_len {n}, finite={np.isfinite(w).all()}")
+        m = (n - halo) * HOP
+        errs.append(float(np.abs(w[:m] - fused[i, :m]).max()))
+    if max(errs) > VOCODE_ATOL:
+        raise AssertionError(f"{phase} vocode: differs from the fused path by {max(errs):.3e}")
+    say(phase + " vocode", card=card, mel_lens=lens.tolist(), mel_bucket=synth.mel_bucket,
+        halo_frames=halo, max_abs_err_vs_fused=errs, atol=VOCODE_ATOL)
+    result["synthesize-batch"] = check_synthesize_batch(card, cfg, synth)
+    return result
+
+
+# synthesize-batch rows (phase 15): both row formats, a name to sanitise,
+# per-row controls; two batches at --batch-size 4
+BATCH_ROWS = ("clip/a b|bell|24||バウバウ\n"
+              "チパチパチパ\tdrum\t1.0\t1.2\n"
+              "パシウドパシウド\tbell\t0.8\n"
+              "シトパリ\tdrum\n"
+              "パン\tbell\t1.3\t0.9\n")
+
+
+def check_synthesize_batch(card: str, cfg, synth) -> dict:
+    """`cli synthesize-batch` on the card (its default device) with the demo
+    HiFi-GAN checkpoint, under a temporary directory: one file per row, each
+    of mel_len x hop samples, within one 16-bit step of what
+    `Synthesizer.synthesize_batch` (`synth`, the same checkpoint) gives for
+    the same batches, its kernels launched once per batch."""
+    import io
+    import tempfile
+    import wave
+
+    from visual_onoma_to_wave_tpu_torch import cli
+    from visual_onoma_to_wave_tpu_torch.data.audio_io import wav_bytes
+
+    phase = "15 chunked and vocode synthesize-batch"
+    e_ctl, d_ctl, batch_size = 1.1, 0.9, 4
+
+    def pcm(data: bytes) -> np.ndarray:
+        with wave.open(io.BytesIO(data)) as w:
+            return np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.int32)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_batch_") as tmp:
+        tmp = pathlib.Path(tmp)
+        raw = json.loads((DEMO / "config.json").read_text())
+        raw["path"]["preprocessed"] = str(DEMO / "preprocessed")
+        (tmp / "config.json").write_text(json.dumps(raw))
+        (tmp / "rows.txt").write_text(BATCH_ROWS, encoding="utf-8")
+        rows = cli._read_batch_rows(tmp / "rows.txt")
+        batches = -(-len(rows) // batch_size)
+        zero_launch_counts()
+        rc = cli.main(["synthesize-batch", str(tmp / "config.json"), str(tmp / "rows.txt"),
+                       str(tmp / "out"), "--acoustic", str(DEMO / "torch" / "acoustic.npz"),
+                       "--vocoder", str(DEMO / "torch" / "vocoder.npz"),
+                       "--batch-size", str(batch_size), "--e-control", str(e_ctl),
+                       "--d-control", str(d_ctl)])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        per_call = per_call_launches(synth.model, synth.vocoder)
+        expect_launches(phase, launches, {k: n * batches for k, n in per_call.items()})
+        files = {p.name: p.read_bytes() for p in (tmp / "out").iterdir()}
+    order = sorted(range(len(rows)), key=lambda i: len(rows[i]["text"]))
+    hop, sr = cfg.audio.stft.hop_length, cfg.audio.sampling_rate
+    checked = {}
+    for c0 in range(0, len(order), batch_size):
+        chunk = [rows[i] for i in order[c0:c0 + batch_size]]
+        results = synth.synthesize_batch(
+            [r["text"] for r in chunk], [r["audiotype"] for r in chunk],
+            e_control=[r["e"] * e_ctl for r in chunk],
+            d_control=[r["d"] * d_ctl for r in chunk], return_mel=False)
+        for r, res in zip(chunk, results):
+            name = "".join(ch if ch.isalnum() or ch in "-_." else "_" for ch in r["name"])
+            if f"{name}.wav" not in files:
+                raise AssertionError(f"{phase}: no {name}.wav among {sorted(files)}")
+            got = pcm(files[f"{name}.wav"])
+            if got.shape != (res.mel_len * hop,):
+                raise AssertionError(f"{phase}: {name}.wav has {got.shape} samples for "
+                                     f"mel_len {res.mel_len}")
+            steps = int(np.abs(got - pcm(wav_bytes(res.wav, sr))).max())
+            if steps > 1:
+                raise AssertionError(f"{phase}: {name}.wav differs from synthesize_batch by "
+                                     f"{steps} 16-bit steps")
+            checked[name] = {"mel_len": res.mel_len, "max_pcm16_steps": steps}
+    if rc != 0 or sorted(files) != sorted(f"{n}.wav" for n in checked):
+        raise AssertionError(f"{phase}: exit {rc}, files {sorted(files)}, rows {sorted(checked)}")
+    say(phase, card=card, rows=len(rows), batches=batches, kernel_launches=launches,
+        files=checked)
+    return checked
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -1695,6 +2036,8 @@ def main() -> int:
     phase_full(dev, probe["smi"], "11 melgan full width", "MelGAN", beside=full)
     phase_served(dev, probe["smi"])
     phase_train(dev, probe["smi"])
+    phase_bigvgan(dev, probe["smi"], full)
+    phase_chunked(dev, probe["smi"], served["postnet_mel"])
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"

@@ -128,5 +128,5 @@ def test_checkpoint_gives_jax_the_same_mels(trained):
 def test_bf16_compute_raises_before_building(trained):
     path, config = trained
     bf16 = config.replace(train=dataclasses.replace(config.train, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         Trainer(bf16, device="cpu")

@@ -9,7 +9,9 @@ through the port's own config, symbols and renderer; the port's
 may use the JAX package); `chip_smoke.py` (its demo golden phases, the
 construction of its full-width models, phase 7's and phase 8's inputs, and
 phase 12's HTTP server over the demo iSTFTNet-mel) and
-`tools/profile_torch.py` run; the train path runs (`cli format`,
+`tools/profile_torch.py` run; `cli synthesize-batch`, `Synthesizer.vocode`
+and chunked vocoding run on a BigVGAN config (its weights written by the
+parent process); the train path runs (`cli format`,
 `prepare-tg`, `preprocess`, `train` and `evaluate` on a tiny corpus, on the
 CPU, the trainer's loader with spawned workers), and so does
 `tools/acoustic_floor_torch.py` at a small size. A source scan of every port
@@ -71,6 +73,28 @@ for config, vocoder, family in (("config.json", "vocoder.npz", "HiFiGANGenerator
                                         device="cpu")
     r = synth.synthesize("パンパン", "drum")
     assert type(synth.vocoder).__name__ == family and r.wav.shape == (r.mel_len * 256,)
+"""
+
+# BIGVGAN_DEMO: a directory where the parent wrote a demo config with a tiny BigVGAN
+# vocoder, its weights (bigvgan.npz) and batch rows
+VOCODE = """
+import pathlib, numpy as np, torch
+from visual_onoma_to_wave_tpu_torch.cli import main
+from visual_onoma_to_wave_tpu_torch.config import load_config
+from visual_onoma_to_wave_tpu_torch.models.hifigan import vocoder_infer_chunked
+from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+work, acoustic = pathlib.Path(BIGVGAN_DEMO), "examples/checkpoints/demo/torch/acoustic.npz"
+assert main(["synthesize-batch", str(work / "config.json"), str(work / "rows.txt"),
+             str(work / "out"), "--acoustic", acoustic, "--vocoder", str(work / "bigvgan.npz"),
+             "--batch-size", "2", "--device", "cpu"]) == 0
+assert sorted(p.name for p in (work / "out").iterdir()) == ["00000.wav", "00001.wav", "clip.wav"]
+synth = Synthesizer.from_checkpoint(load_config(work / "config.json"), acoustic,
+                                    str(work / "bigvgan.npz"), device="cpu")
+assert type(synth.vocoder).__name__ == "BigVGANGenerator"
+wavs = synth.vocode(np.full((2, 10, 80), -5.0, np.float32), [10, 7])
+assert [w.shape for w in wavs] == [(2560,), (1792,)]
+assert vocoder_infer_chunked(synth.vocoder, torch.zeros(1, 40, 80), chunk_frames=16).shape == \
+    (1, 40 * 256)
 """
 
 # CORPUS: the path of a config file of a corpus the parent built
@@ -136,7 +160,8 @@ assert acoustic_floor_torch.main(["--small", "--steps", "2", "--val-step", "1", 
 
 
 # what chip_smoke's phases and the profiler build, on the CPU (phase 3's
-# models run on the golden inputs; phase 4's full-width models are only built)
+# models run on the golden inputs; the full-width models of phases 4, 6, 10,
+# 11 and 14 are only built)
 SMOKE = """
 import numpy as np, torch
 sys.path.insert(0, "tools")
@@ -155,12 +180,13 @@ for config, vocoder, golden in (("config_istftnet.json", "vocoder_istftnet_mel.n
     assert np.abs(out["wav"].numpy() - g["wav"]).max() < 1e-5
 assert torch.equal(apply_fused(gen, out["postnet_mel"]), out["wav"])
 launches = {}
-for vocoder in ("HiFi-GAN", "iSTFTNet-mel", "iSTFTNet", "MelGAN", "Vocos"):
+for vocoder in ("HiFi-GAN", "iSTFTNet-mel", "iSTFTNet", "MelGAN", "Vocos", "BigVGAN"):
     model, gen, batch = chip_smoke.icassp_b16("cpu", vocoder)
     assert batch["image_cells"].shape == (16, 8, 24, 102)
     launches[vocoder] = chip_smoke.per_call_launches(model, gen)
-assert chip_smoke.convnext_blocks(gen) == 8
-assert [launches[v]["mrf_stage"] for v in launches] == [4, 1, 2, 0, 0], launches
+assert chip_smoke.convnext_blocks(gen) == 0 and type(gen).__name__ == "BigVGANGenerator"
+assert [launches[v]["mrf_stage"] for v in launches] == [4, 1, 2, 0, 0, 0], launches
+assert [launches[v]["convnext_block"] for v in launches] == [0, 0, 0, 0, 8, 0], launches
 assert set(chip_smoke.launch_counts()) == {"flash_mha", "convnext_block", "convnext_trunk",
                                            "mel_frontend", "mrf_stage"}
 from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused
@@ -197,6 +223,33 @@ assert out["stats"]["batches"] >= 1 and out["stats"]["requests"] == 4
 """
 
 
+def write_bigvgan_demo(work: pathlib.Path) -> None:
+    """The demo config with a tiny BigVGAN as its vocoder, random weights for
+    it in the flax layout (`bigvgan.npz`) and three batch rows, under `work`."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from test_torch_layers import init_random
+    from visual_onoma_to_wave_tpu.models.vocoder import get_vocoder
+    from visual_onoma_to_wave_tpu_torch.bridge import save_npz
+
+    kwargs = {"upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
+              "resblock_dilations": [[1, 2]]}
+    cfg = json.loads((ROOT / "examples/checkpoints/demo/config.json").read_text())
+    cfg["model"].update(vocoder_model="BigVGAN", vocoder_kwargs=kwargs)
+    (work / "config.json").write_text(json.dumps(cfg))
+    gen = get_vocoder("BigVGAN", **{k: tuple(map(tuple, v)) if k == "resblock_dilations"
+                                    else tuple(v) if isinstance(v, list) else v
+                                    for k, v in kwargs.items()})
+    variables = init_random(gen, np.random.default_rng(0), jnp.zeros((1, 4, 80)), scale=0.05)
+    save_npz(work / "bigvgan.npz", jax.tree.map(np.asarray, variables))
+    (work / "rows.txt").write_text("パン\tdrum\nバウバウ\tbell\t1.2\nclip|bell|24||チパ\n",
+                                   encoding="utf-8")
+
+
 def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     """Run `code` in a fresh interpreter whose imports of `blocked` (and their
     submodules) raise ImportError. A finder on sys.meta_path does it rather
@@ -223,10 +276,11 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), SMOKE_SERVED),
     (NO_JAX + ("yaml",), TRAIN),
     (NO_JAX + ("yaml",), TOOL),
+    (NO_JAX + ("yaml",), VOCODE),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
         "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
-        "acoustic-floor-tool-without-jax"])
+        "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus
@@ -234,6 +288,9 @@ def test_port_imports_without(blocked, code, tmp_path):
         cfg = build_corpus(tmp_path, 6, n_labels=1)
         cfg.save(tmp_path / "config.json")
         code = code.replace("CORPUS", repr(str(tmp_path / "config.json")))
+    if "BIGVGAN_DEMO" in code:
+        write_bigvgan_demo(tmp_path)
+        code = code.replace("BIGVGAN_DEMO", repr(str(tmp_path)))
     proc = run_blocked(blocked, code)
     assert proc.returncode == 0, proc.stderr[-3000:]
 

@@ -600,3 +600,112 @@ def test_side_by_side_loss_curve_without_dropout(tmp_path, monkeypatch):
            for name, col in (("total_loss", 0), ("mel_loss", 2))}
     print("50-step means, relative gap to JAX's:", {k: v.tolist() for k, v in rel.items()})
     assert all(v.max() <= 0.01 for v in rel.values()), rel
+
+
+def _dropout_runs(tmp_path, seeds, steps: int, own_draw: bool) -> dict:
+    """Both packages side by side with dropout on (the config's rates, the
+    PostNet's fixed 0.5), the 2-layer hidden-64 model on the synthetic corpus
+    (2 x 14 clips, batch 16), `steps` steps per seed. A seed sets JAX's
+    initial draw (PRNGKey(seed)), each package's dropout generator (seed + 1,
+    as both trainers) and the batch order (seed + epoch, the same plans for
+    both); the port starts from its own draw (torch.manual_seed(seed)) with
+    `own_draw`, else from JAX's through the bridge. Returns {"jax", "port"}:
+    arrays (seed, step, [total, mel, duration, energy]) of the losses."""
+    import json
+    import pathlib
+
+    from test_torch_dataset import preprocessed_corpus
+
+    from visual_onoma_to_wave_tpu.cli import load_config as jax_load_config
+    from visual_onoma_to_wave_tpu.config import DatasetMetadata as JaxMetadata
+    from visual_onoma_to_wave_tpu.data.dataset import OnomaDataset as JaxDataset
+    from visual_onoma_to_wave_tpu_torch.config import DatasetMetadata
+    from visual_onoma_to_wave_tpu_torch.data.dataset import to_device
+
+    torch.set_num_threads(4)
+    path = pathlib.Path(preprocessed_corpus(tmp_path, n_per_class=14, batch_size=16))
+    cfg = json.loads(path.read_text())
+    cfg["model"] = {
+        "transformer": {"encoder_layer": 2, "decoder_layer": 2, "encoder_hidden": 64,
+                        "decoder_hidden": 64, "conv_filter_size": 256,
+                        "conv_kernel_size": [9, 1]},
+        "variance_predictor": {"filter_size": 64}, "postnet_channels": 64}
+    path.write_text(json.dumps(cfg))
+    jcfg, tcfg = jax_load_config(str(path)), load_config(str(path))
+    jds = JaxDataset("train.txt", jcfg, sort=True, drop_last=True)
+    jmeta, tmeta = JaxMetadata.load(jcfg.path.preprocessed), DatasetMetadata.load(
+        tcfg.path.preprocessed)
+    opt = dict(init_lr=1e-3, warmup_steps=40, grad_clip=1.0)
+    keys = ("total_loss", "mel_loss", "duration_loss", "energy_loss")
+    curves = {"jax": [], "port": []}
+    for seed in seeds:
+        jm = jvtts.VTTS.from_config(jcfg, jmeta, n_vocab=jds.n_vocab)
+        tx = make_optimizer(**opt)
+        first = next(jds.batches(shuffle=False))
+        jstate = create_train_state(jm, tx, jax.random.PRNGKey(seed), {
+            k: jnp.asarray(v) for k, v in first.items() if k not in ("names", "mel_lens")})
+        jstep, jrng = make_train_step(jm, tx), jax.random.PRNGKey(seed + 1)
+        torch.manual_seed(seed)
+        model = VTTS.from_config(tcfg, tmeta, n_vocab=jds.n_vocab)
+        if not own_draw:
+            model.load_state_dict(vtts_state_dict(jax.tree.map(
+                np.asarray, {"params": jstate.params, "batch_stats": jstate.batch_stats})))
+        tstate = TrainState(model, NoamAdam(model.parameters(), **opt),
+                            torch.Generator().manual_seed(seed + 1))
+        jc, tc, epoch = [], [], 0
+        while len(jc) < steps:
+            epoch += 1
+            for b in jds.batches(seed=seed + epoch):
+                jstate, jl = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()
+                                            if k not in ("names", "mel_lens")}, jrng)
+                tl = train_step(tstate, to_device(b, "cpu"))
+                jc.append([float(jl[k]) for k in keys])
+                tc.append([float(tl[k]) for k in keys])
+                if len(jc) == steps:
+                    break
+        curves["jax"].append(jc)
+        curves["port"].append(tc)
+    return {k: np.asarray(v) for k, v in curves.items()}
+
+
+@pytest.mark.slow  # ~10 min: 3 seeds x 400 steps of each package on the CPU
+def test_side_by_side_spread_with_dropout(tmp_path):
+    """The regime no other test compares: dropout on. The two packages draw
+    their masks from different generators by construction, so no step can
+    be held to a tolerance; their spread over seeds can. Three seeds, 400
+    steps, each starting both packages from JAX's initial draw (as the test
+    without dropout does; `_dropout_runs`): each 50-step mean of the port's
+    total and mel losses must lie inside JAX's range over its seeds, widened
+    by that range on each side. Each package's own draw is the next test's."""
+    runs = _dropout_runs(tmp_path, range(3), 400, own_draw=False)
+    jax_means, port_means = (runs[k][:, :, :2].reshape(3, 8, 50, 2).mean(axis=2)
+                             for k in ("jax", "port"))                  # (seed, window, 2)
+    lo, hi = jax_means.min(axis=0), jax_means.max(axis=0)
+    spread = hi - lo
+    print("50-step means (seed, window, [total, mel]); JAX:", jax_means.round(4).tolist(),
+          "port:", port_means.round(4).tolist())
+    print("port's distance outside JAX's seed range, in ranges:",
+          (np.maximum(port_means - hi, lo - port_means).max(axis=0) / spread).round(3).tolist())
+    assert np.all(port_means >= lo - spread) and np.all(port_means <= hi + spread)
+
+
+@pytest.mark.slow  # ~7 min: 10 seeds x 50 steps of each package on the CPU
+def test_first_steps_over_ten_seeds_with_own_draws(tmp_path):
+    """Each package from its own initial draw, dropout on, ten seeds, 50
+    steps (`_dropout_runs`): the first 50 steps' mean total loss is set by
+    the draw (the duration loss above all), so three seeds do not bound it;
+    over ten, the port's mean over seeds must lie within two standard errors
+    of JAX's (the initialisers' distributions are held leaf by leaf in
+    `test_initialisation_matches_flax`; this holds their effect on the
+    first steps of training)."""
+    runs = _dropout_runs(tmp_path, range(10), 50, own_draw=True)
+    window = {k: v.mean(axis=1) for k, v in runs.items()}                 # (seed, 4)
+    print("first 50 steps' mean [total, mel, duration, energy] per seed; JAX:",
+          window["jax"].round(3).tolist(), "port:", window["port"].round(3).tolist())
+    total = {k: v[:, 0] for k, v in window.items()}
+    se = np.sqrt(sum(v.var(ddof=1) / len(v) for v in total.values()))
+    gap = total["port"].mean() - total["jax"].mean()
+    print(f"mean total: JAX {total['jax'].mean():.3f} +- {total['jax'].std(ddof=1):.3f}, "
+          f"port {total['port'].mean():.3f} +- {total['port'].std(ddof=1):.3f}; "
+          f"gap {gap:.3f} = {gap / se:.2f} standard errors")
+    assert abs(gap) <= 2 * se

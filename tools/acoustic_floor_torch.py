@@ -4,6 +4,7 @@
 
     python3 tools/acoustic_floor_torch.py [--steps 10000] [--n-per-class 60]
         [--batch 16] [--val-step 2000] [--train-seed 0] [--work DIR] [--device cuda]
+        [--allow-tf32]
 
 Builds the port's synthetic corpus (`data/synthetic_corpus.py`, the
 examples' generator: 2 classes x --n-per-class clips, seed 0), formats it,
@@ -13,11 +14,21 @@ card), then trains the ICASSP geometry (34.30 M parameters, the default
 0, evaluating with the quality metrics (teacher-forced mel L1 and MCD,
 free-running DTW-MCD) every --val-step steps, to --steps. Prints one JSON
 line per phase: the corpus, each validation (the trajectory, with the
-steps/s since the last one), and the final metrics with the training wall
-time and the card's name and power limit. `--train-seed` seeds the
-training alone (initial weights, dropout, batch order) while the corpus and
-its val split stay those of seed 0. `--small` swaps in a model of a few
-layers and narrow widths (a CPU rehearsal of the tool, not a floor).
+steps/s since the last one, the validation losses as `val_*`, and the means
+of the train losses logged since the last validation as `train_*` with the
+mean and max pre-clip gradient norm), and the final metrics with the
+training wall time and the card's name and power limit.
+
+The run is deterministic: before CUDA is first touched the tool sets
+`CUBLAS_WORKSPACE_CONFIG=:4096:8`, cuDNN's deterministic mode (no benchmark
+search) and `torch.use_deterministic_algorithms(True)`, so that one seed
+gives one trajectory. `--allow-tf32` lets matmuls and cuDNN convolutions take
+TF32 (the trainer pins IEEE fp32 on the card otherwise): evidence only.
+
+`--train-seed` seeds the training alone (initial weights, dropout, batch
+order) while the corpus and its val split stay those of seed 0. `--small`
+swaps in a model of a few layers and narrow widths (a CPU rehearsal of the
+tool, not a floor).
 The work directory (default `build/acoustic_floor/`) is emptied first.
 """
 from __future__ import annotations
@@ -25,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -42,6 +54,43 @@ SMALL_MODEL = {
     "variance_predictor": {"filter_size": 32},
     "max_seq_len": 128, "postnet_channels": 32,
 }
+
+
+# what each validation line reports of the train log since the last one
+TRAIN_LOSS_KEYS = ("total_loss", "mel_loss", "postnet_mel_loss", "duration_loss",
+                   "energy_loss", "kurtosis_loss")
+
+
+def make_deterministic() -> None:
+    """cuBLAS, cuDNN and torch's own ops in their deterministic modes; call
+    before CUDA is first touched (cuBLAS reads its workspace setting when its
+    first handle is made)."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+
+
+def train_log_means(logged: list[dict]) -> dict:
+    """The means of the train losses over the log steps in `logged`, and the
+    mean and max of their pre-clip gradient norms, as `train_*` fields."""
+    out = {f"train_{k}": float(sum(d[k] for d in logged) / len(logged))
+           for k in TRAIN_LOSS_KEYS if logged and k in logged[0]}
+    norms = [d["grad_norm"] for d in logged]
+    out.update(train_log_steps=len(logged),
+               train_grad_norm_mean=float(sum(norms) / len(norms)) if norms else None,
+               train_grad_norm_max=float(max(norms)) if norms else None)
+    return out
+
+
+def val_fields(means: dict) -> dict:
+    """`Trainer.evaluate`'s means with its losses renamed `val_*` (the
+    quality metrics keep their names)."""
+    from visual_onoma_to_wave_tpu_torch.training.trainer import LOSS_KEYS
+
+    return {(f"val_{k}" if k in LOSS_KEYS else k): v for k, v in means.items()}
 
 
 def card_name() -> str:
@@ -65,8 +114,11 @@ def main(argv=None) -> int:
     ap.add_argument("--work", default=str(ROOT / "build" / "acoustic_floor"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--allow-tf32", action="store_true",
+                    help="let matmuls and cuDNN convs take TF32 (evidence only)")
     args = ap.parse_args(argv)
 
+    make_deterministic()
     import torch
 
     from visual_onoma_to_wave_tpu_torch.config import config_from_dict
@@ -104,11 +156,21 @@ def main(argv=None) -> int:
 
     trainer = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, seed=args.train_seed)),
                       device=args.device)
+    if args.allow_tf32:     # after the trainer's `pin_fp32`
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    print(json.dumps({"metric": "acoustic_floor_modes", "train_seed": args.train_seed,
+                      "allow_tf32": args.allow_tf32}), flush=True)
     last = {"t": time.perf_counter(), "step": 0}
+    logged: list[dict] = []
 
     def on_step(step, losses):
-        """Every --val-step steps: the steps/s since the last validation, then
-        the validation with the quality metrics, as one JSON line."""
+        """On a log step, keeps the step's losses (floats there). Every
+        --val-step steps: the steps/s since the last validation, the train
+        log's means since then, and the validation with the quality metrics,
+        as one JSON line."""
+        if step % cfg.train.step.log_step == 0:
+            logged.append(losses)
         if step % args.val_step:
             return
         if trainer.device.type == "cuda":
@@ -117,7 +179,9 @@ def main(argv=None) -> int:
         steps_per_s = (step - last["step"]) / (now - last["t"])
         means = trainer.evaluate(step, metrics=True)
         print(json.dumps({"metric": "acoustic_floor_val", "step": step,
-                          "steps_per_s": steps_per_s, **means}), flush=True)
+                          "steps_per_s": steps_per_s, **train_log_means(logged),
+                          **val_fields(means)}), flush=True)
+        logged.clear()
         last.update(t=time.perf_counter(), step=step)
 
     t0 = time.perf_counter()
@@ -128,7 +192,7 @@ def main(argv=None) -> int:
                       "train_seed": args.train_seed, "batch": args.batch,
                       "n_params": trainer.n_params(),
                       "train_wall_s": train_s, "steps_per_s": args.steps / train_s,
-                      **means}), flush=True)
+                      "allow_tf32": args.allow_tf32, **val_fields(means)}), flush=True)
     return 0
 
 

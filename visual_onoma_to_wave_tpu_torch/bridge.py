@@ -19,6 +19,10 @@ share HiFi-GAN's names (conv_pre, up_i, resblock_i_j, conv_post).
     MelGAN conv_pre / up_i / resblock_i_j / conv_post -> model.{idx}[.block.2|.block.4|.shortcut]
     Vocos params/<name>, params/block_i/<name> -> <name>, blocks.i.<name>,
                                               same shape (no reference layout)
+    BigVGAN conv_pre / up_i / conv_post       -> as HiFi-GAN's
+    BigVGAN amp_i_j/convs{1,2}_k              -> resblocks.{i*n+j}.convs{1,2}.k
+    BigVGAN amp_i_j/act{1,2}_k/log_alpha|log_beta, act_post/...
+                                              -> resblocks.r.acts{1,2}.k.<leaf>, act_post.<leaf>
 
 Trees travel between the frameworks as `.npz` files keyed by the
 '/'-joined flax path ("params/encoder/layer_0/slf_attn/w_qs/kernel").
@@ -300,6 +304,41 @@ def melgan_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def bigvgan_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """{"params"} of the JAX `BigVGANGenerator` -> state_dict of the port's.
+    Convs and transposed convs as `hifigan_state_dict`; the snake
+    parameters keep their names and shapes. Every leaf is consumed; one the
+    BigVGAN layout does not have raises ValueError."""
+    leaves = _Leaves(variables)
+    amp = [re.match(r"params/amp_\d+_(\d+)/", p) for p in leaves.flat]
+    n_kernels = 1 + max((int(m[1]) for m in amp if m), default=0)
+    sd: dict[str, torch.Tensor] = {}
+    for path in sorted(leaves.flat):
+        if m := re.fullmatch(r"params/(conv_pre|conv_post)_([wb])", path):
+            out = f"{m[1]}.{'weight' if m[2] == 'w' else 'bias'}"
+        elif m := re.fullmatch(r"params/up_(\d+)_([wb])", path):
+            out = f"ups.{m[1]}.{'weight' if m[2] == 'w' else 'bias'}"
+        elif m := re.fullmatch(r"params/amp_(\d+)_(\d+)/(convs[12])_(\d+)_([wb])", path):
+            r = int(m[1]) * n_kernels + int(m[2])
+            out = f"resblocks.{r}.{m[3]}.{m[4]}.{'weight' if m[5] == 'w' else 'bias'}"
+        elif m := re.fullmatch(r"params/amp_(\d+)_(\d+)/act([12])_(\d+)/(log_alpha|log_beta)",
+                               path):
+            r = int(m[1]) * n_kernels + int(m[2])
+            out = f"resblocks.{r}.acts{m[3]}.{m[4]}.{m[5]}"
+        elif m := re.fullmatch(r"params/act_post/(log_alpha|log_beta)", path):
+            out = f"act_post.{m[1]}"
+        else:
+            raise ValueError(f"bridge: unknown BigVGAN leaf {path!r}")
+        v = leaves.take(path)
+        if path.startswith("params/up_") and path.endswith("_w"):
+            v = v.permute(1, 2, 0).flip(-1)     # flipped (K, Cin, Cout) -> (Cin, Cout, K)
+        elif out.endswith(".weight"):
+            v = v.permute(2, 1, 0)              # (K, Cin, Cout) -> (Cout, Cin, K)
+        sd[out] = v.contiguous()
+    leaves.finish()
+    return sd
+
+
 def vocoder_state_dict(family: str, variables: dict) -> dict[str, torch.Tensor]:
     """The bridge of the configured vocoder family (`config.model.vocoder_model`)."""
     name = vocoder_family(family)
@@ -309,4 +348,6 @@ def vocoder_state_dict(family: str, variables: dict) -> dict[str, torch.Tensor]:
         return melgan_state_dict(variables)
     if name == "vocos":
         return vocos_state_dict(variables)
-    raise NotImplementedError(f"no weight bridge for vocoder family {family!r} yet (ROADMAP A8)")
+    if name in ("bigvgan", "bigvganbase", "bigvganlarge"):
+        return bigvgan_state_dict(variables)
+    raise ValueError(f"unknown vocoder family: {family!r}")

@@ -108,7 +108,7 @@ class ProcessLoader:
               shuffle: bool = True) -> Iterator[dict]:
         """Iterate one epoch of batches, in `OnomaDataset.batch_plan` order.
         (The JAX package's `local_slice`, one host's rows of each batch, is
-        multi-host training, not ported: ROADMAP A10.)"""
+        multi-host training, not ported: ROADMAP A5.)"""
         plan = self.ds.batch_plan(group_size, seed, shuffle)
         if self._pool is None or len(plan) < self.MIN_BATCHES_FOR_PROCS:
             yield from prefetch(self.ds.load_batch(chunk) for chunk in plan)

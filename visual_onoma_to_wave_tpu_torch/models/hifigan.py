@@ -11,7 +11,11 @@ On the card every ResBlock1 stage (V1, V2) is one launch of the fused MRF
 kernel (`ops/mrf.py`, `csrc/mrf.cu`), which beat the cuDNN chain at all four
 V1 stage shapes (PERF.md); ResBlock2 stages (V3) and every stage on the CPU
 run through the modules.
-`receptive_halo_frames` and chunked vocoding are not ported yet.
+
+`receptive_halo_frames` is the generator's one-sided receptive field in mel
+frames; `vocoder_infer_chunked` vocodes long or streamed mels in bounded
+memory through any generator with a known halo (HiFi-GAN, iSTFTNet, Vocos,
+BigVGAN), sample-exact against the full forward away from the true edges.
 """
 from __future__ import annotations
 
@@ -76,6 +80,12 @@ class HiFiGANGenerator(nn.Module):
                  resblock_dilations=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
                  resblock_type: str = "1", n_mels: int = 80):
         super().__init__()
+        # the architecture fields `receptive_halo_frames` reads
+        self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
+        self.resblock_type = resblock_type
         ch0 = upsample_initial_channel
         self.num_kernels = len(resblock_kernel_sizes)
         self.conv_pre = nn.Conv1d(n_mels, ch0, 7, padding=3)
@@ -108,3 +118,68 @@ class HiFiGANGenerator(nn.Module):
             x = acc / n
         x = self.conv_post(F.leaky_relu(x, 0.01))  # PyTorch's default slope
         return torch.tanh(x)[:, 0, :]
+
+
+def receptive_halo_frames(upsample_rates=(8, 8, 2, 2), upsample_kernel_sizes=(16, 16, 4, 4),
+                          resblock_kernel_sizes=(3, 7, 11),
+                          resblock_dilations=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                          pre_kernel: int = 7, post_kernel: int = 7,
+                          resblock_type: str = "1", aa_span: int = 0) -> int:
+    """One-sided receptive field of a HiFi-GAN generator in input mel frames:
+    a frame's output samples depend on at most this many frames on each
+    side, so chunked vocoding with this halo is sample-exact away from the
+    true edges. Per stage, from the output back: the MRF half-span at the
+    stage's rate (ResBlock1: (d + 1)(k - 1) / 2 per unit; ResBlock2:
+    d (k - 1) / 2), then the transposed conv's span moved to the input rate.
+    `aa_span` (BigVGAN): the samples each anti-aliased activation adds at its
+    own rate, once before `conv_post` and twice per ResBlock1 unit."""
+    second_conv = 0 if resblock_type == "2" else 1     # ResBlock1's d=1 conv per unit
+    halo = (post_kernel - 1) // 2 + aa_span
+    for u, k in zip(reversed(upsample_rates), reversed(upsample_kernel_sizes)):
+        halo += max(sum((d + second_conv) * (rk - 1) // 2 + 2 * aa_span for d in rd)
+                    for rk, rd in zip(resblock_kernel_sizes, resblock_dilations))
+        pad = (k - u) // 2
+        halo = -(-(halo + k - 1 - pad) // u)
+    return halo + (pre_kernel - 1) // 2
+
+
+def generator_halo_frames(gen: nn.Module) -> int:
+    """The generator's own `receptive_halo_frames` (iSTFTNet, Vocos, BigVGAN),
+    else, for HiFi-GAN, the function of its fields. A generator with neither
+    (MelGAN: the reference has no halo for it) raises ValueError."""
+    if hasattr(gen, "receptive_halo_frames"):
+        return gen.receptive_halo_frames()
+    if isinstance(gen, HiFiGANGenerator):
+        return receptive_halo_frames(gen.upsample_rates, gen.upsample_kernel_sizes,
+                                     gen.resblock_kernel_sizes, gen.resblock_dilations,
+                                     resblock_type=gen.resblock_type)
+    raise ValueError(f"chunked vocoding needs the generator's receptive halo, and "
+                     f"{type(gen).__name__} has none (HiFi-GAN, iSTFTNet, Vocos and BigVGAN "
+                     "have one)")
+
+
+@torch.inference_mode()
+def vocoder_infer_chunked(gen: nn.Module, mel: torch.Tensor, chunk_frames: int = 256,
+                          halo_frames: int | None = None) -> torch.Tensor:
+    """(B, T, M) mels -> (B, T * hop) waveforms in bounded memory: the mels,
+    zero-padded by `halo_frames` (default: the generator's receptive halo)
+    on each side and to a whole number of chunks, are cut into overlapping
+    windows of chunk_frames + 2 * halo_frames, vocoded as one batch of
+    B * n_chunks windows, and the centre chunk_frames * hop samples of each
+    are stitched. Sample-exact against the full forward away from the true
+    edges, where the two see different padding."""
+    halo = generator_halo_frames(gen)       # raises for a family without a halo
+    if halo_frames is not None:
+        halo = halo_frames
+    b, t, m = mel.shape
+    n_chunks = -(-t // chunk_frames)
+    t_pad = n_chunks * chunk_frames
+    padded = F.pad(mel, (0, 0, halo, t_pad - t + halo))
+    win = chunk_frames + 2 * halo
+    idx = (torch.arange(n_chunks, device=mel.device)[:, None] * chunk_frames
+           + torch.arange(win, device=mel.device)[None, :])            # (N, win)
+    windows = padded[:, idx, :]                                        # (B, N, win, M)
+    wav = gen(windows.reshape(b * n_chunks, win, m))
+    hop = wav.shape[-1] // win
+    core = wav.reshape(b, n_chunks, win * hop)[:, :, halo * hop:(halo + chunk_frames) * hop]
+    return core.reshape(b, t_pad * hop)[:, :t * hop]

@@ -1,23 +1,22 @@
-"""Vocoder family dispatch (port of visual_onoma_to_wave_tpu/models/vocoder.py).
+"""Vocoder family dispatch (port of visual_onoma_to_wave_tpu/models/vocoder.py
+and the inference entry of models/hifigan.py).
 
-HiFi-GAN (V1/V2/V3), MelGAN, iSTFTNet (C8C8I), iSTFTNet-mel (melrate) and
-Vocos are ported; BigVGAN raises `NotImplementedError` naming its ROADMAP
-item.
+Every family of the reference is ported: HiFi-GAN (V1/V2/V3), MelGAN,
+iSTFTNet (C8C8I), iSTFTNet-mel (melrate), Vocos and BigVGAN (base, large).
+`vocoder_infer` is the one mel -> waveform call for all of them.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
 from torch import nn
 
+from visual_onoma_to_wave_tpu_torch.models.bigvgan import BIGVGAN_PRESETS, BigVGANGenerator
 from visual_onoma_to_wave_tpu_torch.models.hifigan import HIFIGAN_PRESETS, HiFiGANGenerator
 from visual_onoma_to_wave_tpu_torch.models.istftnet import build_istftnet
-from visual_onoma_to_wave_tpu_torch.models.melgan import MelGANGenerator
+from visual_onoma_to_wave_tpu_torch.models.melgan import LN10, MelGANGenerator
 from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator
 
-_NOT_PORTED = {
-    "bigvgan": "ROADMAP A8 (vocoder families: BigVGAN)",
-    "bigvganbase": "ROADMAP A8 (vocoder families: BigVGAN)",
-    "bigvganlarge": "ROADMAP A8 (vocoder families: BigVGAN)",
-}
 # Vocos keys of the reference's config that select TPU serving options; the
 # port always runs its ConvNeXt kernel on the card and its iSTFT product in
 # IEEE fp32, at least as exact as either TPU setting
@@ -44,7 +43,21 @@ def get_vocoder(model: str = "HiFi-GAN", **kwargs) -> nn.Module:
         return build_istftnet("melrate" if name == "istftnetmel" else "c8c8i", **kwargs)
     if name == "vocos":
         return VocosGenerator(**{k: v for k, v in kwargs.items() if k not in _VOCOS_TPU_KEYS})
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"vocoder family {model!r} is not ported to PyTorch yet: {_NOT_PORTED[name]}")
+    if name in ("bigvgan", "bigvganbase", "bigvganlarge"):
+        preset = dict(BIGVGAN_PRESETS["large" if name.endswith("large") else "base"])
+        preset.update(kwargs)
+        return BigVGANGenerator(**preset)
     raise ValueError(f"unknown vocoder family: {model!r}")
+
+
+def vocoder_infer(gen: nn.Module, mels: torch.Tensor, lengths=None,
+                  hop_length: int = 256) -> tuple[torch.Tensor, np.ndarray]:
+    """(B, T, n_mels) natural-log mels -> (waveforms (B, T * hop), each
+    item's sample count: lengths x hop_length, or the whole width without
+    lengths). A MelGAN generator takes log10 mels, so it is fed mel / ln 10."""
+    wavs = gen(mels / LN10 if isinstance(gen, MelGANGenerator) else mels)
+    if lengths is not None:
+        sample_lens = np.asarray(lengths) * hop_length
+    else:
+        sample_lens = np.full((mels.shape[0],), wavs.shape[1])
+    return wavs, sample_lens

@@ -132,7 +132,7 @@ class VTTS(nn.Module):
         if config.train.compute_dtype not in ("float32", "fp32"):
             raise NotImplementedError(
                 f"compute_dtype {config.train.compute_dtype!r}: the port serves float32 "
-                "only so far (ROADMAP A2, bf16 compute)")
+                "only so far (ROADMAP A6, bf16 compute)")
         kwargs = dict(
             n_vocab=n_vocab,
             n_audiotype=metadata.n_audiotype if metadata else 10,

@@ -5,12 +5,12 @@
 
 `make_fused_infer` is the serving hot path: acoustic forward and vocoder as
 one call per padded batch. `Synthesizer` keeps the reference's surface
-(`synthesize`, `synthesize_batch`, `batch_signature`, `metadata`,
-`symbol_map`, `use_image`, `vocoder_params`, `config`), which the port's
-`serve.BatchingServer` serves. The host modules (config, renderer, symbols)
-are the port's own, imported where used so that the compute core here
-imports with torch and numpy alone. Not ported: the device mesh, the
-persistent compile cache, and the standalone `vocode`.
+(`synthesize`, `synthesize_batch`, `vocode`, `batch_signature`, `metadata`,
+`symbol_map`, `use_image`, `vocoder_params`, `config`, `mel_bucket`), which
+the port's `serve.BatchingServer` serves. The host modules (config,
+renderer, symbols) are the port's own, imported where used so that the
+compute core here imports with torch and numpy alone. Not ported: the
+device mesh and the persistent compile cache.
 """
 from __future__ import annotations
 
@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from visual_onoma_to_wave_tpu_torch.bridge import load_npz, vocoder_state_dict, vtts_state_dict
-from visual_onoma_to_wave_tpu_torch.models.melgan import LN10, MelGANGenerator
-from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
+from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder, vocoder_infer
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
 from visual_onoma_to_wave_tpu_torch.precision import pin_fp32
 
@@ -43,8 +42,7 @@ def make_fused_infer(model: VTTS, gen):
     d_control) -> outputs of model(...) plus "wav"`. `batch` holds
     audiotypes, texts, src_lens and, on the image path, image_cells, as
     tensors on the models' device; controls are scalars or per-item (B,).
-    A MelGAN generator takes log10 mels, so it is fed mel / ln 10 (the
-    reference's vocoder_infer, JAX synthesis.py:67; `vocode`)."""
+    The vocoder runs through `vocode` (MelGAN is fed mel / ln 10)."""
 
     @torch.inference_mode()
     def fused(batch: dict, e_control=1.0, d_control=1.0) -> dict:
@@ -66,9 +64,9 @@ def load_vocoder(config, path: str):
 
 
 def vocode(gen, mel: torch.Tensor) -> torch.Tensor:
-    """(B, T, n_mels) natural-log mels -> (B, samples) waveforms; a MelGAN
-    generator takes log10 mels, so it is fed mel / ln 10."""
-    return gen(mel / LN10 if isinstance(gen, MelGANGenerator) else mel)
+    """(B, T, n_mels) natural-log mels -> (B, samples) waveforms through
+    `models.vocoder.vocoder_infer` (which feeds a MelGAN mel / ln 10)."""
+    return vocoder_infer(gen, mel)[0]
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -102,6 +100,7 @@ class Synthesizer:
         # and module forwards are not re-entrant on one stream
         self._lock = threading.Lock()
         self.text_bucket = 4
+        self.mel_bucket = 64
 
     @property
     def vocoder_params(self):
@@ -197,6 +196,24 @@ class Synthesizer:
                     for k, v in out.items()}
 
     # ------------------------------------------------------------ synthesis
+    def vocode(self, mels: np.ndarray, mel_lens: Sequence[int]) -> list[np.ndarray]:
+        """Externally produced (B, T, n_mels) natural-log mels -> one waveform
+        of mel_len x hop samples per item. The batch is zero-padded to a
+        multiple of `mel_bucket` frames (the reference's bucketing, so the
+        samples equal its) and vocoded in one call; the text -> wav paths use
+        the fused call instead."""
+        if self.vocoder is None:
+            raise ValueError("vocode needs a vocoder: load one with the Synthesizer")
+        hop = self.config.audio.stft.hop_length
+        t = mels.shape[1]
+        t_pad = -(-t // self.mel_bucket) * self.mel_bucket
+        mels = np.pad(np.asarray(mels, np.float32), ((0, 0), (0, t_pad - t), (0, 0)))
+        with self._lock, torch.inference_mode():
+            wavs, lens = vocoder_infer(self.vocoder, torch.from_numpy(mels).to(self.device),
+                                       np.asarray(mel_lens, int), hop)
+        wavs = wavs.cpu().numpy()
+        return [wavs[i, :n] for i, n in enumerate(lens)]
+
     def synthesize(self, text: str, audiotype: str | int,
                    width_rates: Optional[Sequence[float]] = None,
                    e_control: float = 1.0, d_control: float = 1.0) -> SynthesisResult:

@@ -18,7 +18,7 @@ The train step runs no hand-written kernel (the attention kernel has no
 backward); evaluate and sample synthesis run the model in `.eval()`, where
 it does. On the card, TF32 is turned off before the first step
 (`precision.pin_fp32`). Not ported: the device mesh and multi-host data
-parallelism (ROADMAP A10), the compile cache, the profiler trace, and the
+parallelism (ROADMAP A5), the compile cache, the profiler trace, and the
 sample's figure (matplotlib); `train.compute_dtype: bfloat16` raises.
 """
 from __future__ import annotations
@@ -58,7 +58,7 @@ class Trainer:
         if config.train.compute_dtype not in ("float32", "fp32"):
             raise NotImplementedError(
                 f"compute_dtype {config.train.compute_dtype!r}: the port trains float32 "
-                "only so far (ROADMAP A2, bf16 compute)")
+                "only so far (ROADMAP A6, bf16 compute)")
         self.device = resolve_device(device)
         self.config = config
         self.loader_workers = loader_workers
