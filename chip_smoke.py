@@ -108,9 +108,20 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      cut to their lengths, against the fused path's waveforms away from
      their last halo x hop samples; then `cli synthesize-batch` on the card
      with the demo checkpoint (5 rows, 2 batches), each file of mel_len x
-     hop samples and within one 16-bit step of `synthesize_batch`.
+     hop samples and within one 16-bit step of `synthesize_batch`;
+  16. quality gate and demo server: `tools/eval_quality_demo_torch.py`'s
+     functions on the card (the demo corpus of 2 x 60 clips built with the
+     mel kernel, `evaluate(metrics=True)` of the demo acoustic model with the
+     attention kernel, copy-synthesis through the committed HiFi-GAN and
+     iSTFTNet-mel with the MRF kernel and Vocos with the ConvNeXt block
+     kernel, launches counted for each), then the same gate on the CPU, and
+     every gate number of the card within 1e-2 relative of the CPU's; then
+     the port's `DemoServer` on the demo checkpoint answering four
+     /api/synthesize requests after an untimed cold one (a wav of
+     mel_frames x 256 samples each, the strip and the mel figure as PNGs;
+     attention and MRF launches counted).
 
-Each path (phases 4-7, 9-15) is driven with every launch count set to 0 just
+Each path (phases 4-7, 9-16) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
@@ -2016,6 +2027,187 @@ def check_synthesize_batch(card: str, cfg, synth) -> dict:
     return checked
 
 
+# phase 16: the demo quality gate (BASELINE.md's demo row) through the
+# port's tool on the card against the same tool on the CPU in this run: B3
+# feeds the corpus with a float64 FFT, and B1 / B2 / B4 multiply in 3xTF32
+# where the CPU runs IEEE fp32. Every gate number is held to 1e-4 relative:
+# the card's differ from the CPU's by at most 1.42e-6 (NVIDIA H100 80GB
+# HBM3, 700 W), and a fault in some tiles or frames that moves a mean over 3
+# to 6 items by less would still show in the direct check of one vocoded
+# waveform against the CPU's (VOCODE_ATOL). The CPU's equal the reference
+# tool's within 1e-3 (tests/test_torch_quality_gate.py).
+GATE_RTOL = 1e-4
+GATE_KEYS = {"acoustic": ("mel_l1", "mcd", "mcd_dtw"), "vocoder": ("mel_l1", "mcd_db", "mrstft")}
+DEMO_REQUESTS = ({"text": "パンパン", "audiotype": "drum", "width_rates": [1.0, 0.5, 1.5, 0.5]},
+                 {"text": "カンコン", "audiotype": "bell"},
+                 {"text": "ドンドン", "audiotype": "drum", "d_control": 1.3, "e_control": 0.8},
+                 {"text": "チリリン", "audiotype": "bell", "width_rates": [2.0, 1.0, 1.0, 1.0]})
+
+
+def gate_tool():
+    """`tools/eval_quality_demo_torch.py` as a module."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import eval_quality_demo_torch
+
+    return eval_quality_demo_torch
+
+
+def phase_quality_gate(dev, card: str) -> dict:
+    """The gate's three paths on the card, each with its launches counted:
+    the corpus build (B3), the acoustic model's `evaluate(metrics=True)` (B1)
+    and each committed vocoder's copy-synthesis (B2 for HiFi-GAN and
+    iSTFTNet-mel, B4 for Vocos); then the whole gate on the CPU, and every
+    gate number of the card within GATE_RTOL of the CPU's. The launches are
+    worked out from the inputs: one B3 per batch of BATCH_CLIPS clips of a
+    label, two passes of every FFT block's B1 per val batch (teacher-forced
+    and free-running), one B2 per MRF stage and one B4 per ConvNeXt block
+    per clip. Each vocoder's waveform of the first clip is also held to the
+    same generator's on the CPU within VOCODE_ATOL."""
+    import tempfile
+    import time
+
+    from visual_onoma_to_wave_tpu_torch.config import config_from_dict
+    from visual_onoma_to_wave_tpu_torch.data.dataset import OnomaDataset
+    from visual_onoma_to_wave_tpu_torch.data.preprocess import BATCH_CLIPS
+    from visual_onoma_to_wave_tpu_torch.models.vocoder import vocoder_infer
+
+    gate = gate_tool()
+    phase = "16 quality gate"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        work = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        zero_launch_counts()
+        cfg_dict = gate.build_gate_corpus(work / "card", str(dev))
+        corpus = launch_counts()
+        cfg = config_from_dict(cfg_dict)
+        # pass 1's clips: --save-audio writes one waveform each (the
+        # augmented copies of pass 3 have mels but no waveform)
+        clips = [len(list(d.glob("*.npy")))
+                 for d in sorted((work / "card" / "preprocessed" / "audio").iterdir())]
+        expect_launches(phase + " corpus", corpus,
+                        {"mel_frontend": sum(-(-n // BATCH_CLIPS) for n in clips)})
+        zero_launch_counts()
+        card_means = gate.acoustic_quality(cfg_dict, DEMO / "torch" / "acoustic.npz", str(dev))
+        evaluate = launch_counts()
+        val_batches = len(OnomaDataset("val.txt", cfg).batch_plan(1, shuffle=False))
+        blocks = cfg.model.transformer.encoder_layer + cfg.model.transformer.decoder_layer
+        expect_launches(phase + " evaluate", evaluate, {"flash_mha": 2 * blocks * val_batches})
+        logmel = gate.make_logmel(cfg.audio, str(dev))
+        gt = gate.ground_truth(work / "card" / "preprocessed", cfg.audio.stft.hop_length, logmel)
+        card_means["vocoders"], vocoder_launches = {}, {}
+        wav_errs = {}
+        for (tag, family, gen), (_, _, cpu_gen) in zip(gate.committed_vocoders(),
+                                                       gate.committed_vocoders()):
+            zero_launch_counts()
+            score = gate.make_scorer(gen, gt, logmel, str(dev))()
+            vocoder_launches[tag] = launch_counts()
+            expect_launches(f"{phase} {tag}", vocoder_launches[tag],
+                            {"mrf_stage": mrf_stages(gen) * len(gt),
+                             "convnext_block": convnext_blocks(gen) * len(gt)})
+            card_means["vocoders"][tag] = {"family": family, "clips": len(gt), **score}
+            mel = torch.from_numpy(np.ascontiguousarray(gt[0][1].T))[None]
+            with torch.no_grad():
+                got = vocoder_infer(gen, mel.to(dev))[0].cpu()
+                want = vocoder_infer(cpu_gen.eval(), mel)[0]
+            scale = float(want.abs().max())
+            wav_errs[tag] = {"max_abs_err": float((got - want).abs().max()),
+                             "max_abs_cpu": scale}
+            check_vocode(f"{phase} {tag} waveform card vs cpu", wav_errs[tag]["max_abs_err"],
+                         scale)
+        gate.assert_finite(card_means)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_means = gate.run_gate(work / "cpu", "cpu")
+        cpu_s = time.perf_counter() - t0
+    rel = {k: abs(card_means[k] - cpu_means[k]) / abs(cpu_means[k])
+           for k in GATE_KEYS["acoustic"]}
+    for tag, scores in cpu_means["vocoders"].items():
+        rel.update({f"{tag}.{k}": abs(card_means["vocoders"][tag][k] - scores[k]) / abs(scores[k])
+                    for k in GATE_KEYS["vocoder"]})
+    worst = max(rel.values())
+    if worst > GATE_RTOL:
+        raise AssertionError(f"{phase}: card against CPU, relative errors {rel}")
+    say(phase, card=card, gate_card=card_means, gate_cpu=cpu_means, max_rel_err=worst,
+        rtol=GATE_RTOL, corpus_kernel_launches=corpus, evaluate_kernel_launches=evaluate,
+        vocoder_kernel_launches=vocoder_launches, waveform_card_vs_cpu=wav_errs,
+        wav_atol=VOCODE_ATOL, card_s=card_s, cpu_s=cpu_s)
+    return {"card": card_means, "cpu": cpu_means}
+
+
+def phase_demo_server(dev, card: str) -> dict:
+    """The port's `DemoServer` over the demo checkpoint (HiFi-GAN) on the
+    card: after one untimed cold request, four /api/synthesize requests in
+    turn, each 200 with a wav of mel_frames x 256 samples, the rendered
+    strip and the mel figure as PNGs; every request launches B1 per FFT
+    block and B2 per MRF stage."""
+    import base64
+    import http.client
+    import io
+    import time
+    import wave
+
+    from PIL import Image
+
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.demo_server import DemoServer
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+    from visual_onoma_to_wave_tpu_torch.utils.plotting import FIG_WIDTH, PANEL_HEIGHT
+
+    phase = "16 demo server"
+    cfg = load_config(DEMO / "config.json")
+    cfg = cfg.replace(path=cfg.path.__class__(
+        corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
+        ckpt="", log="", result=""))
+    synth = Synthesizer.from_checkpoint(cfg, str(DEMO / "torch" / "acoustic.npz"),
+                                        str(DEMO / "torch" / "vocoder.npz"), device=dev)
+    srv = DemoServer(synth, port=0)
+
+    def post(req: dict) -> tuple[int, dict, float]:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", "/api/synthesize", json.dumps(req),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+        finally:
+            conn.close()
+        ms = (time.perf_counter() - t0) * 1e3
+        return resp.status, (json.loads(body) if resp.status == 200 else body.decode()), ms
+
+    srv.start()
+    try:
+        status, cold, _ = post(DEMO_REQUESTS[0])     # builds and autotunes: not timed
+        if status != 200:
+            raise AssertionError(f"{phase}: the cold request answered {status}: {cold}")
+        zero_launch_counts()
+        answers = [post(req) for req in DEMO_REQUESTS]
+        launches = launch_counts()
+    finally:
+        srv.stop()
+    served = []
+    for req, (status, r, ms) in zip(DEMO_REQUESTS, answers):
+        if status != 200:
+            raise AssertionError(f"{phase}: {req} answered {status}: {r}")
+        with wave.open(io.BytesIO(base64.b64decode(r["wav_b64"])), "rb") as w:
+            n, pcm = w.getnframes(), np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        fig = Image.open(io.BytesIO(base64.b64decode(r["mel_b64"])))
+        strip = Image.open(io.BytesIO(base64.b64decode(r["image_b64"])))
+        if (len(r["durations"]) != len(req["text"]) or n != r["mel_frames"] * HOP
+                or not pcm.any() or fig.mode != "RGB" or fig.size != (FIG_WIDTH, PANEL_HEIGHT)
+                or strip.height != synth.metadata.image_height):
+            raise AssertionError(f"{phase}: {req} gave {n} samples for {r['mel_frames']} "
+                                 f"frames, figure {fig.mode} {fig.size}, strip {strip.size}")
+        served.append({"mel_frames": r["mel_frames"], "samples": n, "host_ms": ms})
+    if dev.type == "cuda":
+        per_call = per_call_launches(synth.model, synth.vocoder)
+        expect_launches(phase, launches,
+                        {k: v * len(DEMO_REQUESTS) for k, v in per_call.items()})
+    say(phase, card=card, requests=len(DEMO_REQUESTS), answered=served,
+        kernel_launches=launches)
+    return {"launches": launches, "answered": served}
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -2038,6 +2230,8 @@ def main() -> int:
     phase_train(dev, probe["smi"])
     phase_bigvgan(dev, probe["smi"], full)
     phase_chunked(dev, probe["smi"], served["postnet_mel"])
+    phase_quality_gate(dev, probe["smi"])
+    phase_demo_server(dev, probe["smi"])
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"

@@ -7,15 +7,18 @@ demo checkpoint on the CPU with its HiFi-GAN, its Vocos and its iSTFTNet-mel
 through the port's own config, symbols and renderer; the port's
 `Preprocessor` preprocesses a tiny corpus (built by the parent process, which
 may use the JAX package); `chip_smoke.py` (its demo golden phases, the
-construction of its full-width models, phase 7's and phase 8's inputs, and
-phase 12's HTTP server over the demo iSTFTNet-mel) and
-`tools/profile_torch.py` run; `cli synthesize-batch`, `Synthesizer.vocode`
+construction of its full-width models, phase 7's and phase 8's inputs,
+phase 12's HTTP server over the demo iSTFTNet-mel and phase 16's demo
+server) and `tools/profile_torch.py` run; `cli synthesize-batch`, `Synthesizer.vocode`
 and chunked vocoding run on a BigVGAN config (its weights written by the
 parent process); the train path runs (`cli format`,
 `prepare-tg`, `preprocess`, `train` and `evaluate` on a tiny corpus, on the
 CPU, the trainer's loader with spawned workers), and so does
-`tools/acoustic_floor_torch.py` at a small size. A source scan of every port
-module and those scripts backs this up for imports inside functions.
+`tools/acoustic_floor_torch.py` at a small size; `cli demo` starts the demo
+server, answers one request and stops; `tools/eval_quality_demo_torch.py`'s
+scoring functions score the three committed vocoders on a clip. A source
+scan of every port module (`demo_server.py` and `utils/plotting.py`
+included) and those scripts backs this up for imports inside functions.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "visual_onoma_to_wave_tpu_torch"
 SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
-           ROOT / "tools" / "acoustic_floor_torch.py")
+           ROOT / "tools" / "acoustic_floor_torch.py", ROOT / "tools" / "eval_quality_demo_torch.py")
+# port modules the source scans must reach (added with the demo server)
+SCANNED = ("demo_server.py", "utils/plotting.py")
 JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 NO_JAX = JAX_STACK + (JAX_PACKAGE,)
@@ -159,6 +164,62 @@ assert acoustic_floor_torch.main(["--small", "--steps", "2", "--val-step", "1", 
 """
 
 
+# `cli demo` on the demo checkpoint: the server runs in a thread, answers one
+# request and is shut down
+DEMO = """
+import base64, http.client, io, json, socket, threading, time, wave
+import visual_onoma_to_wave_tpu_torch.demo_server as demo_server
+from visual_onoma_to_wave_tpu_torch.cli import main
+started, serve = [], demo_server.DemoServer.serve_forever
+def serve_forever(self):
+    started.append(self)
+    serve(self)
+demo_server.DemoServer.serve_forever = serve_forever
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+d = "examples/checkpoints/demo"
+t = threading.Thread(target=main, args=(["demo", d + "/config.json", "--acoustic",
+                     d + "/torch/acoustic.npz", "--vocoder", d + "/torch/vocoder.npz",
+                     "--port", str(port), "--device", "cpu"],), daemon=True)
+t.start()
+for _ in range(600):
+    if started:
+        break
+    time.sleep(0.1)
+conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+conn.request("POST", "/api/synthesize", json.dumps({"text": "パンパン", "audiotype": "drum"}),
+             {"Content-Type": "application/json"})
+resp = conn.getresponse()
+r = json.loads(resp.read())
+assert resp.status == 200
+with wave.open(io.BytesIO(base64.b64decode(r["wav_b64"])), "rb") as w:
+    assert w.getnframes() == r["mel_frames"] * 256
+started[0].httpd.shutdown()
+t.join(timeout=30)
+assert not t.is_alive()
+"""
+
+# the quality gate's scoring on one random clip saved as a preprocessed val row
+GATE = """
+import json, pathlib, tempfile, numpy as np
+sys.path.insert(0, "tools")
+import eval_quality_demo_torch as gate
+from visual_onoma_to_wave_tpu_torch.config import load_config
+pre = pathlib.Path(tempfile.mkdtemp())
+(pre / "audio" / "drum").mkdir(parents=True)
+(pre / "val.txt").write_text("clip|drum|24||パン\\n")
+np.save(pre / "audio" / "drum" / "clip.npy",
+        np.random.default_rng(0).uniform(-0.5, 0.5, 5000).astype(np.float32))
+audio = load_config(gate.DEMO / "config.json").audio
+out = gate.score_committed_vocoders(gate.DEMO, pre, audio, "cpu")
+assert sorted(out) == ["hifigan", "istftnet_mel", "vocos"] and out["vocos"]["clips"] == 1
+gate.assert_finite(out)
+stats = gate.DEMO / "preprocessed" / "stats.json"
+gate.check_stats(stats, stats)
+"""
+
+
 # what chip_smoke's phases and the profiler build, on the CPU (phase 3's
 # models run on the golden inputs; the full-width models of phases 4, 6, 10,
 # 11 and 14 are only built)
@@ -214,12 +275,15 @@ chip_smoke.check_path_batch("cpu", (exact, *plain[1:]), plain, exact)
 """
 
 
-# phase 12's HTTP server renders glyphs (PIL): only JAX and its package are blocked
+# the HTTP servers of phases 12 and 16 render glyphs (PIL): only JAX and its
+# package are blocked
 SMOKE_SERVED = """
 import torch
 import chip_smoke
 out = chip_smoke.phase_served(torch.device("cpu"), "cpu")
 assert out["stats"]["batches"] >= 1 and out["stats"]["requests"] == 4
+out = chip_smoke.phase_demo_server(torch.device("cpu"), "cpu")
+assert len(out["answered"]) == 4
 """
 
 
@@ -277,10 +341,13 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), TRAIN),
     (NO_JAX + ("yaml",), TOOL),
     (NO_JAX + ("yaml",), VOCODE),
+    (NO_JAX + ("yaml",), DEMO),
+    (NO_JAX + ("yaml",), GATE),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
         "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
-        "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax"])
+        "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax",
+        "cli-demo-without-jax", "quality-gate-scoring-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus
@@ -296,6 +363,7 @@ def test_port_imports_without(blocked, code, tmp_path):
 
 
 def test_no_jax_import_in_port_sources():
+    assert all((PORT / name).exists() for name in SCANNED)
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b", re.M)
     offenders = [str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), *SCRIPTS]
                  if pattern.search(p.read_text(encoding="utf-8"))]
@@ -305,6 +373,7 @@ def test_no_jax_import_in_port_sources():
 def test_no_jax_package_import_in_scripts():
     """The scripts and every port module (the acceptance check's grep:
     `^\\s*(from|import) visual_onoma_to_wave_tpu(\\.|\\s|$)`)."""
+    assert all((PORT / name).exists() for name in SCANNED)
     pattern = re.compile(rf"^\s*(import|from)\s+{JAX_PACKAGE}(\.|\s|$)", re.M)
     offenders = [str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), *SCRIPTS]
                  if pattern.search(p.read_text(encoding="utf-8"))]

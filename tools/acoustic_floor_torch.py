@@ -4,16 +4,18 @@
 
     python3 tools/acoustic_floor_torch.py [--steps 10000] [--n-per-class 60]
         [--batch 16] [--val-step 2000] [--train-seed 0] [--work DIR] [--device cuda]
-        [--allow-tf32]
+        [--width {icassp,demo,small}] [--allow-tf32] [--loader-workers N]
+        [--threads N]
 
 Builds the port's synthetic corpus (`data/synthetic_corpus.py`, the
 examples' generator: 2 classes x --n-per-class clips, seed 0), formats it,
 writes its TextGrids and preprocesses it on --device (the mel kernel on the
-card), then trains the ICASSP geometry (34.30 M parameters, the default
-`Config`) at --batch in fp32 with warm_up_step 400, max_mel_len 512 and seed
-0, evaluating with the quality metrics (teacher-forced mel L1 and MCD,
-free-running DTW-MCD) every --val-step steps, to --steps. Prints one JSON
-line per phase: the corpus, each validation (the trajectory, with the
+card), then trains the model of --width (default `icassp`: the ICASSP
+geometry, 34.30 M parameters, the default `Config`) at --batch in fp32 with
+warm_up_step 400, max_mel_len 512 and seed 0, evaluating with the quality
+metrics (teacher-forced mel L1 and MCD, free-running DTW-MCD) every
+--val-step steps, to --steps. Prints one JSON line per phase: the corpus,
+each validation (the trajectory, with the
 steps/s since the last one, the validation losses as `val_*`, and the means
 of the train losses logged since the last validation as `train_*` with the
 mean and max pre-clip gradient norm), and the final metrics with the
@@ -26,9 +28,11 @@ gives one trajectory. `--allow-tf32` lets matmuls and cuDNN convolutions take
 TF32 (the trainer pins IEEE fp32 on the card otherwise): evidence only.
 
 `--train-seed` seeds the training alone (initial weights, dropout, batch
-order) while the corpus and its val split stay those of seed 0. `--small`
-swaps in a model of a few layers and narrow widths (a CPU rehearsal of the
-tool, not a floor).
+order) while the corpus and its val split stay those of seed 0. `--width
+demo` trains the demo checkpoint's geometry (`data/synthetic_corpus.py::
+DEMO_MODEL`: hidden 128, 2 + 2 FFT layers, 3.98 M parameters), a width the
+CPU trains; `--width small` (alias `--small`) a model of one layer each and
+hidden 32 (a CPU rehearsal of the tool, not a floor).
 The work directory (default `build/acoustic_floor/`) is emptied first.
 """
 from __future__ import annotations
@@ -46,7 +50,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# the rehearsal model of --small
+from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import DEMO_MODEL  # noqa: E402
+
+# the rehearsal model of --width small
 SMALL_MODEL = {
     "transformer": {"encoder_layer": 1, "decoder_layer": 1, "encoder_hidden": 32,
                     "decoder_hidden": 32, "conv_filter_size": 64, "conv_kernel_size": [3, 1]},
@@ -55,6 +61,9 @@ SMALL_MODEL = {
     "max_seq_len": 128, "postnet_channels": 32,
 }
 
+
+# the model block of each --width (None: the default `Config`, the ICASSP geometry)
+WIDTHS = {"icassp": None, "demo": DEMO_MODEL, "small": SMALL_MODEL}
 
 # what each validation line reports of the train log since the last one
 TRAIN_LOSS_KEYS = ("total_loss", "mel_loss", "postnet_mel_loss", "duration_loss",
@@ -113,13 +122,22 @@ def main(argv=None) -> int:
     ap.add_argument("--train-seed", type=int, default=0)
     ap.add_argument("--work", default=str(ROOT / "build" / "acoustic_floor"))
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--small", action="store_true")
+    ap.add_argument("--width", choices=tuple(WIDTHS), default="icassp")
+    ap.add_argument("--small", dest="width", action="store_const", const="small",
+                    help="alias of --width small")
+    ap.add_argument("--loader-workers", type=int, default=None,
+                    help="batch-loader worker processes (the trainer's default without it)")
+    ap.add_argument("--threads", type=int, default=None,
+                    help="torch's intra-op threads (for runs side by side on the CPU)")
     ap.add_argument("--allow-tf32", action="store_true",
                     help="let matmuls and cuDNN convs take TF32 (evidence only)")
     args = ap.parse_args(argv)
 
     make_deterministic()
     import torch
+
+    if args.threads is not None:
+        torch.set_num_threads(args.threads)
 
     from visual_onoma_to_wave_tpu_torch.config import config_from_dict
     from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
@@ -135,8 +153,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     raw_root, ono_root = build_corpus(work, args.n_per_class)
     cfg_dict = work_config(work, ono_root, args.steps)
-    if args.small:
-        cfg_dict["model"] = SMALL_MODEL
+    if WIDTHS[args.width] is not None:
+        cfg_dict["model"] = WIDTHS[args.width]
     cfg_dict["train"]["optimizer"]["batch_size"] = args.batch
     # the tool evaluates itself, from the trainer's `on_step` callback
     cfg_dict["train"]["step"].update(val_step=10 ** 9, save_step=args.steps,
@@ -155,12 +173,12 @@ def main(argv=None) -> int:
           flush=True)
 
     trainer = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, seed=args.train_seed)),
-                      device=args.device)
+                      device=args.device, loader_workers=args.loader_workers)
     if args.allow_tf32:     # after the trainer's `pin_fp32`
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
     print(json.dumps({"metric": "acoustic_floor_modes", "train_seed": args.train_seed,
-                      "allow_tf32": args.allow_tf32}), flush=True)
+                      "width": args.width, "allow_tf32": args.allow_tf32}), flush=True)
     last = {"t": time.perf_counter(), "step": 0}
     logged: list[dict] = []
 
@@ -189,8 +207,8 @@ def main(argv=None) -> int:
     train_s = time.perf_counter() - t0
     means = trainer.evaluate(metrics=True)
     print(json.dumps({"metric": "acoustic_floor_quality", "device": card, "steps": args.steps,
-                      "train_seed": args.train_seed, "batch": args.batch,
-                      "n_params": trainer.n_params(),
+                      "train_seed": args.train_seed, "width": args.width,
+                      "batch": args.batch, "n_params": trainer.n_params(),
                       "train_wall_s": train_s, "steps_per_s": args.steps / train_s,
                       "allow_tf32": args.allow_tf32, **val_fields(means)}), flush=True)
     return 0

@@ -10,7 +10,8 @@ iSTFTNet (`csrc/mrf.cu`), the fused mel frontend (`csrc/mel_frontend.cu`)
 and the ConvNeXt block and trunk of Vocos (`csrc/convnext.cu`). The host
 modules (config, symbols, audio I/O, renderer, labels, alignment,
 formatting, preprocessing passes, the training dataset and loader, metrics,
-checkpoints and logs, the HTTP server) are the port's own copies.
+checkpoints and logs, the HTTP server, the browser demo `demo_server` with
+its mel figure drawn by PIL) are the port's own copies.
 
 This package imports `torch` and never `jax`, and nothing of the JAX package.
 """

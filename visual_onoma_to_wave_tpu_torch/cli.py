@@ -16,6 +16,8 @@ serving as subcommands.
     python -m visual_onoma_to_wave_tpu_torch.cli synthesize-batch <config> <rows> <out_dir> \
         --acoustic acoustic.npz --vocoder vocoder.npz [--batch-size 16] [--device cpu]
     python -m visual_onoma_to_wave_tpu_torch.cli serve <config> --acoustic ... [--vocoder ...]
+    python -m visual_onoma_to_wave_tpu_torch.cli demo <config> [--acoustic acoustic.npz |
+        --restore-step N] [--vocoder vocoder.npz] [--host 127.0.0.1] [--port 7860]
 
 Weights are `.npz` trees: those written by `examples/export_demo_for_torch.py`,
 or a training checkpoint's `<ckpt>/<step>/acoustic.npz`. Configs load through
@@ -140,6 +142,32 @@ def cmd_serve(args) -> None:
     server.serve_forever()
 
 
+def acoustic_checkpoint(config, acoustic: str | None, restore_step: int | None) -> str:
+    """`acoustic` if given, else the training checkpoint's
+    `<path.ckpt>/<step>/acoustic.npz` at `restore_step` (None or -1: the latest)."""
+    if acoustic is not None:
+        return acoustic
+    from visual_onoma_to_wave_tpu_torch.utils.checkpoint import ACOUSTIC, CheckpointManager
+
+    ckpt = CheckpointManager(config.path.ckpt)
+    step = ckpt.latest_step() if restore_step in (None, -1) else restore_step
+    if step is None or step not in ckpt.all_steps():
+        raise SystemExit(f"no --acoustic and no checkpoint at step {step} under {ckpt.dir}")
+    return str(ckpt.dir / str(step) / ACOUSTIC)
+
+
+def cmd_demo(args) -> None:
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.demo_server import DemoServer
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+
+    cfg = load_config(args.config)
+    synth = Synthesizer.from_checkpoint(
+        cfg, acoustic=acoustic_checkpoint(cfg, args.acoustic, args.restore_step),
+        vocoder=args.vocoder, device=args.device)
+    DemoServer(synth, host=args.host, port=args.port).serve_forever()
+
+
 def cmd_preprocess(args) -> None:
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
@@ -233,6 +261,20 @@ def main(argv=None):
     s.add_argument("--request-timeout", type=float, default=30.0)
     s.add_argument("--pipeline-depth", type=int, default=2)
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("demo", help="interactive browser demo (prediction.ipynb GUI)")
+    s.add_argument("config")
+    s.add_argument("--vocoder", default=None, help="vocoder weights (.npz) for audio playback")
+    s.add_argument("--acoustic", default=None,
+                   help="acoustic weights (.npz); default: the training checkpoint under "
+                        "path.ckpt at --restore-step")
+    s.add_argument("--restore-step", type=int, default=None,
+                   help="training checkpoint step without --acoustic (default: the latest)")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=7860)
+    s.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' fails when no GPU is visible")
+    s.set_defaults(fn=cmd_demo)
 
     s = sub.add_parser("preprocess", help="formatted corpus -> training features (03_preprocess)")
     s.add_argument("config")

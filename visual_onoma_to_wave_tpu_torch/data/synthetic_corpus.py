@@ -7,7 +7,8 @@ sound class sets the envelope (drum = damped noise-burst strike, bell =
 slow-decay harmonic stack), and per-character durations vary per clip, so
 the glyph widths carry information. `build_corpus` writes it in the raw
 RWCP-SSD layout that `data.formatting` reads; `work_config` is the config
-of a run on it. Nothing here needs a corpus download.
+of a run on it, and `DEMO_MODEL` the model block of the committed demo
+checkpoint trained on it. Nothing here needs a corpus download.
 """
 from __future__ import annotations
 
@@ -18,6 +19,19 @@ import numpy as np
 SR_RAW = 48000
 KATAKANA = "パンドトカバチリコウシポ"
 CLASSES = ("drum", "bell")
+
+# the demo checkpoint's geometry (examples/checkpoints/demo): hidden 128,
+# 2 + 2 FFT layers; the ICASSP model is the default `Config`
+DEMO_MODEL = {
+    "transformer": {"encoder_layer": 2, "decoder_layer": 2,
+                    "encoder_head": 2, "decoder_head": 2,
+                    "encoder_hidden": 128, "decoder_hidden": 128,
+                    "conv_filter_size": 512, "conv_kernel_size": [9, 1]},
+    "visual_feature_extractor": {"layer_num": 2},
+    "max_seq_len": 512,
+    "postnet_channels": 128,
+    "vocoder_kwargs": {"upsample_initial_channel": 128},
+}
 
 
 def _pitch(ch: str) -> float:

@@ -1,4 +1,5 @@
-"""Checkpoints and training logs of the port (`checkpoint`, `logging`).
+"""Checkpoints, training logs and mel figures of the port (`checkpoint`,
+`logging`, `plotting`).
 
 Nothing is imported here, so that importing one of them pulls in no other.
 """
