@@ -74,8 +74,8 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
   12. served: the port's own `serve.BatchingServer` over the demo
      iSTFTNet-mel on the card, 4 concurrent HTTP requests;
   13. acoustic training: the port's synthetic corpus (2 classes x 24 clips)
-     through its `format`, `prepare-tg` and `Preprocessor` on the card (B3
-     launches printed); the ICASSP model (`configs/icassp.yaml` geometry,
+     through its `format`, `prepare-tg` and `Preprocessor` (saving the clips'
+     audio) on the card (B3 launches printed); the ICASSP model (`configs/icassp.yaml` geometry,
      parameter count printed) trained by the port's `Trainer` at batch 16 in
      fp32 for 200 steps (warm_up_step 40; evaluate with metrics at 100 and
      200; checkpoints at 100 and 200). Checks: the first step's loss terms
@@ -119,9 +119,27 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      the port's `DemoServer` on the demo checkpoint answering four
      /api/synthesize requests after an untimed cold one (a wav of
      mel_frames x 256 samples each, the strip and the mel figure as PNGs;
-     attention and MRF launches counted).
+     attention and MRF launches counted);
+  17. vocoder training: the port's `VocoderTrainer` on the corpus of
+     `tools/vocoder_longrun_torch.py` (20 clips), fp32. (a) HiFi-GAN V1 at
+     full width against MPD + MSD at full width, B 16 x 8192 samples, its
+     recipe with the EMA on: 3 warm-up and 20 timed GAN steps (CUDA events;
+     ms per step, audio-s/s, peak memory), every loss finite, no kernel
+     launched. (b) The first GAN step on the card against the CPU at B 2 from
+     the same initial state and batch: the D and G losses and the gradients'
+     global norms within VOC_FIRST_RTOL. (c) The trainer saved and restored
+     into a fresh one bit for bit (parameters, both optimizers, EMA, sampler);
+     a step holding HALTED.json refused; the saved generator.npz through
+     `synthesis.load_vocoder` in `.eval()` vocodes phase 4's first 4 mels with
+     one MRF launch per stage, within VOCODE_ATOL of the plain chain. (d)
+     iSTFTNet-mel (MPD + MSD) and BigVGAN base (MPD + MRD), their recipe (lr
+     1e-4, clip 1e3), 5 steps each at B 16 x 8192, no launch. (e)
+     `teacher_forced_pairs` over phase 13's checkpoint and corpus (phase 13
+     preprocesses with saved audio and keeps its work directory for this):
+     one attention launch per FFT block and train batch, held exactly; then
+     5 paired fine-tuning steps, no launch.
 
-Each path (phases 4-7, 9-16) is driven with every launch count set to 0 just
+Each path (phases 4-7, 9-17) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
@@ -145,6 +163,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -1595,11 +1614,10 @@ def first_step_parity(trainer, dev) -> dict:
     return {"card": out[dev.type], "cpu": out["cpu"], "max_rel_err": max(rel.values())}
 
 
-def phase_train(dev, card: str) -> dict:
+def phase_train(dev, card: str, work: pathlib.Path) -> dict:
     """The port's corpus pipeline and acoustic trainer on `dev` (see the
-    module docstring, phase 13)."""
-    import tempfile
-
+    module docstring, phase 13), under `work`, which keeps the corpus
+    (preprocessed with its audio) and the checkpoints for phase 17."""
     from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
     from visual_onoma_to_wave_tpu_torch.data.labels import prepare_textgrids
     from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
@@ -1609,101 +1627,99 @@ def phase_train(dev, card: str) -> dict:
     from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
 
     phase = "13 acoustic training"
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        work = pathlib.Path(tmp)
-        raw_root, ono_root = build_corpus(work, TRAIN_CLIPS_PER_CLASS)
-        cfg = train_config(work, ono_root)
-        format_dataset(cfg, raw_root)
-        prepare_textgrids(cfg.path.formatted, list(cfg.dataset.extract_labels))
-        zero_launch_counts()
-        Preprocessor(cfg, device=dev).build(verbose=False)
-        corpus_launches = launch_counts()
-        expect_launches(phase + " preprocess", corpus_launches,
-                        {"mel_frontend": max(corpus_launches["mel_frontend"], 1)})
+    raw_root, ono_root = build_corpus(work, TRAIN_CLIPS_PER_CLASS)
+    cfg = train_config(work, ono_root)
+    format_dataset(cfg, raw_root)
+    prepare_textgrids(cfg.path.formatted, list(cfg.dataset.extract_labels))
+    zero_launch_counts()
+    Preprocessor(cfg, device=dev, save_audio=True).build(verbose=False)
+    corpus_launches = launch_counts()
+    expect_launches(phase + " preprocess", corpus_launches,
+                    {"mel_frontend": max(corpus_launches["mel_frontend"], 1)})
 
-        trainer = Trainer(cfg, device=dev)
-        first = first_step_parity(trainer, dev)
-        every = (cfg.train.step.val_step, cfg.train.step.save_step)
-        marks, frames, losses, seen = [], [], [], [0]
-        b1 = {"train": 0, "evaluate": 0}
+    trainer = Trainer(cfg, device=dev)
+    first = first_step_parity(trainer, dev)
+    every = (cfg.train.step.val_step, cfg.train.step.save_step)
+    marks, frames, losses, seen = [], [], [], [0]
+    b1 = {"train": 0, "evaluate": 0}
 
-        def on_step(step, step_losses):
-            """Called by the trainer after each step and its evaluate and save:
-            one CUDA event per step, the step's frames and losses, and the
-            attention launches since the last call, charged to the train steps
-            or, at a val step, to evaluate."""
-            mark = torch.cuda.Event(enable_timing=True)
-            mark.record()
-            marks.append((step, mark))
-            frames.append(trainer.timer.frames[-1])
-            losses.append(step_losses)
-            launched, seen[0] = attention_core.launches - seen[0], attention_core.launches
-            b1["evaluate" if step % every[0] == 0 else "train"] += launched
+    def on_step(step, step_losses):
+        """Called by the trainer after each step and its evaluate and save:
+        one CUDA event per step, the step's frames and losses, and the
+        attention launches since the last call, charged to the train steps
+        or, at a val step, to evaluate."""
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        marks.append((step, mark))
+        frames.append(trainer.timer.frames[-1])
+        losses.append(step_losses)
+        launched, seen[0] = attention_core.launches - seen[0], attention_core.launches
+        b1["evaluate" if step % every[0] == 0 else "train"] += launched
 
-        torch.cuda.reset_peak_memory_stats(dev)
-        zero_launch_counts()
-        trainer.train(on_step=on_step)
-        torch.cuda.synchronize(dev)
-        train_launches = launch_counts()
-        n_val = trainer.state.step // every[0]
-        before = attention_core.launches
-        trainer.evaluate(metrics=True)
-        per_evaluate = attention_core.launches - before
-        # a period that ends at a val or save step holds that evaluate or save
-        timed = [i for i in range(1, len(marks))
-                 if all(marks[i][0] % e for e in every)]
-        step_ms = np.array([marks[i - 1][1].elapsed_time(marks[i][1]) for i in timed])
-        frames = np.array([int(frames[i]) for i in timed])
-        table = {k: np.array([float(x[k]) for x in losses]) for k in losses[0]}
-        if not all(np.isfinite(v).all() for v in table.values()):
-            raise AssertionError(f"{phase}: a loss or grad norm is not finite")
-        total = table["total_loss"]
-        if not total[-20:].mean() < total[:20].mean():
-            raise AssertionError(f"{phase}: total loss did not fall: first 20 "
-                                 f"{total[:20].mean()}, last 20 {total[-20:].mean()}")
-        # the val steps' count is their evaluates' alone: none in their train steps
-        if b1["train"] != 0 or per_evaluate == 0 or b1["evaluate"] != n_val * per_evaluate:
-            raise AssertionError(f"{phase}: attention kernel launches {b1} with {per_evaluate} "
-                                 f"per evaluate: expected none in the train steps")
-        expect_launches(phase + " train", train_launches, {"flash_mha": b1["evaluate"]})
-        say(phase, card=card, params=trainer.n_params(), clips=len(trainer.train_ds),
-            steps=trainer.state.step, corpus_kernel_launches=corpus_launches,
-            first_step=first, step_ms_median=float(np.median(step_ms)),
-            step_ms_mean=float(step_ms.mean()),
-            mel_frames_per_s=float(frames.sum() / (step_ms.sum() / 1e3)),
-            peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-            loss_first20=float(total[:20].mean()), loss_last20=float(total[-20:].mean()),
-            grad_norm_max=float(table["grad_norm"].max()), flash_mha_launches=b1,
-            val=[json.loads(line) for line in
-                 (pathlib.Path(cfg.path.log) / "val" / "metrics.jsonl").read_text().splitlines()])
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launch_counts()
+    trainer.train(on_step=on_step)
+    torch.cuda.synchronize(dev)
+    train_launches = launch_counts()
+    n_val = trainer.state.step // every[0]
+    before = attention_core.launches
+    trainer.evaluate(metrics=True)
+    per_evaluate = attention_core.launches - before
+    # a period that ends at a val or save step holds that evaluate or save
+    timed = [i for i in range(1, len(marks))
+             if all(marks[i][0] % e for e in every)]
+    step_ms = np.array([marks[i - 1][1].elapsed_time(marks[i][1]) for i in timed])
+    frames = np.array([int(frames[i]) for i in timed])
+    table = {k: np.array([float(x[k]) for x in losses]) for k in losses[0]}
+    if not all(np.isfinite(v).all() for v in table.values()):
+        raise AssertionError(f"{phase}: a loss or grad norm is not finite")
+    total = table["total_loss"]
+    if not total[-20:].mean() < total[:20].mean():
+        raise AssertionError(f"{phase}: total loss did not fall: first 20 "
+                             f"{total[:20].mean()}, last 20 {total[-20:].mean()}")
+    # the val steps' count is their evaluates' alone: none in their train steps
+    if b1["train"] != 0 or per_evaluate == 0 or b1["evaluate"] != n_val * per_evaluate:
+        raise AssertionError(f"{phase}: attention kernel launches {b1} with {per_evaluate} "
+                             f"per evaluate: expected none in the train steps")
+    expect_launches(phase + " train", train_launches, {"flash_mha": b1["evaluate"]})
+    say(phase, card=card, params=trainer.n_params(), clips=len(trainer.train_ds),
+        steps=trainer.state.step, corpus_kernel_launches=corpus_launches,
+        first_step=first, step_ms_median=float(np.median(step_ms)),
+        step_ms_mean=float(step_ms.mean()),
+        mel_frames_per_s=float(frames.sum() / (step_ms.sum() / 1e3)),
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        loss_first20=float(total[:20].mean()), loss_last20=float(total[-20:].mean()),
+        grad_norm_max=float(table["grad_norm"].max()), flash_mha_launches=b1,
+        val=[json.loads(line) for line in
+             (pathlib.Path(cfg.path.log) / "val" / "metrics.jsonl").read_text().splitlines()])
 
-        saved = {k: v.detach().cpu().clone() for k, v in trainer.state.model.state_dict().items()}
-        resumed = Trainer(cfg, restore_step=-1, device=dev)
-        restored = resumed.state.model.state_dict()
-        same = all(torch.equal(saved[k], restored[k].cpu()) for k in saved
-                   if not k.endswith("num_batches_tracked"))
-        if not same or resumed.state.step != TRAIN_STEPS:
-            raise AssertionError(f"{phase}: restore at step {resumed.state.step} is not the "
-                                 "saved state")
-        resumed.train(max_steps=TRAIN_STEPS + 1)
-        if resumed.state.step != TRAIN_STEPS + 1:
-            raise AssertionError(f"{phase}: the resumed trainer is at {resumed.state.step}")
+    saved = {k: v.detach().cpu().clone() for k, v in trainer.state.model.state_dict().items()}
+    resumed = Trainer(cfg, restore_step=-1, device=dev)
+    restored = resumed.state.model.state_dict()
+    same = all(torch.equal(saved[k], restored[k].cpu()) for k in saved
+               if not k.endswith("num_batches_tracked"))
+    if not same or resumed.state.step != TRAIN_STEPS:
+        raise AssertionError(f"{phase}: restore at step {resumed.state.step} is not the "
+                             "saved state")
+    resumed.train(max_steps=TRAIN_STEPS + 1)
+    if resumed.state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"{phase}: the resumed trainer is at {resumed.state.step}")
 
-        synth = Synthesizer.from_checkpoint(
-            cfg, str(pathlib.Path(cfg.path.ckpt) / str(TRAIN_STEPS) / "acoustic.npz"),
-            device=dev)
-        zero_launch_counts()
-        result = synth.synthesize("パンドン", "drum")
-        synth_launches = launch_counts()
-        if not (np.isfinite(result.mel).all() and result.mel.shape[1] == 80
-                and synth_launches["flash_mha"] > 0):
-            raise AssertionError(f"{phase}: synthesis from the checkpoint gave mel "
-                                 f"{result.mel.shape} with launches {synth_launches}")
-        expect_launches(phase + " synthesis", synth_launches,
-                        {"flash_mha": synth_launches["flash_mha"]})
-        say(phase, resumed_step=resumed.state.step, restored_bit_exact=same,
-            synth_mel_frames=int(result.mel.shape[0]), synth_kernel_launches=synth_launches)
-    return {"step_ms": float(np.median(step_ms))}
+    synth = Synthesizer.from_checkpoint(
+        cfg, str(pathlib.Path(cfg.path.ckpt) / str(TRAIN_STEPS) / "acoustic.npz"),
+        device=dev)
+    zero_launch_counts()
+    result = synth.synthesize("パンドン", "drum")
+    synth_launches = launch_counts()
+    if not (np.isfinite(result.mel).all() and result.mel.shape[1] == 80
+            and synth_launches["flash_mha"] > 0):
+        raise AssertionError(f"{phase}: synthesis from the checkpoint gave mel "
+                             f"{result.mel.shape} with launches {synth_launches}")
+    expect_launches(phase + " synthesis", synth_launches,
+                    {"flash_mha": synth_launches["flash_mha"]})
+    say(phase, resumed_step=resumed.state.step, restored_bit_exact=same,
+        synth_mel_frames=int(result.mel.shape[0]), synth_kernel_launches=synth_launches)
+    return {"step_ms": float(np.median(step_ms)), "cfg": cfg}
 
 
 
@@ -1733,7 +1749,7 @@ def plain_on_card(gen):
     import visual_onoma_to_wave_tpu_torch.models.vocos as vocos
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block_reference
 
-    def plain_stage(i, blocks, x):
+    def plain_stage(i, blocks, x, fused=True):
         acc = None
         for block in blocks:
             y = block(x)
@@ -2208,6 +2224,240 @@ def phase_demo_server(dev, card: str) -> dict:
     return {"launches": launches, "answered": served}
 
 
+# phase 17: GAN vocoder training. The GAN step at B 16 x 8192 samples (the
+# recipe's segment), fp32; warm-up and timed steps of HiFi-GAN V1, steps of
+# the two other families. The first step on the card against the CPU at B 2,
+# from the same initial state and batch: the D loss and the discriminators'
+# gradient norm come from one forward and backward at equal parameters
+# (1e-4 relative, as phase 13's first step); the G loss and the generator's
+# gradient norm come after the discriminators' first Adam update, lr x the
+# sign of each gradient, where a gradient of roundoff size can take the other
+# sign on the card (1e-3 relative)
+VOC_B, VOC_SEGMENT, VOC_WARMUP, VOC_TIMED, VOC_FAMILY_STEPS = 16, 8192, 3, 20, 5
+VOC_FIRST_B = 2
+VOC_FIRST_RTOL = {"d_total": 1e-4, "d_grad_norm": 1e-4, "g_total": 1e-3, "g_grad_norm": 1e-3}
+VOC_EMA = 0.9999
+
+
+def vocoder_clips():
+    """The 20 train clips of `tools/vocoder_longrun_torch.py`'s corpus."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import vocoder_longrun_torch
+
+    return vocoder_longrun_torch.corpus_and_gt("cpu")[0]
+
+
+def vocoder_trainer(dev, clips, family: str = "hifigan", batch: int = VOC_B, **kw):
+    """The port's `VocoderTrainer` for `family` with its recipe (lr, clip,
+    MSD or MRD) at `batch` x VOC_SEGMENT, on `dev`."""
+    from visual_onoma_to_wave_tpu_torch.models.hifigan_disc import MultiResolutionDiscriminator
+    from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
+    from visual_onoma_to_wave_tpu_torch.training.vocoder_trainer import (
+        VocoderTrainConfig,
+        VocoderTrainer,
+        family_recipe,
+    )
+
+    recipe = family_recipe(family)
+    pairs = kw.pop("pairs", None)
+    cfg = VocoderTrainConfig(segment_size=VOC_SEGMENT, batch_size=batch,
+                             learning_rate=recipe["learning_rate"],
+                             grad_clip_norm=recipe["grad_clip_norm"], log_every=10 ** 9,
+                             save_every=10 ** 9, **kw)
+    msd = MultiResolutionDiscriminator() if recipe["disc"] == "mrd" else None
+    return VocoderTrainer(clips, cfg, gen=get_vocoder(family), msd=msd, pairs=pairs, device=dev)
+
+
+def gan_steps(vt, steps: int, timed: bool = True) -> dict:
+    """`steps` GAN steps of `vt` (each drawing its batch from the sampler),
+    a CUDA event after each: the period of each step, batch and copy
+    included; every loss finite."""
+    marks, losses = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        batch = vt.sampler.next_batch()
+        if isinstance(batch, tuple):
+            m = vt.train_step(vt._to_device(batch[0]), vt._to_device(batch[1]))
+        else:
+            m = vt.train_step(vt._to_device(batch))
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        marks.append(mark)
+        losses.append(m)
+    torch.cuda.synchronize()
+    table = {k: [float(x[k]) for x in losses] for k in losses[0]}
+    if not all(np.isfinite(v).all() for v in table.values()):
+        raise AssertionError(f"GAN step of {vt.family}: a loss is not finite: {table}")
+    ms = [start.elapsed_time(marks[0])] + [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return {"ms": ms, "losses": table}
+
+
+def vocoder_first_step(dev, clips) -> dict:
+    """The first GAN step of HiFi-GAN V1 at B VOC_FIRST_B on `dev` and on the
+    CPU, from the same initial state (drawn on the CPU from the seed) and
+    batch: losses and the gradients' global norms, VOC_FIRST_RTOL."""
+    from visual_onoma_to_wave_tpu_torch.training.schedule import global_norm
+
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        vt = vocoder_trainer(where, clips, batch=VOC_FIRST_B)
+        m = vt.train_step(vt._to_device(vt.sampler.next_batch()))
+        out[where.type] = {
+            "d_total": float(m["d_total"]), "g_total": float(m["g_total"]),
+            "mel_l1": float(m["mel_l1"]),
+            "d_grad_norm": float(global_norm([q.grad for q in vt.state.disc_opt.params])),
+            "g_grad_norm": float(global_norm([q.grad for q in vt.state.gen_opt.params]))}
+        del vt
+    rel = {k: abs(out[dev.type][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
+           for k in VOC_FIRST_RTOL}
+    bad = {k: v for k, v in rel.items() if not v <= VOC_FIRST_RTOL[k]}
+    if bad:
+        raise AssertionError(f"first GAN step on {dev} vs the CPU: relative errors {bad} "
+                             f"(bounds {VOC_FIRST_RTOL}): {out}")
+    return {"on_card": out[dev.type], "on_cpu": out["cpu"], "rel_err": rel}
+
+
+def vocoder_restore_and_serve(dev, vt, mel: torch.Tensor, work: pathlib.Path) -> dict:
+    """Save `vt` (HiFi-GAN V1) under `work`, restore it into a fresh trainer
+    bit for bit (parameters, both optimizers, EMA, sampler); a step holding
+    HALTED.json is refused; the saved generator.npz through
+    `synthesis.load_vocoder` in `.eval()` vocodes `mel`: one MRF kernel launch
+    per stage, the waveform within VOCODE_ATOL of the plain chain."""
+    from visual_onoma_to_wave_tpu_torch.config import Config
+    from visual_onoma_to_wave_tpu_torch.synthesis import load_vocoder, vocode
+
+    phase = "17c vocoder checkpoint"
+    vt.ckpt_dir = work
+    step = vt.state.step
+    vt.save(step)
+    saved = vt.full_state_arrays()
+    fresh = vocoder_trainer(dev, vt.sampler.clips, ema_decay=VOC_EMA)
+    fresh.ckpt_dir = work
+    if fresh.restore() != step:
+        raise AssertionError(f"{phase}: restored step {fresh.state.step}, saved {step}")
+    got = fresh.full_state_arrays()
+    exact = got.keys() == saved.keys() and all(np.array_equal(got[k], saved[k]) for k in saved)
+    sampler = fresh.sampler.rng.bit_generator.state == vt.sampler.rng.bit_generator.state
+    if not (exact and sampler):
+        raise AssertionError(f"{phase}: restore is not bit-exact (state {exact}, "
+                             f"sampler {sampler})")
+    vt.save(step + 1)
+    (work / str(step + 1) / "HALTED.json").write_text(json.dumps({"diverged_at": step + 1}))
+    refused = []
+    for s in (None, step + 1):
+        try:
+            fresh.restore(s)
+        except ValueError as e:
+            refused.append("not resumable" in str(e))
+    if refused != [True, True]:
+        raise AssertionError(f"{phase}: a HALTED.json step was resumed ({refused})")
+    del fresh
+
+    gen = load_vocoder(Config(), str(work / str(step) / "generator.npz")).to(dev).eval()
+    want = {"mrf_stage": mrf_stages(gen)}
+    zero_launch_counts()
+    with torch.inference_mode():
+        wav = vocode(gen, mel)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches(phase + " serve", launches, want)
+    with torch.inference_mode(), plain_on_card(gen):
+        plain = vocode(gen, mel)
+    err = float((wav - plain).abs().max())
+    check_vocode(f"{phase}: the trained generator through the MRF kernel vs the plain chain",
+                 err, float(plain.abs().max()))
+    return {"step": step, "restore_bit_exact": True, "arrays": len(saved),
+            "halted_refused": True, "serve_launches": launches, "mel": list(mel.shape),
+            "max_abs_err_vs_plain": err, "max_abs_plain": float(plain.abs().max()),
+            "atol": VOCODE_ATOL}
+
+
+def vocoder_pairs(dev, train_cfg) -> dict:
+    """`teacher_forced_pairs` over phase 13's checkpoint and corpus: one eval
+    pass of the acoustic model per train batch, each FFT block one attention
+    launch; then VOC_FAMILY_STEPS paired fine-tuning steps of HiFi-GAN V1,
+    no launch."""
+    from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
+    from visual_onoma_to_wave_tpu_torch.training.vocoder_trainer import teacher_forced_pairs
+
+    phase = "17e teacher-forced pairs"
+    trainer = Trainer(train_cfg, restore_step=TRAIN_STEPS, device=dev)
+    model = trainer.state.model
+    batches = len(trainer.train_ds.batch_plan(group_size=1, shuffle=False))
+    blocks = len(model.encoder.layer_stack) + len(model.decoder.layer_stack)
+    zero_launch_counts()
+    pairs = teacher_forced_pairs(trainer)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches(phase, launches, {"flash_mha": batches * blocks})
+    if not pairs or not all(len(a) == m.shape[0] * HOP and np.isfinite(m).all()
+                            for a, m in pairs):
+        raise AssertionError(f"{phase}: {len(pairs)} pairs, not frame-aligned or not finite")
+    del trainer
+    vt = vocoder_trainer(dev, None, pairs=pairs)
+    zero_launch_counts()
+    run = gan_steps(vt, VOC_FAMILY_STEPS)
+    expect_launches(phase + " fine-tuning", launch_counts(), {})
+    return {"pairs": len(pairs), "train_batches": batches, "fft_blocks": blocks,
+            "launches": launches, "finetune_ms": run["ms"],
+            "finetune_g_total": run["losses"]["g_total"]}
+
+
+def phase_vocoder_training(dev, card: str, mel: torch.Tensor, train_cfg,
+                           work: pathlib.Path) -> dict:
+    """GAN vocoder training on the card (see the module docstring, phase 17)."""
+    phase = "17 vocoder training"
+    clips = vocoder_clips()
+    audio_s = VOC_B * VOC_SEGMENT / SR
+    torch.cuda.reset_peak_memory_stats(dev)
+    vt = vocoder_trainer(dev, clips, ema_decay=VOC_EMA)
+    zero_launch_counts()
+    warm = gan_steps(vt, VOC_WARMUP)
+    run = gan_steps(vt, VOC_TIMED)
+    expect_launches(phase + " hifigan", launch_counts(), {})
+    ms = float(np.median(run["ms"]))
+    result = {"hifigan": {
+        "params": {k: sum(q.numel() for q in m.parameters())
+                   for k, m in (("gen", vt.gen), ("mpd", vt.mpd), ("msd", vt.msd))},
+        "warmup_ms": warm["ms"], "step_ms_median": ms, "step_ms_mean": float(np.mean(run["ms"])),
+        "audio_s_per_s": audio_s / (ms / 1e3),
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "g_total_first_last": [warm["losses"]["g_total"][0], run["losses"]["g_total"][-1]],
+        "mel_l1_first_last": [warm["losses"]["mel_l1"][0], run["losses"]["mel_l1"][-1]]}}
+    say(phase + " 17a hifigan v1", card=card, batch=VOC_B, segment=VOC_SEGMENT,
+        kernel_launches=launch_counts(), **result["hifigan"])
+
+    result["first_step"] = vocoder_first_step(dev, clips)
+    say(phase + " 17b first step vs the CPU", card=card, batch=VOC_FIRST_B,
+        rtol=VOC_FIRST_RTOL, **result["first_step"])
+
+    result["checkpoint"] = vocoder_restore_and_serve(dev, vt, mel, work / "vocoder")
+    say(phase + " 17c checkpoint", card=card, **result["checkpoint"])
+    del vt
+
+    for family in ("istftnet-mel", "bigvgan"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ft = vocoder_trainer(dev, clips, family)
+        zero_launch_counts()
+        run = gan_steps(ft, VOC_FAMILY_STEPS)
+        expect_launches(f"{phase} {family}", launch_counts(), {})
+        ms = float(np.median(run["ms"][1:]))
+        result[family] = {"disc": type(ft.msd).__name__, "lr": ft.cfg.learning_rate,
+                          "clip": ft.cfg.grad_clip_norm, "step_ms": run["ms"],
+                          "step_ms_median_after_first": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+                          "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                          "g_total": run["losses"]["g_total"]}
+        say(f"{phase} 17d {family}", card=card, batch=VOC_B, segment=VOC_SEGMENT,
+            kernel_launches=launch_counts(), **result[family])
+        del ft
+
+    result["pairs"] = vocoder_pairs(dev, train_cfg)
+    say(phase + " 17e teacher-forced pairs", card=card, **result["pairs"])
+    return result
+
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -2227,11 +2477,14 @@ def main() -> int:
     phase_full(dev, probe["smi"], "10 istftnet c8c8i full width", "iSTFTNet", beside=full)
     phase_full(dev, probe["smi"], "11 melgan full width", "MelGAN", beside=full)
     phase_served(dev, probe["smi"])
-    phase_train(dev, probe["smi"])
-    phase_bigvgan(dev, probe["smi"], full)
-    phase_chunked(dev, probe["smi"], served["postnet_mel"])
-    phase_quality_gate(dev, probe["smi"])
-    phase_demo_server(dev, probe["smi"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train = phase_train(dev, probe["smi"], pathlib.Path(tmp))
+        phase_bigvgan(dev, probe["smi"], full)
+        phase_chunked(dev, probe["smi"], served["postnet_mel"])
+        phase_quality_gate(dev, probe["smi"])
+        phase_demo_server(dev, probe["smi"])
+        phase_vocoder_training(dev, probe["smi"], served["postnet_mel"][:CHUNK_B].contiguous(),
+                               train["cfg"], pathlib.Path(tmp))
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"

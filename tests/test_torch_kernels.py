@@ -405,3 +405,51 @@ def test_hifigan_on_the_card_launches_one_mrf_kernel_per_resblock1_stage(cuda, r
         torch.cuda.synchronize()
     assert mrf_stage_fused.launches == before + stages
     torch.testing.assert_close(out.cpu(), ref, rtol=0.0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_dropout_on_the_card_takes_a_cpu_generators_masks(cuda):
+    """A CPU generator gives a model on the card the CPU's masks bit for bit;
+    a CUDA generator the draw on the card, as before masks moved devices."""
+    from visual_onoma_to_wave_tpu_torch.models.layers import Dropout
+
+    x = torch.randn(4, 37, 16)
+    d = Dropout(0.2).train()
+    d.generator = torch.Generator().manual_seed(5)
+    on_card = d.keep_mask(x.to(cuda))
+    d.generator = torch.Generator().manual_seed(5)
+    assert on_card.device.type == "cuda" and torch.equal(on_card.cpu(), d.keep_mask(x))
+    d.generator = torch.Generator(device=cuda).manual_seed(5)
+    want = torch.rand(x.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                      device=cuda) >= 0.2
+    assert torch.equal(d.keep_mask(x.to(cuda)), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,kw,kernel", [
+    ("HiFi-GAN", dict(upsample_initial_channel=128), "mrf_stage"),
+    ("iSTFTNet-mel", dict(upsample_initial_channel=64), "mrf_stage"),
+    ("Vocos", dict(dim=128, intermediate_dim=384, num_layers=2), "convnext_block"),
+])
+def test_generators_launch_their_kernel_in_eval_only(cuda, family, kw, kernel):
+    """In .train() a generator on the card takes the plain chain with
+    autograd and launches no MRF or ConvNeXt kernel; in .eval() it does, and
+    the two agree."""
+    from visual_onoma_to_wave_tpu_torch.models import get_vocoder
+
+    torch.manual_seed(0)
+    gen = get_vocoder(family, **kw).to(cuda).train()
+    mel = torch.randn(2, 23, 80, device=cuda) - 3.0
+    before = chip_smoke.launch_counts()
+    wav = gen(mel)
+    wav.square().mean().backward()
+    torch.cuda.synchronize()
+    assert chip_smoke.launch_counts() == before
+    assert all(p.grad is not None for p in gen.parameters())
+    with torch.inference_mode():
+        served = gen.eval()(mel)
+    torch.cuda.synchronize()
+    after = chip_smoke.launch_counts()
+    assert after[kernel] > before[kernel]
+    torch.testing.assert_close(served, wav.detach(), rtol=0.0,
+                               atol=1e-4 * wav.detach().abs().max().item())

@@ -193,3 +193,29 @@ def test_variance_adaptor_bucketize_edges():
         out = tm(t(x), t(mask))
         close(out[0], ref[0])
         close(out[1], ref[1])
+
+
+@pytest.mark.parametrize("p,shape", [(0.2, (4, 37, 16)), (0.5, (2, 80, 9)), (0.1, (3, 5))])
+def test_dropout_masks_are_the_input_device_draws_bit_for_bit(p, shape):
+    """The mask is drawn on the generator's device and moved to the input's
+    (`Dropout.keep_mask`). With a generator on the input's device that is the
+    draw made on the input's device, `torch.rand(x.shape, generator, device=
+    x.device) >= p`, bit for bit and call after call; without a generator,
+    the global RNG's draw on the input's device."""
+    x = torch.randn(shape)
+    d = tl.Dropout(p).train()
+    d.generator = torch.Generator().manual_seed(7)
+    ref = torch.Generator().manual_seed(7)
+    for _ in range(3):
+        want = torch.rand(x.shape, generator=ref, device=x.device) >= p
+        got = d.keep_mask(x)
+        assert got.device == x.device and got.dtype == torch.bool
+        assert torch.equal(got, want)
+    out = d(x)
+    assert torch.equal(out, torch.where(torch.rand(x.shape, generator=ref) >= p,
+                                        x / (1.0 - p), 0.0))
+    d.generator = None
+    torch.manual_seed(3)
+    a = d(x)
+    torch.manual_seed(3)
+    assert torch.equal(a, torch.where(torch.rand(x.shape) >= p, x / (1.0 - p), 0.0))

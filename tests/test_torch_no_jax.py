@@ -16,9 +16,14 @@ parent process); the train path runs (`cli format`,
 CPU, the trainer's loader with spawned workers), and so does
 `tools/acoustic_floor_torch.py` at a small size; `cli demo` starts the demo
 server, answers one request and stops; `tools/eval_quality_demo_torch.py`'s
-scoring functions score the three committed vocoders on a clip. A source
-scan of every port module (`demo_server.py` and `utils/plotting.py`
-included) and those scripts backs this up for imports inside functions.
+scoring functions score the three committed vocoders on a clip; `cli
+train-vocoder` trains HiFi-GAN V1 two steps on a tiny wav directory, its
+generator.npz then serving `cli synthesize --vocoder` with a config that
+names it, and `tools/vocoder_longrun_torch.py` trains and scores
+iSTFTNet-mel at a tiny batch. A source scan of every port module
+(`demo_server.py`, `utils/plotting.py`, `models/hifigan_disc.py` and
+`training/vocoder_trainer.py` included) and those scripts backs this up for
+imports inside functions.
 """
 from __future__ import annotations
 
@@ -32,9 +37,13 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "visual_onoma_to_wave_tpu_torch"
 SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
-           ROOT / "tools" / "acoustic_floor_torch.py", ROOT / "tools" / "eval_quality_demo_torch.py")
-# port modules the source scans must reach (added with the demo server)
-SCANNED = ("demo_server.py", "utils/plotting.py")
+           ROOT / "tools" / "acoustic_floor_torch.py", ROOT / "tools" / "eval_quality_demo_torch.py",
+           ROOT / "tools" / "vocoder_longrun_torch.py",
+           ROOT / "tools" / "gan_step_ab_torch.py")
+# port modules the source scans must reach (added with the demo server and
+# with GAN vocoder training)
+SCANNED = ("demo_server.py", "utils/plotting.py", "models/hifigan_disc.py",
+           "training/vocoder_trainer.py")
 JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 NO_JAX = JAX_STACK + (JAX_PACKAGE,)
@@ -220,6 +229,42 @@ gate.check_stats(stats, stats)
 """
 
 
+# GAN vocoder training through the command line (HiFi-GAN V1 at its full
+# width, two steps at batch 1 x 2048 samples on three wavs), the trained
+# generator served by `cli synthesize`, and the long-run tool at a tiny size
+VOCODER_TRAIN = """
+import json, pathlib, tempfile, wave, numpy as np, torch
+torch.set_num_threads(2)
+sys.path.insert(0, "tools")
+from visual_onoma_to_wave_tpu_torch.cli import main
+from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
+import vocoder_longrun_torch
+work = pathlib.Path(tempfile.mkdtemp())
+(work / "wavs").mkdir()
+t = np.arange(6000) / 22050
+for i in range(3):
+    write_wav(work / "wavs" / f"c{i}.wav", (0.4 * np.sin(2 * np.pi * (220 + 90 * i) * t))
+              .astype(np.float32), 22050)
+main(["train-vocoder", str(work / "wavs"), str(work / "voc"), "--steps", "2", "--batch-size",
+      "1", "--segment-size", "2048", "--save-every", "1", "--ema-decay", "0.9", "--device", "cpu"])
+assert sorted(p.name for p in (work / "voc" / "2").iterdir()) == [
+    "full_state.npz", "generator.npz", "generator_ema.npz", "sampler_state.json"]
+demo = pathlib.Path("examples/checkpoints/demo")
+cfg = json.loads((demo / "config.json").read_text())
+cfg["model"]["vocoder_kwargs"] = {}
+cfg["path"]["preprocessed"] = str(demo / "preprocessed")
+(work / "config.json").write_text(json.dumps(cfg))
+main(["synthesize", str(work / "config.json"), "--acoustic", str(demo / "torch" / "acoustic.npz"),
+      "--vocoder", str(work / "voc" / "2" / "generator.npz"), "--text", "パン", "--audiotype",
+      "drum", "--out", str(work / "out.wav"), "--device", "cpu"])
+with wave.open(str(work / "out.wav"), "rb") as w:
+    assert w.getnframes() > 0 and w.getnframes() % 256 == 0
+assert vocoder_longrun_torch.main(["--families", "istftnet-mel", "--steps", "2", "--every", "1",
+                                   "--batch", "1", "--segment-size", "2048",
+                                   "--device", "cpu"]) == 0
+"""
+
+
 # what chip_smoke's phases and the profiler build, on the CPU (phase 3's
 # models run on the golden inputs; the full-width models of phases 4, 6, 10,
 # 11 and 14 are only built)
@@ -343,11 +388,13 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), VOCODE),
     (NO_JAX + ("yaml",), DEMO),
     (NO_JAX + ("yaml",), GATE),
+    (NO_JAX + ("yaml",), VOCODER_TRAIN),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
         "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
         "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax",
-        "cli-demo-without-jax", "quality-gate-scoring-without-jax"])
+        "cli-demo-without-jax", "quality-gate-scoring-without-jax",
+        "train-vocoder-and-longrun-tool-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus

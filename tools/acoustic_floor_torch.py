@@ -5,7 +5,7 @@
     python3 tools/acoustic_floor_torch.py [--steps 10000] [--n-per-class 60]
         [--batch 16] [--val-step 2000] [--train-seed 0] [--work DIR] [--device cuda]
         [--width {icassp,demo,small}] [--allow-tf32] [--loader-workers N]
-        [--threads N]
+        [--threads N] [--mask-device cpu] [--mask-check]
 
 Builds the port's synthetic corpus (`data/synthetic_corpus.py`, the
 examples' generator: 2 classes x --n-per-class clips, seed 0), formats it,
@@ -34,6 +34,16 @@ DEMO_MODEL`: hidden 128, 2 + 2 FFT layers, 3.98 M parameters), a width the
 CPU trains; `--width small` (alias `--small`) a model of one layer each and
 hidden 32 (a CPU rehearsal of the tool, not a floor).
 The work directory (default `build/acoustic_floor/`) is emptied first.
+
+`--mask-device cpu` draws the dropout masks from a CPU generator seeded as the
+trainer's (train seed + 1) and moves them to the card: a card run then takes
+the CPU run's masks bit for bit and differs from it only in arithmetic.
+`--mask-check` instead runs two train steps on the first batch, reads every
+dropout mask of both, prints one JSON line of their statistics (each mask's
+keep fraction against 1 - p; two same-shape masks of one step, and each mask
+against its twin of the next step, agreeing in a fraction against
+(1 - p)^2 + p^2, as independent masks do; each as a z-score) and exits 1 when
+any lies 5 standard deviations or more from its expectation.
 """
 from __future__ import annotations
 
@@ -94,6 +104,57 @@ def train_log_means(logged: list[dict]) -> dict:
     return out
 
 
+def mask_statistics(trainer) -> dict:
+    """Two train steps of `trainer` on its first batch, every dropout mask of
+    both read; the z-scores of `--mask-check` (module docstring)."""
+    import torch
+
+    from visual_onoma_to_wave_tpu_torch.data.dataset import to_device
+    from visual_onoma_to_wave_tpu_torch.models.layers import Dropout
+    from visual_onoma_to_wave_tpu_torch.training.train_state import train_step
+
+    steps: list[list[tuple[float, torch.Tensor]]] = []
+    draw = Dropout.keep_mask
+
+    def recording(self, x):
+        keep = draw(self, x)
+        steps[-1].append((self.p, keep))
+        return keep
+
+    seed = trainer.config.train.seed + 1
+    batch = to_device(next(trainer.train_ds.batches(group_size=4, seed=seed)), trainer.device)
+    Dropout.keep_mask = recording
+    try:
+        for _ in range(2):
+            steps.append([])
+            train_step(trainer.state, batch)
+    finally:
+        Dropout.keep_mask = draw
+
+    def z_agree(a, b, p):
+        n = a.numel()
+        e = (1 - p) ** 2 + p ** 2
+        return (float((a == b).double().mean()) - e) / (e * (1 - e) / n) ** 0.5
+
+    keep_z = [(float(m.double().mean()) - (1 - p)) / (p * (1 - p) / m.numel()) ** 0.5
+              for p, m in steps[0] + steps[1]]
+    pair_z = []
+    for i, (p, m) in enumerate(steps[0]):
+        twin = next(((q, k) for q, k in steps[0][i + 1:] if k.shape == m.shape and q == p), None)
+        if twin is not None:
+            pair_z.append(z_agree(m, twin[1], p))
+    step_z = [z_agree(m, m2, p) for (p, m), (_, m2) in zip(steps[0], steps[1])]
+    worst = {k: max(abs(z) for z in v) for k, v in
+             (("keep", keep_z), ("same_step_pairs", pair_z), ("consecutive_steps", step_z))}
+    return {"metric": "dropout_masks", "generator": str(trainer.state.generator.device),
+            "sites_per_step": len(steps[0]),
+            "elements_per_step": sum(m.numel() for _, m in steps[0]),
+            "n_keep": len(keep_z), "n_same_step_pairs": len(pair_z),
+            "n_consecutive_steps": len(step_z),
+            **{f"max_abs_z_{k}": v for k, v in worst.items()},
+            "ok": bool(len(pair_z) and all(v < 5.0 for v in worst.values()))}
+
+
 def val_fields(means: dict) -> dict:
     """`Trainer.evaluate`'s means with its losses renamed `val_*` (the
     quality metrics keep their names)."""
@@ -131,6 +192,10 @@ def main(argv=None) -> int:
                     help="torch's intra-op threads (for runs side by side on the CPU)")
     ap.add_argument("--allow-tf32", action="store_true",
                     help="let matmuls and cuDNN convs take TF32 (evidence only)")
+    ap.add_argument("--mask-device", choices=("cpu",), default=None,
+                    help="draw the dropout masks from a CPU generator (train seed + 1)")
+    ap.add_argument("--mask-check", action="store_true",
+                    help="print the dropout masks' statistics over two steps and exit")
     args = ap.parse_args(argv)
 
     make_deterministic()
@@ -177,8 +242,15 @@ def main(argv=None) -> int:
     if args.allow_tf32:     # after the trainer's `pin_fp32`
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
+    if args.mask_device == "cpu":
+        trainer.state.generator = torch.Generator().manual_seed(args.train_seed + 1)
     print(json.dumps({"metric": "acoustic_floor_modes", "train_seed": args.train_seed,
-                      "width": args.width, "allow_tf32": args.allow_tf32}), flush=True)
+                      "width": args.width, "allow_tf32": args.allow_tf32,
+                      "mask_device": str(trainer.state.generator.device)}), flush=True)
+    if args.mask_check:
+        stats = mask_statistics(trainer)
+        print(json.dumps(stats), flush=True)
+        return 0 if stats["ok"] else 1
     last = {"t": time.perf_counter(), "step": 0}
     logged: list[dict] = []
 

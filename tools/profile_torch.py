@@ -2,7 +2,7 @@
 """Where the device time goes in the port's fused step, ICASSP B16, one GPU.
 
     python3 tools/profile_torch.py [--vocoder HiFi-GAN|Vocos|iSTFTNet-mel|iSTFTNet|MelGAN]
-                                   [--train] [--out build/profile_torch]
+                                   [--train] [--gan FAMILY] [--out build/profile_torch]
 
 Builds the model, vocoder and batch of `chip_smoke.py` phase 4 (ICASSP
 configuration + HiFi-GAN V1, random weights from seed 0, 16 requests) or,
@@ -28,6 +28,15 @@ targets from seed 0: `train_step_ms` (CUDA events, each of 10 steps after 3
 warm-ups) and `profile` over 3 steps, with the classes above plus `optimizer`
 (Adam's multi-tensor kernels) and `attention` empty (no kernel runs under
 autograd).
+
+With `--gan FAMILY` (hifigan, istftnet-mel, bigvgan, ...) it profiles the
+GAN step of `training/vocoder_trainer.py` instead: `chip_smoke.py` phase
+17's trainer (the family's recipe and discriminators, B 16 x 8192 samples,
+fp32) on `tools/vocoder_longrun_torch.py`'s corpus: `gan_step_ms` (CUDA
+events, the period of each of 10 steps after 3 warm-ups, the batch's draw
+and copy included) and `profile` over 3 steps with the classes above (cuFFT's
+kernels, of the mel loss and the MRD, count as "conv": their names carry
+"fft").
 
 The full kernel table and the Chrome trace go to `--out`. Imports nothing of
 JAX.
@@ -157,11 +166,36 @@ def profile_train(dev, out_dir: pathlib.Path) -> None:
         "classes_per_step": classes, "device": idle_share(trace)}}), flush=True)
 
 
+def profile_gan(dev, out_dir: pathlib.Path, family: str) -> None:
+    vt = chip_smoke.vocoder_trainer(dev, chip_smoke.vocoder_clips(), family)
+    chip_smoke.gan_steps(vt, 3)
+    ms = chip_smoke.gan_steps(vt, 10)["ms"]
+    print(json.dumps({"gan_step_ms": {
+        "family": family, "batch": chip_smoke.VOC_B, "segment": chip_smoke.VOC_SEGMENT,
+        "disc": type(vt.msd).__name__, "runs": ms, "median": float(np.median(ms))}}),
+        flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chip_smoke.gan_steps(vt, CALLS)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
+    trace_path = out_dir / f"gan_{family}_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    (out_dir / f"gan_{family}_kernels.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+    trace = json.loads(trace_path.read_text())
+    classes, total = class_table(trace, CALLS)
+    print(json.dumps({"profile": {
+        "gan_steps": CALLS, "wall_ms_per_step": wall_ms, "kernel_ms_per_step": total,
+        "classes_per_step": classes, "device": idle_share(trace)}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vocoder", default="HiFi-GAN",
                     choices=("HiFi-GAN", "Vocos", "iSTFTNet-mel", "iSTFTNet", "MelGAN"))
     ap.add_argument("--train", action="store_true", help="profile the acoustic train step")
+    ap.add_argument("--gan", default=None, metavar="FAMILY",
+                    help="profile the GAN step of this vocoder family (hifigan, istftnet-mel, ...)")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -175,6 +209,10 @@ def main() -> int:
     if args.train:
         print(json.dumps({"card": smi, "train": True}), flush=True)
         profile_train(dev, out_dir)
+        return 0
+    if args.gan:
+        print(json.dumps({"card": smi, "gan": args.gan}), flush=True)
+        profile_gan(dev, out_dir, args.gan)
         return 0
     print(json.dumps({"card": smi, "vocoder": args.vocoder}), flush=True)
     model, gen, batch = chip_smoke.icassp_b16(dev, args.vocoder)

@@ -24,11 +24,18 @@ share HiFi-GAN's names (conv_pre, up_i, resblock_i_j, conv_post).
     BigVGAN amp_i_j/act{1,2}_k/log_alpha|log_beta, act_post/...
                                               -> resblocks.r.acts{1,2}.k.<leaf>, act_post.<leaf>
 
+    discriminators params/<sub>/WNConv_i/{v,g,b} -> <sub>.convs.i.{v,g,b},
+      v (kh[, kw], Cin/groups, Cout)             -> (Cout, Cin/groups, kh[, kw])
+
 Trees travel between the frameworks as `.npz` files keyed by the
 '/'-joined flax path ("params/encoder/layer_0/slf_attn/w_qs/kernel").
 Every leaf must be consumed; a leaf the bridge does not know raises.
 `vtts_tree` is the inverse of `vtts_state_dict`: the port's trainer writes
 its checkpoints through it, in the flax layout the Synthesizer reads.
+`vocoder_tree` is the inverse of `vocoder_state_dict` for every family
+`cli train-vocoder` trains (HiFi-GAN, iSTFTNet, Vocos, BigVGAN): the port's
+GAN trainer writes its generators through it, as the `.npz` trees that
+`synthesis.load_vocoder` reads.
 """
 from __future__ import annotations
 
@@ -341,13 +348,108 @@ def bigvgan_state_dict(variables: dict) -> dict[str, torch.Tensor]:
 
 def vocoder_state_dict(family: str, variables: dict) -> dict[str, torch.Tensor]:
     """The bridge of the configured vocoder family (`config.model.vocoder_model`)."""
+    bridges = {"hifigan": hifigan_state_dict, "melgan": melgan_state_dict,
+               "vocos": vocos_state_dict, "bigvgan": bigvgan_state_dict}
+    return bridges[_vocoder_layout(family)](variables)
+
+
+def _vocoder_layout(family: str) -> str:
+    """The parameter layout of a family: iSTFTNet shares HiFi-GAN's."""
     name = vocoder_family(family)
     if name.startswith("hifigan") or name in ("istftnet", "istftnetmel"):
-        return hifigan_state_dict(variables)
-    if name == "melgan":
-        return melgan_state_dict(variables)
-    if name == "vocos":
-        return vocos_state_dict(variables)
+        return "hifigan"
+    if name in ("vocos", "melgan"):
+        return name
     if name in ("bigvgan", "bigvganbase", "bigvganlarge"):
-        return bigvgan_state_dict(variables)
+        return "bigvgan"
     raise ValueError(f"unknown vocoder family: {family!r}")
+
+
+def _stage_kernels(sd: dict) -> int:
+    """Branches per MRF / AMP stage: the resblocks over the stages (one
+    stage at mel rate when there is no upsampling)."""
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("resblocks."))
+    n_ups = len({k.split(".")[1] for k in sd if k.startswith("ups.")})
+    return n_blocks // max(n_ups, 1)
+
+
+def vocoder_tree(family: str, state_dict: dict[str, torch.Tensor]) -> dict:
+    """state_dict of the port's generator of `family` -> {"params"} of the
+    JAX generator as numpy arrays: the inverse of `vocoder_state_dict` for
+    HiFi-GAN (V1-V3), iSTFTNet (both presets), Vocos and BigVGAN. A tensor
+    the family's layout does not have raises ValueError."""
+    layout = _vocoder_layout(family)
+    if layout == "melgan":
+        raise ValueError("MelGAN is served, not trained, by both packages: no vocoder_tree")
+    sd = {k: v.detach().cpu().float() for k, v in state_dict.items()}
+    n_kernels = _stage_kernels(sd) if layout != "vocos" else 0
+    flat: dict[str, torch.Tensor] = {}
+    for key in sorted(sd):
+        v = sd[key]
+        if layout == "vocos":
+            if m := re.fullmatch(r"blocks\.(\d+)\.(\w+)", key):
+                ok, path = m[2] in _VOCOS_BLOCK, f"params/block_{m[1]}/{m[2]}"
+            else:
+                ok, path = key in _VOCOS_TOP, f"params/{key}"
+            if not ok:
+                raise ValueError(f"vocoder_tree: unknown Vocos tensor {key!r}")
+            flat[path] = v
+            continue
+        leaf = {"weight": "w", "bias": "b"}
+        if m := re.fullmatch(r"(conv_pre|conv_post)\.(weight|bias)", key):
+            path = f"params/{m[1]}_{leaf[m[2]]}"
+        elif m := re.fullmatch(r"ups\.(\d+)\.(weight|bias)", key):
+            path = f"params/up_{m[1]}_{leaf[m[2]]}"
+            if m[2] == "weight":     # (Cin, Cout, K) -> flipped (K, Cin, Cout)
+                v = v.flip(-1).permute(2, 0, 1)
+        elif m := re.fullmatch(r"resblocks\.(\d+)\.(convs[12]?)\.(\d+)\.(weight|bias)", key):
+            i, j = divmod(int(m[1]), n_kernels)
+            block = f"amp_{i}_{j}" if layout == "bigvgan" else f"resblock_{i}_{j}"
+            path = f"params/{block}/{m[2]}_{m[3]}_{leaf[m[4]]}"
+        elif layout == "bigvgan" and (m := re.fullmatch(
+                r"resblocks\.(\d+)\.acts([12])\.(\d+)\.(log_alpha|log_beta)", key)):
+            i, j = divmod(int(m[1]), n_kernels)
+            path = f"params/amp_{i}_{j}/act{m[2]}_{m[3]}/{m[4]}"
+        elif layout == "bigvgan" and (m := re.fullmatch(r"act_post\.(log_alpha|log_beta)", key)):
+            path = f"params/act_post/{m[1]}"
+        else:
+            raise ValueError(f"vocoder_tree: unknown {layout} tensor {key!r}")
+        if path.endswith("_w") and not path.startswith("params/up_"):
+            v = v.permute(2, 1, 0)          # (Cout, Cin, K) -> (K, Cin, Cout)
+        flat[path] = v
+    return unflatten_tree({k: np.ascontiguousarray(v.numpy()) for k, v in flat.items()})
+
+
+_DISC_SUBS = {"mpd": r"p\d+", "msd": r"s\d+", "mrd": r"r\d+"}
+
+
+def _disc_state_dict(variables: dict, kind: str) -> dict[str, torch.Tensor]:
+    params = variables.get("params", variables)
+    leaves = _Leaves(params)
+    sd: dict[str, torch.Tensor] = {}
+    for path in sorted(leaves.flat):
+        m = re.fullmatch(rf"({_DISC_SUBS[kind]})/WNConv_(\d+)/([vgb])", path)
+        if m is None:
+            raise ValueError(f"bridge: unknown {kind.upper()} leaf {path!r}")
+        v = leaves.take(path)
+        if m[3] == "v":      # (kh[, kw], Cin/groups, Cout) -> (Cout, Cin/groups, kh[, kw])
+            v = v.permute(v.ndim - 1, v.ndim - 2, *range(v.ndim - 2))
+        sd[f"{m[1]}.convs.{m[2]}.{m[3]}"] = v.contiguous()
+    leaves.finish()
+    return sd
+
+
+def mpd_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX `MultiPeriodDiscriminator`'s params ({"params": ...} or the
+    tree under it) -> state_dict of the port's."""
+    return _disc_state_dict(variables, "mpd")
+
+
+def msd_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX `MultiScaleDiscriminator`'s params -> state_dict of the port's."""
+    return _disc_state_dict(variables, "msd")
+
+
+def mrd_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX `MultiResolutionDiscriminator`'s params -> state_dict of the port's."""
+    return _disc_state_dict(variables, "mrd")

@@ -18,9 +18,12 @@ serving as subcommands.
     python -m visual_onoma_to_wave_tpu_torch.cli serve <config> --acoustic ... [--vocoder ...]
     python -m visual_onoma_to_wave_tpu_torch.cli demo <config> [--acoustic acoustic.npz |
         --restore-step N] [--vocoder vocoder.npz] [--host 127.0.0.1] [--port 7860]
+    python -m visual_onoma_to_wave_tpu_torch.cli train-vocoder <wav_dir> <out_dir>
+        [--steps N] [--family hifigan|...] [--disc msd|mrd] [--ema-decay D] [--device cpu]
 
 Weights are `.npz` trees: those written by `examples/export_demo_for_torch.py`,
-or a training checkpoint's `<ckpt>/<step>/acoustic.npz`. Configs load through
+a training checkpoint's `<ckpt>/<step>/acoustic.npz`, or a vocoder checkpoint's
+`<out_dir>/<step>/generator.npz` (`train-vocoder`). Configs load through
 `config.load_config` (JSON, YAML or the reference's three-YAML directory).
 Every command that computes runs on `cuda` unless `--device cpu` is given.
 """
@@ -215,6 +218,50 @@ def cmd_evaluate(args) -> None:
     print(json.dumps(_trainer(args).evaluate(metrics=args.metrics)))
 
 
+# the generator families `train-vocoder` trains (the reference's choices)
+VOCODER_FAMILIES = ("hifigan", "hifigan-v2", "hifigan-v3", "istftnet", "istftnet-mel", "vocos",
+                    "bigvgan", "bigvgan-large")
+
+
+def cmd_train_vocoder(args) -> None:
+    """GAN-train a vocoder from a directory of wavs (the reference's
+    `train-vocoder`): the family's recipe (`family_recipe`) unless --lr,
+    --grad-clip or --disc say otherwise; checkpoints under out_dir."""
+    if args.bf16:
+        raise SystemExit("train-vocoder --bf16: the port's GAN step is float32 only so far "
+                         "(ROADMAP A6, bf16 compute)")
+    from visual_onoma_to_wave_tpu_torch.models.hifigan_disc import MultiResolutionDiscriminator
+    from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
+    from visual_onoma_to_wave_tpu_torch.training.vocoder_trainer import (
+        VocoderTrainConfig,
+        VocoderTrainer,
+        family_recipe,
+        load_wav_dir,
+    )
+
+    recipe = family_recipe(args.family)
+    cfg = VocoderTrainConfig(
+        segment_size=args.segment_size, batch_size=args.batch_size,
+        learning_rate=args.lr if args.lr is not None else recipe["learning_rate"],
+        grad_clip_norm=args.grad_clip if args.grad_clip is not None else recipe["grad_clip_norm"],
+        total_steps=args.steps, save_every=args.save_every, seed=args.seed,
+        ema_decay=args.ema_decay, on_divergence=args.on_divergence)
+    disc = args.disc or recipe["disc"]
+    clips = load_wav_dir(args.wav_dir, target_sr=cfg.sampling_rate)
+    print(f"training {args.family} (MPD+{disc.upper()}) on {len(clips)} clips "
+          f"({sum(len(c) for c in clips) / cfg.sampling_rate:.0f}s of audio) on {args.device}")
+    trainer = VocoderTrainer(clips, cfg, gen=get_vocoder(args.family), ckpt_dir=args.out_dir,
+                             log_dir=args.log_dir,
+                             msd=MultiResolutionDiscriminator() if disc == "mrd" else None,
+                             device=args.device)
+    if args.restore_step is not None:
+        step = trainer.restore(args.restore_step if args.restore_step >= 0 else None)
+        print(f"resumed from step {step}")
+    trainer.train()
+    print(f"vocoder checkpoints under {args.out_dir} (each step's generator.npz loads "
+          "through synthesis.load_vocoder / --vocoder)")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="visual-onoma-to-wave-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -319,6 +366,42 @@ def main(argv=None):
     s.add_argument("--metrics", action="store_true",
                    help="also teacher-forced mel_l1 and MCD, free-running DTW-MCD (dB)")
     s.set_defaults(fn=cmd_evaluate)
+
+    s = sub.add_parser("train-vocoder",
+                       help="GAN-train a vocoder generator from a directory of wavs")
+    s.add_argument("wav_dir", help="directory of .wav training clips")
+    s.add_argument("out_dir", help="checkpoint output directory")
+    s.add_argument("--steps", type=int, default=200_000)
+    s.add_argument("--batch-size", type=int, default=16)
+    s.add_argument("--segment-size", type=int, default=8192)
+    s.add_argument("--lr", type=float, default=None,
+                   help="generator / discriminator learning rate (default: the family's "
+                        "recipe, 2e-4 HiFi-GAN, 1e-4 iSTFTNet and BigVGAN)")
+    s.add_argument("--grad-clip", type=float, default=None,
+                   help="global-norm gradient clip, 0 disables (default: the family's "
+                        "recipe, off, 1e3 for iSTFTNet and BigVGAN)")
+    s.add_argument("--save-every", type=int, default=10_000)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--log-dir", default=None)
+    s.add_argument("--restore-step", type=int, default=None,
+                   help="resume from this checkpoint step (-1 = the latest)")
+    s.add_argument("--family", default="hifigan", choices=VOCODER_FAMILIES,
+                   help="generator family (hifigan is V1)")
+    s.add_argument("--disc", default=None, choices=["msd", "mrd"],
+                   help="the discriminator beside the MPD (default: mrd for bigvgan, msd "
+                        "otherwise)")
+    s.add_argument("--bf16", action="store_true",
+                   help="mixed-precision GAN step: not ported yet (ROADMAP A6)")
+    s.add_argument("--on-divergence", default="halt", choices=["halt", "warn"],
+                   help="the GAN-collapse watchdog's action: halt checkpoints the diverged "
+                        "state beside a generator_last_healthy artifact and stops; warn "
+                        "prints once and goes on")
+    s.add_argument("--ema-decay", type=float, default=0.0,
+                   help="EMA of the generator's parameters (0 = off); saved as "
+                        "generator_ema.npz beside each checkpoint's generator.npz")
+    s.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' fails when no GPU is visible")
+    s.set_defaults(fn=cmd_train_vocoder)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -9,8 +9,10 @@ leaky ReLU 0.1 inside the network and PyTorch's default 0.01 before
 `visual_onoma_to_wave_tpu/models/hifigan.py::convert_torch_state_dict` reads.
 On the card every ResBlock1 stage (V1, V2) is one launch of the fused MRF
 kernel (`ops/mrf.py`, `csrc/mrf.cu`), which beat the cuDNN chain at all four
-V1 stage shapes (PERF.md); ResBlock2 stages (V3) and every stage on the CPU
-run through the modules.
+V1 stage shapes (PERF.md); ResBlock2 stages (V3), every stage on the CPU and
+every stage of a generator in `.train()` (the kernel has no backward; GAN
+training takes the plain chain, as the reference's takes XLA) run through
+the modules.
 
 `receptive_halo_frames` is the generator's one-sided receptive field in mel
 frames; `vocoder_infer_chunked` vocodes long or streamed mels in bounded
@@ -109,7 +111,7 @@ class HiFiGANGenerator(nn.Module):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             blocks = self.resblocks[i * n:(i + 1) * n]
             if self._mrf is not None:
-                x = self._mrf(i, blocks, x)
+                x = self._mrf(i, blocks, x, fused=not self.training)
                 continue
             acc = None
             for block in blocks:

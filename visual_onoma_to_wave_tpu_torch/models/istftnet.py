@@ -15,9 +15,10 @@ presets are C8C8I (two x8 stages, 16-point iSTFT) and melrate (no learned
 upsampling, one MRF stage at mel rate, 1024-point iSTFT). Module names are
 those of the port's HiFi-GAN (`conv_pre`, `ups.i`, `resblocks.r` with
 r = i * 3 + j, `conv_post`), so `bridge.hifigan_state_dict` maps the JAX
-tree. On the card every MRF stage is one launch of the fused MRF kernel
-(`ops/mrf.py`, `csrc/mrf.cu`); on the CPU it runs through the `ResBlock1`
-modules.
+tree. On the card every MRF stage of a generator in `.eval()` is one launch
+of the fused MRF kernel (`ops/mrf.py`, `csrc/mrf.cu`); on the CPU, and in
+`.train()` on any device (the kernel has no backward), it runs through the
+`ResBlock1` modules.
 """
 from __future__ import annotations
 
@@ -141,9 +142,10 @@ class ISTFTNetGenerator(nn.Module):
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(mel.transpose(1, 2))
         for i, up in enumerate(self.ups):
-            x = self._mrf(i, self._stage_blocks(i), up(F.leaky_relu(x, LRELU_SLOPE)))
+            x = self._mrf(i, self._stage_blocks(i), up(F.leaky_relu(x, LRELU_SLOPE)),
+                          fused=not self.training)
         if not self.ups:
-            x = self._mrf(0, self._stage_blocks(0), x)
+            x = self._mrf(0, self._stage_blocks(0), x, fused=not self.training)
         spec = self.conv_post(F.leaky_relu(x, 0.01)).float().transpose(1, 2)  # head in fp32
         n_bins = self.istft_n_fft // 2 + 1
         logmag, phase = spec[..., :n_bins], spec[..., n_bins:]

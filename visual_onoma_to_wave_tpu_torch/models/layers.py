@@ -44,19 +44,27 @@ def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
 
 class Dropout(nn.Module):
     """Inverted dropout whose masks come from `self.generator` (a
-    `torch.Generator` on the input's device, set by `set_dropout_generator`);
-    the identity under `.eval()` or at rate 0."""
+    `torch.Generator`, set by `set_dropout_generator`); the identity under
+    `.eval()` or at rate 0. The mask is drawn on the generator's own device
+    and moved to the input's, so a CPU generator gives a model on the card
+    the CPU's masks bit for bit; without a generator it is drawn on the
+    input's device from the global RNG."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator: torch.Generator | None = None
 
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """The boolean mask of the elements of `x` that this call keeps."""
+        device = self.generator.device if self.generator is not None else x.device
+        keep = torch.rand(x.shape, generator=self.generator, device=device) >= self.p
+        return keep.to(x.device)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), 0.0)
+        return torch.where(self.keep_mask(x), x / (1.0 - self.p), 0.0)
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator | None) -> None:

@@ -7,9 +7,12 @@ mag = exp(min(logmag, ln 100)), and the n_fft = 1024 iSTFT head
 (`models/istftnet.py`). The published mel-Vocos widths are the defaults
 (dim 512, intermediate 1536, 8 blocks; Siuzdak, arXiv:2306.00814).
 
-Every ConvNeXt block runs through `ops/convnext.py::convnext_block`: the CUDA
-kernel on the card, its plain version on the CPU. That is the JAX package's
-serving form (`fused_kernel=True`), with the erf GELU served by the kernel too.
+Under `.eval()` every ConvNeXt block runs through `ops/convnext.py::
+convnext_block`: the CUDA kernel on the card, its plain version on the CPU.
+That is the JAX package's serving form (`fused_kernel=True`), with the erf
+GELU served by the kernel too. Under `.train()` every block takes the plain
+version with autograd on any device (the kernel has no backward), as the MHA
+of the acoustic model does.
 `apply_fused` runs the whole trunk as one `convnext_trunk` launch. On the card
 each block keeps its weights packed for the kernel, and the generator keeps
 the blocks' weights stacked (and packed) for the trunk, both made again only
@@ -32,6 +35,7 @@ from torch import nn
 from visual_onoma_to_wave_tpu_torch.models.istftnet import _MAX_MAG, istft_overlap_add
 from visual_onoma_to_wave_tpu_torch.ops.convnext import (
     convnext_block,
+    convnext_block_reference,
     convnext_trunk,
     pack_convnext_weights,
 )
@@ -91,6 +95,9 @@ class ConvNeXtBlock(nn.Module):
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:    # the kernel has no backward: GAN training takes the plain block
+            return convnext_block_reference(x, *self.weights(),
+                                            gelu_approximate=self.gelu_approximate)
         packed = self.packed(x.dtype) if x.device.type == "cuda" else None
         return convnext_block(x, *self.weights(), gelu_approximate=self.gelu_approximate,
                               packed=packed)

@@ -270,7 +270,9 @@ class MRFStages:
     weights packed once (`pack_mrf_weights`, then `pack_mrf_kernel_weights`
     in x's type) and packed again only when a weight changed (a new tensor,
     or an in-place write such as `load_state_dict`, which bumps its version
-    counter); on the CPU the branches run as modules and are averaged."""
+    counter); on the CPU, or with `fused=False` (a generator in `.train()`:
+    the kernel has no backward), the branches run as modules and are
+    averaged."""
 
     def __init__(self, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS):
         self.kernel_sizes = tuple(kernel_sizes)
@@ -287,8 +289,8 @@ class MRFStages:
             self._packed[i] = cached
         return cached[1]
 
-    def __call__(self, i: int, blocks, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cuda":
+    def __call__(self, i: int, blocks, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+        if fused and x.device.type == "cuda":
             mats, biases, packed = self.packed(i, blocks, x.dtype)
             return mrf_stage_fused(x, *mats, biases, self.kernel_sizes, self.dilations,
                                    packed=packed)
