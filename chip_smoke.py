@@ -139,7 +139,23 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      one attention launch per FFT block and train batch, held exactly; then
      5 paired fine-tuning steps, no launch.
 
-Each path (phases 4-7, 9-17) is driven with every launch count set to 0 just
+  18. export: the demo synthesizer exported for `cuda` (`export.py`,
+     `torch.export` with the kernels as custom ops), loaded in a fresh
+     `ExportedSynthesizer`, serving the 4 golden requests against the live
+     path (EXPORT_ATOL) and 4 HTTP requests through `BatchingServer`; the
+     ICASSP B16 synthesizers of phase 4 (HiFi-GAN V1: B1 10 and B2 4
+     launches a call through the artifact; mel-Vocos: B4 8) exported and
+     run at phase 4's batch against the live fused step, artifact and live
+     ms (CUDA events), export and load seconds and artifact bytes printed;
+  19. scale-out on one card: an nccl process group of one, one
+     data-parallel train step of phase 4's acoustic model (global BatchNorm
+     statistics and loss counts, the gradient all-reduce, dropout on)
+     against the plain step from the same state (DP_LOSS_RTOL,
+     DP_PARAM_ATOL), both timed; `parallel.make_sharded_synth` over the
+     card's device list against the live batch. Nothing measures NCCL across
+     GPUs.
+
+Each path (phases 4-7, 9-19) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
@@ -2458,6 +2474,300 @@ def phase_vocoder_training(dev, card: str, mel: torch.Tensor, train_cfg,
 
 
 
+# phase 18: the exported artifact against the live path on the card. Both run
+# the same kernels on the same inputs; the artifact's graph packs the MRF
+# weights itself (the same values the live path caches), so the tolerances
+# are the golden's: durations and mel lengths exact, mel 1e-4 and waveform
+# 1e-5 absolute
+EXPORT_ATOL = {"mel": 1e-4, "wav": 1e-5}
+GOLDEN_REQUESTS = (("バウバウ", "bell", [1.0, 0.6, 1.0, 0.6], 1.0, 1.0),
+                   ("チパチパチパ", "drum", None, 1.0, 1.0),
+                   ("パシウドパシウド", "bell", None, 1.2, 1.0),
+                   ("シトパリ", "drum", None, 1.0, 1.5))
+
+
+def demo_synthesizer(dev, config: str = "config.json", vocoder: str = "vocoder.npz"):
+    """`Synthesizer.from_checkpoint` on the committed demo weights, its
+    metadata and vocabulary from the demo's preprocessed directory."""
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+
+    cfg = load_config(DEMO / config)
+    cfg = cfg.replace(path=cfg.path.__class__(
+        corpus="", formatted="", preprocessed=str(DEMO / "preprocessed"), font="",
+        ckpt="", log="", result=""))
+    return Synthesizer.from_checkpoint(cfg, str(DEMO / "torch" / "acoustic.npz"),
+                                       str(DEMO / "torch" / vocoder), device=dev)
+
+
+def icassp_synthesizer(dev, vocoder: str):
+    """A `Synthesizer` around `icassp_b16`'s models: the ICASSP config, a
+    vocabulary of 64 ids, 10 sound classes, cells of 24 x 102 pixels."""
+    from visual_onoma_to_wave_tpu_torch.config import Config, DatasetMetadata, FeatureStats
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+
+    model, gen, batch = icassp_b16(dev, vocoder)
+    stats = FeatureStats(-2.0, 2.0, 0.0, 1.0)
+    meta = DatasetMetadata(audiotype_map={f"class{i}": i for i in range(10)},
+                           energy_stats=stats, kurtosis_stats=stats, max_pixelsize=102,
+                           image_height=24, label_width={})
+    symbols = {chr(0x30A0 + i): i for i in range(1, 64)}
+    return Synthesizer(Config(), model, meta, symbols, gen, device=dev), batch
+
+
+def artifact_bytes(d: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def check_artifact(phase: str, got, want) -> dict:
+    """`synthesize_batch` results of the artifact against the live path's."""
+    err = {"mel": 0.0, "wav": 0.0}
+    for g, w in zip(got, want):
+        if g.mel_len != w.mel_len or not np.array_equal(g.durations, w.durations):
+            raise AssertionError(f"{phase}: mel_len {g.mel_len} / durations {g.durations} vs "
+                                 f"live {w.mel_len} / {w.durations}")
+        for k in err:
+            err[k] = max(err[k], float(np.abs(getattr(g, k) - getattr(w, k)).max()))
+    for k, tol in EXPORT_ATOL.items():
+        if err[k] > tol:
+            raise AssertionError(f"{phase}: artifact {k} off the live path by {err[k]:.3e} > {tol}")
+    return err
+
+
+def phase_export(dev, card: str, tmp: pathlib.Path) -> dict:
+    """(a) The demo synthesizer exported for `cuda`, loaded in a fresh
+    `ExportedSynthesizer`, serving the 4 golden requests against the live
+    path (EXPORT_ATOL; one B1 launch per FFT block and one B2 launch per MRF
+    stage through the artifact), then 4 concurrent HTTP requests through
+    `BatchingServer` over it. (b) The ICASSP B16 HiFi-GAN V1 synthesizer of
+    phase 4 exported and run at phase 4's batch: B1 10 and B2 4 launches a
+    call, its outputs against the live fused step, artifact vs live ms (CUDA
+    events after warmup), export and load seconds, artifact bytes. (c) The
+    same with mel-Vocos at its published widths: B4 8 launches a call."""
+    import base64
+    import http.client
+    import threading
+    import time
+
+    from visual_onoma_to_wave_tpu_torch.export import ExportedSynthesizer, export_synthesizer
+    from visual_onoma_to_wave_tpu_torch.serve import BatchingServer
+    from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+
+    phase = "18 export"
+    result = {}
+    synth = demo_synthesizer(dev)
+    t0 = time.perf_counter()
+    export_synthesizer(synth, tmp / "demo", max_batch=4, text_lens=(4, 8), devices=(dev.type,))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp = ExportedSynthesizer.load(tmp / "demo", device=dev.type)
+    load_s = time.perf_counter() - t0
+    texts, types, rates, e, d = zip(*GOLDEN_REQUESTS)
+    kw = dict(width_rates=list(rates), e_control=list(e), d_control=list(d))
+    live = synth.synthesize_batch(list(texts), list(types), **kw)
+    zero_launch_counts()
+    got = exp.synthesize_batch(list(texts), list(types), **kw)
+    per_call = per_call_launches(synth.model, synth.vocoder) if dev.type == "cuda" else {}
+    expect_launches(phase + " demo", launch_counts(), per_call)
+    err = check_artifact(phase + " demo", got, live)
+    answers = [None] * 4
+    srv = BatchingServer(exp, port=0, max_batch=4, batch_window_ms=50.0)
+    srv.warmup()
+    srv.reset_stats()
+
+    def post(i):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        try:
+            body = {"text": texts[i], "audiotype": types[i], "e_control": e[i],
+                    "d_control": d[i]}
+            conn.request("POST", "/v1/synthesize", json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            answers[i] = (resp.status, json.loads(resp.read()))
+        finally:
+            conn.close()
+
+    zero_launch_counts()
+    srv.start()
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        stats = srv.snapshot_stats()
+    finally:
+        srv.stop()
+    for i, ans in enumerate(answers):
+        if ans is None or ans[0] != 200 or len(base64.b64decode(ans[1]["wav_b64"])) < \
+                ans[1]["mel_frames"] * HOP * 2:
+            raise AssertionError(f"{phase} http: request {i} answered {ans and ans[0]}")
+    expect_launches(phase + " http", launch_counts(),
+                    {k: v * stats["batches"] for k, v in per_call.items()})
+    result["demo"] = {"export_s": export_s, "load_s": load_s,
+                      "artifact_bytes": artifact_bytes(tmp / "demo"), "max_abs_err": err,
+                      "atol": EXPORT_ATOL, "launches_per_call": per_call,
+                      "http_answered_200": 4, "http_batches": stats["batches"]}
+    say(phase + " demo", card=card, **result["demo"])
+
+    for vocoder, key in (("HiFi-GAN", "icassp_hifigan_v1"), ("Vocos", "icassp_vocos")):
+        synth, batch = icassp_synthesizer(dev, vocoder)
+        out_dir = tmp / key
+        t0 = time.perf_counter()
+        export_synthesizer(synth, out_dir, max_batch=B, text_lens=(C,), devices=(dev.type,))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exp = ExportedSynthesizer.load(out_dir, device=dev.type)
+        load_s = time.perf_counter() - t0
+        args = (batch["audiotypes"].int(), batch["texts"].int(), batch["src_lens"].int(),
+                torch.ones(B, device=dev), torch.ones(B, device=dev))
+        program = functools.partial(exp._program, *args, image_cells=batch["image_cells"])
+        fused = make_fused_infer(synth.model, synth.vocoder)
+        with torch.inference_mode():
+            want = fused(batch)
+            zero_launch_counts()
+            got = program()
+            per_call = per_call_launches(synth.model, synth.vocoder) if dev.type == "cuda" else {}
+            expect_launches(f"{phase} {key}", launch_counts(), per_call)
+            mel_err = float((got[0] - want["postnet_mel"]).abs().max())
+            wav_err = float((got[4] - want["wav"]).abs().max())
+            if not torch.equal(got[1], want["mel_lens"]) or mel_err > EXPORT_ATOL["mel"] or \
+                    wav_err > EXPORT_ATOL["wav"]:
+                raise AssertionError(f"{phase} {key}: artifact off the live path: mel_lens "
+                                     f"equal {torch.equal(got[1], want['mel_lens'])}, mel "
+                                     f"{mel_err:.3e}, wav {wav_err:.3e}")
+            artifact_ms = live_ms = artifact_ms_again = None
+            if dev.type == "cuda":    # artifact, live, artifact: both under the same clocks
+                artifact_ms = time_cuda(program, 5, warmup=2)
+                live_ms = time_cuda(lambda: fused(batch), 5, warmup=2)
+                artifact_ms_again = time_cuda(program, 5, warmup=0)
+        result[key] = {"export_s": export_s, "load_s": load_s,
+                       "artifact_bytes": artifact_bytes(out_dir),
+                       "parameters": sum(p.numel() for m in (synth.model, synth.vocoder)
+                                         for p in m.parameters()),
+                       "launches_per_call": per_call, "max_abs_err": {"mel": mel_err,
+                                                                     "wav": wav_err},
+                       "artifact_ms": [artifact_ms, artifact_ms_again], "live_ms": live_ms,
+                       "mel_lens": got[1].tolist()}
+        say(f"{phase} {key}", card=card, batch=B, chars=C, **result[key])
+        del exp, program
+    return result
+
+
+# phase 19: the data-parallel step through an nccl group of one process
+# against the plain step from the same state. With one process every
+# all-reduce is the identity; what differs is the order of the sums (the
+# BatchNorms' sum / count against mean), so the bounds are those of the
+# CPU test of two processes: losses within 1e-5 relative, parameters within
+# 1e-6 absolute where the gradient is resolved (>= 1e-2 of its leaf's RMS,
+# in a leaf whose RMS is >= 1e-4 of the whole gradient's: Adam's first
+# update moves roundoff-size gradients by +-lr either way); the sharded
+# synthesizer over the card's one device within 1e-5 of the live batch
+DP_LOSS_RTOL, DP_PARAM_ATOL, SHARDED_ATOL = 1e-5, 1e-6, 1e-5
+
+
+def dp_batch(dev) -> dict:
+    """A training batch of phase 4's acoustic model: B 16, 8 characters,
+    mels of 480 frames (4 items shorter), random targets from seed 0."""
+    rng = np.random.default_rng(0)
+    dur = np.full((B, C), 60, np.int32)
+    dur[-4:, -2:] = 0
+    b = {"audiotypes": (np.arange(B) % 10).astype(np.int32),
+         "texts": rng.integers(1, 64, (B, C)).astype(np.int32),
+         "src_lens": np.full((B,), C, np.int32),
+         "image_cells": rng.uniform(0, 1, (B, C, 24, 102)).astype(np.float32),
+         "mels": rng.standard_normal((B, 480, 80)).astype(np.float32),
+         "energies": rng.standard_normal((B, C)).astype(np.float32),
+         "durations": dur}
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def phase_scale_out(dev, card: str) -> dict:
+    """An nccl process group of one on the card: one data-parallel train
+    step (global BatchNorm statistics, global loss counts, the gradient
+    all-reduce, dropout on) of phase 4's acoustic model against the plain
+    step from the same state, both timed; then `make_sharded_synth` over the
+    card's device list against the live fused step. Nothing here measures
+    NCCL across cards: the machine has one."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from visual_onoma_to_wave_tpu_torch.parallel import init_distributed, make_sharded_synth
+    from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+    from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
+    from visual_onoma_to_wave_tpu_torch.training.train_state import TrainState, train_step
+
+    phase = "19 scale-out"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev.type)
+    try:
+        model, gen, batch = icassp_b16(dev, "HiFi-GAN")
+        train_batch = dp_batch(dev)
+        out, states = {}, {}
+        for name, shard in (("plain", None), ("data_parallel", (0, 1))):
+            m = copy.deepcopy(model).train()
+            state = TrainState(m, NoamAdam(m.parameters(), init_lr=1e-3, warmup_steps=400),
+                               torch.Generator(device=dev).manual_seed(1), shard=shard)
+            zero_launch_counts()
+            losses = train_step(state, train_batch)
+            expect_launches(f"{phase} {name}", launch_counts(), {})
+            out[name] = {k: float(v) for k, v in losses.items()}
+            out[name + "_grads"] = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+            states[name] = state
+        rel = {k: abs(out["data_parallel"][k] - v) / max(abs(v), 1e-12)
+               for k, v in out["plain"].items()}
+        if max(rel.values()) > DP_LOSS_RTOL:
+            raise AssertionError(f"{phase}: the data-parallel step's losses off the plain "
+                                 f"step's: {rel}")
+        grads = out["plain_grads"]
+        rms = float(torch.sqrt(sum((g * g).sum() for g in grads.values())
+                               / sum(g.numel() for g in grads.values())))
+        worst, compared = 0.0, 0
+        dp_params = dict(states["data_parallel"].model.named_parameters())
+        for n, p in states["plain"].model.named_parameters():
+            g = grads[n]
+            leaf = float(torch.sqrt((g * g).mean()))
+            resolved = (g.abs() >= 1e-2 * leaf) & (leaf >= 1e-4 * rms)
+            if resolved.any():
+                worst = max(worst, float((dp_params[n] - p).detach()[resolved].abs().max()))
+                compared += int(resolved.sum())
+        if worst > DP_PARAM_ATOL:
+            raise AssertionError(f"{phase}: parameters after the data-parallel step off the "
+                                 f"plain step's by {worst:.3e} > {DP_PARAM_ATOL}")
+        step_ms = {name: time_cuda(lambda st=st: train_step(st, train_batch), 3, warmup=1)
+                   for name, st in states.items()} if dev.type == "cuda" else None
+        del states, out["plain_grads"], out["data_parallel_grads"]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        fused = make_fused_infer(model, gen)
+        host = {k: v.cpu().numpy() for k, v in batch.items()}
+        run = make_sharded_synth(model, gen, [dev])
+        with torch.inference_mode():
+            want = fused(batch)
+        zero_launch_counts()
+        wavs, lens = run(host)
+        expect_launches(phase + " sharded synth", launch_counts(),
+                        per_call_launches(model, gen) if dev.type == "cuda" else {})
+        sharded_err = float(np.abs(wavs - want["wav"].cpu().numpy()).max())
+        if not np.array_equal(lens, want["mel_lens"].cpu().numpy()) or sharded_err > SHARDED_ATOL:
+            raise AssertionError(f"{phase}: sharded synth off the live batch by {sharded_err:.3e}")
+    finally:
+        dist.destroy_process_group()
+    result = {"backend": "nccl" if dev.type == "cuda" else "gloo", "world_size": 1, "losses": out["data_parallel"],
+              "loss_max_rel_err": max(rel.values()), "loss_rtol": DP_LOSS_RTOL,
+              "param_max_abs_err_resolved": worst, "param_elements_compared": compared,
+              "param_atol": DP_PARAM_ATOL, "step_ms": step_ms,
+              "sharded_devices": [str(dev)], "sharded_max_abs_err": sharded_err,
+              "sharded_atol": SHARDED_ATOL,
+              "note": "one card: nothing here measures NCCL across GPUs"}
+    say(phase, card=card, **result)
+    return result
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -2485,6 +2795,8 @@ def main() -> int:
         phase_demo_server(dev, probe["smi"])
         phase_vocoder_training(dev, probe["smi"], served["postnet_mel"][:CHUNK_B].contiguous(),
                                train["cfg"], pathlib.Path(tmp))
+        phase_export(dev, probe["smi"], pathlib.Path(tmp))
+    phase_scale_out(dev, probe["smi"])
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"

@@ -20,10 +20,13 @@ scoring functions score the three committed vocoders on a clip; `cli
 train-vocoder` trains HiFi-GAN V1 two steps on a tiny wav directory, its
 generator.npz then serving `cli synthesize --vocoder` with a config that
 names it, and `tools/vocoder_longrun_torch.py` trains and scores
-iSTFTNet-mel at a tiny batch. A source scan of every port module
-(`demo_server.py`, `utils/plotting.py`, `models/hifigan_disc.py` and
-`training/vocoder_trainer.py` included) and those scripts backs this up for
-imports inside functions.
+iSTFTNet-mel at a tiny batch; `cli export` writes a CPU artifact of the
+demo checkpoint, `cli serve --exported` serves one HTTP request from it,
+and `parallel.make_sharded_synth` runs two CPU replicas. A source scan of
+every port module (`demo_server.py`, `utils/plotting.py`,
+`models/hifigan_disc.py`, `training/vocoder_trainer.py`, `export.py` and
+`parallel/` included) and those scripts backs this up for imports inside
+functions.
 """
 from __future__ import annotations
 
@@ -39,11 +42,12 @@ PORT = ROOT / "visual_onoma_to_wave_tpu_torch"
 SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
            ROOT / "tools" / "acoustic_floor_torch.py", ROOT / "tools" / "eval_quality_demo_torch.py",
            ROOT / "tools" / "vocoder_longrun_torch.py",
-           ROOT / "tools" / "gan_step_ab_torch.py")
+           ROOT / "tools" / "gan_step_ab_torch.py", ROOT / "tools" / "corpus_compare_torch.py")
 # port modules the source scans must reach (added with the demo server and
 # with GAN vocoder training)
 SCANNED = ("demo_server.py", "utils/plotting.py", "models/hifigan_disc.py",
-           "training/vocoder_trainer.py")
+           "training/vocoder_trainer.py", "export.py", "parallel/distributed.py",
+           "parallel/serving.py")
 JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 NO_JAX = JAX_STACK + (JAX_PACKAGE,)
@@ -262,6 +266,50 @@ with wave.open(str(work / "out.wav"), "rb") as w:
 assert vocoder_longrun_torch.main(["--families", "istftnet-mel", "--steps", "2", "--every", "1",
                                    "--batch", "1", "--segment-size", "2048",
                                    "--device", "cpu"]) == 0
+import shutil
+shutil.rmtree(work)     # two full-state checkpoints of the full-width GAN: 2.3 GB
+"""
+
+
+# `cli export` of the demo checkpoint for the CPU, `cli serve --exported`
+# answering one HTTP request from it, and two CPU replicas of the demo models
+# through `parallel.make_sharded_synth`
+EXPORT = """
+import json, pathlib, tempfile, threading, time, urllib.request
+import numpy as np, torch
+torch.set_num_threads(2)
+import visual_onoma_to_wave_tpu_torch.serve as serve
+from visual_onoma_to_wave_tpu_torch.cli import main
+from visual_onoma_to_wave_tpu_torch.parallel import make_sharded_synth
+from visual_onoma_to_wave_tpu_torch.config import load_config
+from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+d, out = "examples/checkpoints/demo", pathlib.Path(tempfile.mkdtemp()) / "artifact"
+main(["export", d + "/config.json", "--acoustic", d + "/torch/acoustic.npz", "--vocoder",
+      d + "/torch/vocoder.npz", "--out", str(out), "--max-batch", "2", "--text-lens", "4",
+      "--devices", "cpu"])
+assert json.loads((out / "manifest.json").read_text())["devices"] == ["cpu"]
+servers = []
+class Once(serve.BatchingServer):
+    def serve_forever(self):
+        servers.append(self)
+        self.start()
+serve.BatchingServer = Once
+main(["serve", "--exported", str(out), "--device", "cpu", "--port", "0"])
+body = json.dumps({"text": "パン", "audiotype": "drum"}).encode()
+req = urllib.request.Request(f"http://127.0.0.1:{servers[0].port}/v1/synthesize", data=body,
+                             headers={"Content-Type": "application/json"})
+with urllib.request.urlopen(req, timeout=120) as resp:
+    assert json.loads(resp.read())["mel_frames"] >= 1
+servers[0].stop()
+synth = Synthesizer.from_checkpoint(load_config(d + "/config.json"), d + "/torch/acoustic.npz",
+                                    d + "/torch/vocoder.npz", device="cpu")
+g = np.load(d + "/torch/golden.npz")
+batch = {k: g[k] for k in ("audiotypes", "texts", "src_lens", "image_cells")}
+wavs, lens = make_sharded_synth(synth.model, synth.vocoder, ["cpu", "cpu"])(
+    batch, g["e_control"], g["d_control"])
+assert np.array_equal(lens, g["mel_lens"]) and np.abs(wavs - g["wav"]).max() < 1e-5
+import shutil
+shutil.rmtree(out.parent)
 """
 
 
@@ -389,12 +437,13 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), DEMO),
     (NO_JAX + ("yaml",), GATE),
     (NO_JAX + ("yaml",), VOCODER_TRAIN),
+    (NO_JAX + ("yaml",), EXPORT),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
         "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
         "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax",
         "cli-demo-without-jax", "quality-gate-scoring-without-jax",
-        "train-vocoder-and-longrun-tool-without-jax"])
+        "train-vocoder-and-longrun-tool-without-jax", "export-and-serve-exported-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus

@@ -5,16 +5,19 @@
     python3 tools/acoustic_floor_torch.py [--steps 10000] [--n-per-class 60]
         [--batch 16] [--val-step 2000] [--train-seed 0] [--work DIR] [--device cuda]
         [--width {icassp,demo,small}] [--allow-tf32] [--loader-workers N]
-        [--threads N] [--mask-device cpu] [--mask-check]
+        [--threads N] [--mask-device cpu] [--mask-check] [--corpus-device cpu|cuda]
+        [--zero-roundoff-grads]
 
 Builds the port's synthetic corpus (`data/synthetic_corpus.py`, the
 examples' generator: 2 classes x --n-per-class clips, seed 0), formats it,
-writes its TextGrids and preprocesses it on --device (the mel kernel on the
-card), then trains the model of --width (default `icassp`: the ICASSP
+writes its TextGrids and preprocesses it on --corpus-device (default
+--device; the mel kernel on the card, its plain fp32 chain on the CPU), then
+trains the model of --width (default `icassp`: the ICASSP
 geometry, 34.30 M parameters, the default `Config`) at --batch in fp32 with
 warm_up_step 400, max_mel_len 512 and seed 0, evaluating with the quality
 metrics (teacher-forced mel L1 and MCD, free-running DTW-MCD) every
---val-step steps, to --steps. Prints one JSON line per phase: the corpus,
+--val-step steps, to --steps; each validation line also carries how far each
+roundoff leaf (below) has moved from its initial value. Prints one JSON line per phase: the corpus,
 each validation (the trajectory, with the
 steps/s since the last one, the validation losses as `val_*`, and the means
 of the train losses logged since the last validation as `train_*` with the
@@ -38,6 +41,13 @@ The work directory (default `build/acoustic_floor/`) is emptied first.
 `--mask-device cpu` draws the dropout masks from a CPU generator seeded as the
 trainer's (train seed + 1) and moves them to the card: a card run then takes
 the CPU run's masks bit for bit and differs from it only in arithmetic.
+`--zero-roundoff-grads` (evidence only) sets to exactly zero the gradients
+that are zero in exact arithmetic, which the step otherwise computes as
+roundoff (`roundoff_leaves`): every attention's key-projection bias (the
+softmax is invariant to it) and every bias of a convolution that feeds a
+BatchNorm (the batch mean removes it). Adam moves such a leaf by about lr a
+step in the direction of its roundoff's sign; with the flag it stays put.
+
 `--mask-check` instead runs two train steps on the first batch, reads every
 dropout mask of both, prints one JSON line of their statistics (each mask's
 keep fraction against 1 - p; two same-shape masks of one step, and each mask
@@ -155,6 +165,60 @@ def mask_statistics(trainer) -> dict:
             "ok": bool(len(pair_z) and all(v < 5.0 for v in worst.values()))}
 
 
+def floor_config(work: pathlib.Path, n_per_class: int = 60, steps: int = 10_000,
+                 width: str = "icassp", batch: int = 16):
+    """Writes the floor's synthetic corpus under `work` (emptied first) and
+    returns (its config, the raw corpus root): the corpus of seed 0, the
+    model of `width`, the tool's cadence."""
+    from visual_onoma_to_wave_tpu_torch.config import config_from_dict
+    from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import build_corpus, work_config
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    raw_root, ono_root = build_corpus(work, n_per_class)
+    cfg_dict = work_config(work, ono_root, steps)
+    if WIDTHS[width] is not None:
+        cfg_dict["model"] = WIDTHS[width]
+    cfg_dict["train"]["optimizer"]["batch_size"] = batch
+    # the tool evaluates itself, from the trainer's `on_step` callback
+    cfg_dict["train"]["step"].update(val_step=10 ** 9, save_step=steps, synth_step=10 ** 9)
+    (work / "cfg.json").write_text(json.dumps(cfg_dict))
+    return config_from_dict(cfg_dict), raw_root
+
+
+def build_floor_corpus(cfg, raw_root, device: str) -> None:
+    """Formats the raw corpus, writes its TextGrids and preprocesses it on
+    `device` into `cfg.path.preprocessed`."""
+    from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
+    from visual_onoma_to_wave_tpu_torch.data.labels import prepare_textgrids
+    from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
+
+    format_dataset(cfg, raw_root)
+    prepare_textgrids(cfg.path.formatted, list(cfg.dataset.extract_labels))
+    Preprocessor(cfg, device=device).build(verbose=False)
+
+
+def roundoff_leaves(model) -> dict:
+    """{name: parameter} of the leaves whose gradient is zero in exact
+    arithmetic (`--zero-roundoff-grads`): each attention's key-projection
+    bias and each bias of a convolution directly followed by a BatchNorm."""
+    import torch
+
+    from visual_onoma_to_wave_tpu_torch.models.layers import MultiHeadAttention
+
+    leaves = {}
+    for name, m in model.named_modules():
+        if isinstance(m, MultiHeadAttention):
+            leaves[f"{name}.w_ks.bias"] = m.w_ks.bias
+        if isinstance(m, torch.nn.Sequential):
+            for i, (a, b) in enumerate(zip(m, list(m)[1:])):
+                if isinstance(b, torch.nn.modules.batchnorm._BatchNorm):
+                    conv = getattr(a, "conv", a)
+                    if getattr(conv, "bias", None) is not None:
+                        leaves[f"{name}.{i}.bias"] = conv.bias
+    return leaves
+
+
 def val_fields(means: dict) -> dict:
     """`Trainer.evaluate`'s means with its losses renamed `val_*` (the
     quality metrics keep their names)."""
@@ -194,6 +258,10 @@ def main(argv=None) -> int:
                     help="let matmuls and cuDNN convs take TF32 (evidence only)")
     ap.add_argument("--mask-device", choices=("cpu",), default=None,
                     help="draw the dropout masks from a CPU generator (train seed + 1)")
+    ap.add_argument("--corpus-device", default=None,
+                    help="where the corpus is preprocessed (default: --device)")
+    ap.add_argument("--zero-roundoff-grads", action="store_true",
+                    help="zero the gradients that are zero in exact arithmetic (evidence only)")
     ap.add_argument("--mask-check", action="store_true",
                     help="print the dropout masks' statistics over two steps and exit")
     args = ap.parse_args(argv)
@@ -204,36 +272,20 @@ def main(argv=None) -> int:
     if args.threads is not None:
         torch.set_num_threads(args.threads)
 
-    from visual_onoma_to_wave_tpu_torch.config import config_from_dict
-    from visual_onoma_to_wave_tpu_torch.data.formatting import format_dataset
-    from visual_onoma_to_wave_tpu_torch.data.labels import prepare_textgrids
-    from visual_onoma_to_wave_tpu_torch.data.preprocess import Preprocessor
-    from visual_onoma_to_wave_tpu_torch.data.synthetic_corpus import build_corpus, work_config
     from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
 
     card = card_name() if args.device.startswith("cuda") else "cpu"
+    corpus_device = args.corpus_device or args.device
     work = pathlib.Path(args.work)
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     t0 = time.perf_counter()
-    raw_root, ono_root = build_corpus(work, args.n_per_class)
-    cfg_dict = work_config(work, ono_root, args.steps)
-    if WIDTHS[args.width] is not None:
-        cfg_dict["model"] = WIDTHS[args.width]
-    cfg_dict["train"]["optimizer"]["batch_size"] = args.batch
-    # the tool evaluates itself, from the trainer's `on_step` callback
-    cfg_dict["train"]["step"].update(val_step=10 ** 9, save_step=args.steps,
-                                     synth_step=10 ** 9)
-    (work / "cfg.json").write_text(json.dumps(cfg_dict))
-    cfg = config_from_dict(cfg_dict)
-    format_dataset(cfg, raw_root)
-    prepare_textgrids(cfg.path.formatted, list(cfg.dataset.extract_labels))
-    Preprocessor(cfg, device=args.device).build(verbose=False)
+    cfg, raw_root = floor_config(work, args.n_per_class, args.steps, args.width, args.batch)
+    build_floor_corpus(cfg, raw_root, corpus_device)
     val_rows = (work / "preprocessed" / "val.txt").read_text().splitlines()
     if not val_rows:
         raise SystemExit(f"the val split is empty (n_per_class={args.n_per_class} holds no "
                          "clip number of dataset.valtest_id)")
     print(json.dumps({"metric": "acoustic_floor_corpus", "device": card,
+                      "corpus_device": corpus_device,
                       "prep_s": time.perf_counter() - t0, "val_clips": len(val_rows)}),
           flush=True)
 
@@ -244,8 +296,14 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = True
     if args.mask_device == "cpu":
         trainer.state.generator = torch.Generator().manual_seed(args.train_seed + 1)
+    roundoff_init = {k: p.detach().clone()
+                     for k, p in roundoff_leaves(trainer.state.model).items()}
+    zeroed = roundoff_leaves(trainer.state.model) if args.zero_roundoff_grads else {}
+    for p in zeroed.values():
+        p.register_hook(torch.zeros_like)
     print(json.dumps({"metric": "acoustic_floor_modes", "train_seed": args.train_seed,
                       "width": args.width, "allow_tf32": args.allow_tf32,
+                      "zeroed_leaves": sorted(zeroed),
                       "mask_device": str(trainer.state.generator.device)}), flush=True)
     if args.mask_check:
         stats = mask_statistics(trainer)
@@ -266,11 +324,15 @@ def main(argv=None) -> int:
         if trainer.device.type == "cuda":
             torch.cuda.synchronize(trainer.device)
         now = time.perf_counter()
+        # how far Adam has walked the roundoff leaves from their initial values
+        roundoff_drift = {k: float((p.detach() - roundoff_init[k]).abs().max())
+                          for k, p in roundoff_leaves(trainer.state.model).items()}
         steps_per_s = (step - last["step"]) / (now - last["t"])
         means = trainer.evaluate(step, metrics=True)
         print(json.dumps({"metric": "acoustic_floor_val", "step": step,
                           "steps_per_s": steps_per_s, **train_log_means(logged),
-                          **val_fields(means)}), flush=True)
+                          "roundoff_leaf_drift": roundoff_drift, **val_fields(means)}),
+              flush=True)
         logged.clear()
         last.update(t=time.perf_counter(), step=step)
 

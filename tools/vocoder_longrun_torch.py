@@ -6,11 +6,12 @@ counterpart of `benchmarks/bench_vocoder_longrun.py`, scored as
     python3 tools/vocoder_longrun_torch.py [--families istftnet-mel,hifigan]
         [--steps 20000] [--every 2000] [--ema 0.9999] [--batch 16]
         [--segment-size 8192] [--lr 2e-4] [--clip 0] [--disc msd|mrd]
-        [--factor 4] [--patience 5] [--device cuda]
+        [--factor 4] [--patience 5] [--seed 0] [--device cuda]
 
 Trains each family from scratch to --steps GAN steps (the port's
 `VocoderTrainer`, the generator's EMA at --ema, the watchdog armed with
-on_divergence "halt" and a log window of 250 steps) on the deterministic
+on_divergence "halt" and a log window of 250 steps; --seed seeds its initial
+weights and its segment sampler) on the deterministic
 corpus of the reference benches: 24 structured bell / drum clips at 22.05
 kHz from numpy's `default_rng(0)`, the first 20 trained on, the last 4
 held out. Every --every steps it scores copy-synthesis on the held-out
@@ -119,6 +120,8 @@ def main(argv=None) -> int:
     ap.add_argument("--disc", choices=("msd", "mrd"), default="msd")
     ap.add_argument("--factor", type=float, default=4.0)
     ap.add_argument("--patience", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the trainer's seed: initial weights and the segment sampler")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -135,7 +138,8 @@ def main(argv=None) -> int:
                              segment_size=args.segment_size, save_every=10 ** 9, log_every=250,
                              ema_decay=args.ema, on_divergence="halt",
                              divergence_factor=args.factor, divergence_patience=args.patience,
-                             learning_rate=args.lr, grad_clip_norm=args.clip)
+                             learning_rate=args.lr, grad_clip_norm=args.clip,
+                             seed=args.seed)
     card = card_name(args.device)
     train_clips, gt, logmel = corpus_and_gt(args.device)
     for family in args.families.split(","):
@@ -158,7 +162,7 @@ def main(argv=None) -> int:
                     "metric": "vocoder_longrun_quality", "family": family, "step": step,
                     "iterate": tag, "ema_decay": args.ema, "batch": args.batch,
                     "segment_size": args.segment_size, "lr": args.lr, "clip": args.clip,
-                    "disc": args.disc, "train_wall_s": now - t0, "steps_per_s": rate,
+                    "disc": args.disc, "seed": args.seed, "train_wall_s": now - t0, "steps_per_s": rate,
                     "device": card,
                     **({"diverged_at": vt.diverged_at} if vt.diverged_at is not None else {}),
                     **make_scorer(gen, gt, logmel, args.device)()}), flush=True)

@@ -16,6 +16,9 @@ serving as subcommands.
     python -m visual_onoma_to_wave_tpu_torch.cli synthesize-batch <config> <rows> <out_dir> \
         --acoustic acoustic.npz --vocoder vocoder.npz [--batch-size 16] [--device cpu]
     python -m visual_onoma_to_wave_tpu_torch.cli serve <config> --acoustic ... [--vocoder ...]
+    python -m visual_onoma_to_wave_tpu_torch.cli serve --exported <artifact_dir> [--device cpu]
+    python -m visual_onoma_to_wave_tpu_torch.cli export <config> --acoustic ... --vocoder ...
+        --out <artifact_dir> [--max-batch 8] [--text-lens 4,8] [--devices cuda,cpu]
     python -m visual_onoma_to_wave_tpu_torch.cli demo <config> [--acoustic acoustic.npz |
         --restore-step N] [--vocoder vocoder.npz] [--host 127.0.0.1] [--port 7860]
     python -m visual_onoma_to_wave_tpu_torch.cli train-vocoder <wav_dir> <out_dir>
@@ -26,6 +29,10 @@ a training checkpoint's `<ckpt>/<step>/acoustic.npz`, or a vocoder checkpoint's
 `<out_dir>/<step>/generator.npz` (`train-vocoder`). Configs load through
 `config.load_config` (JSON, YAML or the reference's three-YAML directory).
 Every command that computes runs on `cuda` unless `--device cpu` is given.
+`train`, `evaluate` and `train-vocoder` take `--distributed` (with
+`--coordinator host:port --num-processes N --process-id I`, or torchrun's
+environment): every process runs the same command, data-parallel over the
+processes (gloo on the CPU, nccl on the card, one card per process).
 """
 from __future__ import annotations
 
@@ -129,14 +136,55 @@ def cmd_synthesize_batch(args) -> int:
     return 0
 
 
-def cmd_serve(args) -> None:
+def cmd_export(args) -> None:
     from visual_onoma_to_wave_tpu_torch.config import load_config
-    from visual_onoma_to_wave_tpu_torch.serve import BatchingServer
+    from visual_onoma_to_wave_tpu_torch.export import export_synthesizer, validate_devices
     from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
+    # the cheap arguments first: 'cuda, bogus' must not fail after a slow load
+    try:
+        devices = validate_devices(args.devices.lower().split(","))
+    except ValueError as e:
+        raise SystemExit(f"--devices: {e}") from None
+    kwargs = {}
+    if args.text_lens:
+        kwargs["text_lens"] = [int(v) for v in args.text_lens.split(",")]
     cfg = load_config(args.config)
     synth = Synthesizer.from_checkpoint(cfg, acoustic=args.acoustic, vocoder=args.vocoder,
-                                        device=args.device)
+                                        device=devices[0])
+    manifest = export_synthesizer(synth, args.out, max_batch=args.max_batch, devices=devices,
+                                  **kwargs)
+    print(f"exported {len(manifest['buckets'])} buckets in one program per device "
+          f"({','.join(devices)}) -> {args.out}")
+
+
+def cmd_serve(args) -> None:
+    from visual_onoma_to_wave_tpu_torch.serve import MAX_TEXT_LEN, BatchingServer
+
+    if args.exported:
+        from visual_onoma_to_wave_tpu_torch.export import ExportedSynthesizer
+
+        ignored = [n for n, v in (("config", args.config), ("--acoustic", args.acoustic),
+                                  ("--vocoder", args.vocoder)) if v is not None]
+        if ignored:
+            print(f"warning: serving the --exported artifact; {', '.join(ignored)} ignored "
+                  "(the artifact holds its own weights and config)")
+        synth = ExportedSynthesizer.load(args.exported, device=args.device)
+        if synth.max_batch < args.max_batch:
+            print(f"note: artifact ships batch buckets up to {synth.max_batch}; capping "
+                  "--max-batch there")
+            args.max_batch = synth.max_batch
+        # the server enforces min(its own cap, the artifact's buckets): print that
+        print(f"note: requests capped at {min(synth.max_text_len, MAX_TEXT_LEN)} characters "
+              f"(artifact text buckets {synth.max_text_len}, server cap {MAX_TEXT_LEN})")
+    else:
+        from visual_onoma_to_wave_tpu_torch.config import load_config
+        from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+
+        if not args.config or not args.acoustic:
+            raise SystemExit("serve: config and --acoustic are required (or pass --exported)")
+        synth = Synthesizer.from_checkpoint(load_config(args.config), acoustic=args.acoustic,
+                                            vocoder=args.vocoder, device=args.device)
     server = BatchingServer(synth, host=args.host, port=args.port,
                             max_batch=args.max_batch, batch_window_ms=args.window_ms,
                             max_queue=args.max_queue,
@@ -199,7 +247,31 @@ def cmd_prepare_tg(args) -> None:
                                        list(cfg.dataset.extract_labels) or None)))
 
 
+def _maybe_init_distributed(args) -> None:
+    """Join the process group of a data-parallel run (train, evaluate,
+    train-vocoder) before the trainer is built."""
+    if getattr(args, "distributed", False):
+        from visual_onoma_to_wave_tpu_torch.parallel import init_distributed
+
+        init_distributed(coordinator_address=args.coordinator,
+                         num_processes=args.num_processes, process_id=args.process_id,
+                         device=args.device)
+
+
+def _add_distributed_args(s) -> None:
+    s.add_argument("--distributed", action="store_true",
+                   help="join a data-parallel run over processes (torch.distributed: gloo "
+                        "on the CPU, nccl on the card, one card per process); every "
+                        "process runs this same command, and ckpt/log paths must be "
+                        "shared storage")
+    s.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (default: torchrun's MASTER_ADDR/PORT)")
+    s.add_argument("--num-processes", type=int, default=None)
+    s.add_argument("--process-id", type=int, default=None)
+
+
 def _trainer(args):
+    _maybe_init_distributed(args)
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.synthesis import load_vocoder
     from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
@@ -215,7 +287,11 @@ def cmd_train(args) -> None:
 
 
 def cmd_evaluate(args) -> None:
-    print(json.dumps(_trainer(args).evaluate(metrics=args.metrics)))
+    from visual_onoma_to_wave_tpu_torch.parallel import is_primary
+
+    means = _trainer(args).evaluate(metrics=args.metrics)
+    if is_primary():
+        print(json.dumps(means))
 
 
 # the generator families `train-vocoder` trains (the reference's choices)
@@ -230,6 +306,7 @@ def cmd_train_vocoder(args) -> None:
     if args.bf16:
         raise SystemExit("train-vocoder --bf16: the port's GAN step is float32 only so far "
                          "(ROADMAP A6, bf16 compute)")
+    _maybe_init_distributed(args)
     from visual_onoma_to_wave_tpu_torch.models.hifigan_disc import MultiResolutionDiscriminator
     from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
     from visual_onoma_to_wave_tpu_torch.training.vocoder_trainer import (
@@ -298,8 +375,25 @@ def main(argv=None):
                    help="global multiplier on per-row d_control")
     s.set_defaults(fn=cmd_synthesize_batch)
 
-    s = sub.add_parser("serve", help="JSON API with micro-batching")
+    s = sub.add_parser("export", help="the fused serving step as a torch.export artifact")
     common(s)
+    s.add_argument("--out", required=True, help="artifact directory")
+    s.add_argument("--max-batch", type=int, default=8)
+    s.add_argument("--text-lens", default=None,
+                   help="comma-separated text-length buckets (default: 1 and 2 text buckets)")
+    s.add_argument("--devices", default="cuda",
+                   help="comma-separated devices of the artifact's programs (cuda, cpu); the "
+                        "synthesizer loads on the first")
+    s.set_defaults(fn=cmd_export)
+
+    s = sub.add_parser("serve", help="JSON API with micro-batching")
+    s.add_argument("config", nargs="?", default=None)
+    s.add_argument("--acoustic", default=None, help="acoustic weights (.npz)")
+    s.add_argument("--vocoder", default=None, help="vocoder weights (.npz)")
+    s.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' fails when no GPU is visible")
+    s.add_argument("--exported", default=None,
+                   help="serve an `export` artifact directory (no checkpoint, no config)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=7870)
     s.add_argument("--max-batch", type=int, default=32)
@@ -359,12 +453,14 @@ def main(argv=None):
     s.add_argument("--loader-workers", type=int, default=None,
                    help="batch-loader worker processes (default: min(10, cpus); <= 1 loads "
                         "in this process behind a prefetch thread)")
+    _add_distributed_args(s)
     s.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("evaluate", help="validation losses (evaluate.py)")
     trained(s, "the waveform metrics under --metrics (needs preprocess --save-audio)")
     s.add_argument("--metrics", action="store_true",
                    help="also teacher-forced mel_l1 and MCD, free-running DTW-MCD (dB)")
+    _add_distributed_args(s)
     s.set_defaults(fn=cmd_evaluate)
 
     s = sub.add_parser("train-vocoder",
@@ -401,6 +497,7 @@ def main(argv=None):
                         "generator_ema.npz beside each checkpoint's generator.npz")
     s.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when no GPU is visible")
+    _add_distributed_args(s)
     s.set_defaults(fn=cmd_train_vocoder)
 
     args = p.parse_args(argv)

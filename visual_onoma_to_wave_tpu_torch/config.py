@@ -188,6 +188,13 @@ class Config:
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save(self, path: str | pathlib.Path) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2, default=str)
+
 
 def _tupleize(value: Any) -> Any:
     if isinstance(value, list):
@@ -318,6 +325,9 @@ class FeatureStats:
     def from_list(cls, v: Sequence[float]) -> "FeatureStats":
         return cls(min=float(v[0]), max=float(v[1]), mean=float(v[2]), std=float(v[3]))
 
+    def to_list(self) -> list[float]:
+        return [self.min, self.max, self.mean, self.std]
+
 
 @dataclass(frozen=True)
 class DatasetMetadata:
@@ -355,6 +365,24 @@ class DatasetMetadata:
             glyph_source=(vt.get("glyph_source") or [None])[0],
             font_name=(vt.get("font") or [None])[0],
         )
+
+    def save(self, preprocessed_dir: str | pathlib.Path) -> None:
+        d = pathlib.Path(preprocessed_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        with open(d / "audiotype.json", "w") as f:
+            json.dump(self.audiotype_map, f)
+        with open(d / "stats.json", "w") as f:
+            json.dump({"energy": self.energy_stats.to_list(),
+                       "kurtosis": self.kurtosis_stats.to_list()}, f)
+        with open(d / "visual_text.json", "w") as f:
+            vt = {"max_pixelsize": [self.max_pixelsize], "height": [self.image_height]}
+            if self.glyph_source is not None:
+                vt["glyph_source"] = [self.glyph_source]
+            if self.font_name is not None:
+                vt["font"] = [self.font_name]
+            json.dump(vt, f)
+        with open(d / "label_width.json", "w") as f:
+            json.dump({k: list(v) for k, v in self.label_width.items()}, f)
 
     @property
     def n_audiotype(self) -> int:

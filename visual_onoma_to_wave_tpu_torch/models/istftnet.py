@@ -67,9 +67,17 @@ def _wss_trimmed(n_frames: int, n_fft: int) -> np.ndarray:
     return np.maximum(full[trim: trim + n_frames * hop], 1e-8).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
 def _on_device(n_fft: int, n_frames: int, device: torch.device):
-    """The basis and the normaliser as tensors on `device`, copied once."""
+    """The basis and the normaliser as tensors on `device`, copied once (under
+    `torch.export` made anew: a traced graph holds them as its constants, and
+    a cache would keep the trace's fake tensors)."""
+    if torch.compiler.is_exporting():
+        return _basis_and_norm.__wrapped__(n_fft, n_frames, device)
+    return _basis_and_norm(n_fft, n_frames, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _basis_and_norm(n_fft: int, n_frames: int, device: torch.device):
     return (torch.from_numpy(istft_synthesis_kernel(n_fft)).to(device),
             torch.from_numpy(_wss_trimmed(n_frames, n_fft)).to(device))
 

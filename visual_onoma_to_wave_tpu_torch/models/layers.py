@@ -6,7 +6,11 @@ plain version with autograd. `.eval()` is `deterministic=True`: no dropout,
 BatchNorm on its running statistics, attention through the CUDA kernel on
 the card. Dropout masks come from the `torch.Generator` that
 `set_dropout_generator` hands every `Dropout` of a model, never from the
-global RNG. Public functions keep the reference's feature-last (B, T, C)
+global RNG. Under data parallelism over processes (`set_data_parallel`) each
+process holds its rows of a global batch: a `Dropout` draws the global
+batch's mask and keeps its rows, and a BatchNorm in training normalises by
+the global batch's statistics (sums all-reduced with autograd), so that the
+processes together compute the one-process step. Public functions keep the reference's feature-last (B, T, C)
 layout; convolutions transpose to PyTorch's (B, C, T) internally. Parameter
 names follow the reference state_dict layout that
 `visual_onoma_to_wave_tpu/models/convert_acoustic.py` reads.
@@ -54,11 +58,19 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator: torch.Generator | None = None
+        self.shard: tuple[int, int] | None = None   # (process, processes): see set_data_parallel
 
     def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        """The boolean mask of the elements of `x` that this call keeps."""
+        """The boolean mask of the elements of `x` that this call keeps; with
+        a shard, this process's rows of the global batch's mask."""
         device = self.generator.device if self.generator is not None else x.device
-        keep = torch.rand(x.shape, generator=self.generator, device=device) >= self.p
+        if self.shard is None:
+            keep = torch.rand(x.shape, generator=self.generator, device=device) >= self.p
+        else:
+            p, n = self.shard
+            b = x.shape[0]
+            keep = torch.rand((b * n, *x.shape[1:]), generator=self.generator,
+                              device=device)[p * b:(p + 1) * b] >= self.p
         return keep.to(x.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,21 +86,42 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator | None) -
             m.generator = generator
 
 
+def set_data_parallel(model: nn.Module, shard: tuple[int, int] | None) -> None:
+    """`shard` = (process, processes): every `Dropout` and flax BatchNorm of
+    `model` works on this process's equal share of a global batch (module
+    docstring); None: the whole batch is here."""
+    for m in model.modules():
+        if isinstance(m, (Dropout, _FlaxBatchNorm)):
+            m.shard = shard
+
+
 class _FlaxBatchNorm:
     """flax `nn.BatchNorm(momentum=0.9)` semantics for torch's BatchNorm
     modules (same parameter and buffer names; flax's momentum 0.9 is torch's
     0.1, the default). Training: normalise by the batch mean and the biased
     variance E[x^2] - E[x]^2, and move the running statistics 10% of the way
     to them, the running variance to the *biased* batch variance (torch
-    would use the unbiased one). Eval: the running statistics, as torch does."""
+    would use the unbiased one). Eval: the running statistics, as torch does.
+    With a shard (`set_data_parallel`) the batch statistics are the global
+    batch's: the sums of x and x^2 are all-reduced over the processes with
+    autograd, so the gradient flows through every process's rows."""
+
+    shard: tuple[int, int] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.ndim))
         shape = [1, -1] + [1] * (x.ndim - 2)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        if self.shard is None:
+            mean, sq = x.mean(dims), (x * x).mean(dims)
+        else:
+            from visual_onoma_to_wave_tpu_torch.parallel.distributed import all_reduce_sum
+
+            count = x.numel() // x.shape[1] * self.shard[1]
+            sums = all_reduce_sum(torch.stack([x.sum(dims), (x * x).sum(dims)]))
+            mean, sq = sums[0] / count, sums[1] / count
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

@@ -50,12 +50,18 @@ def get_vocoder(model: str = "HiFi-GAN", **kwargs) -> nn.Module:
     raise ValueError(f"unknown vocoder family: {model!r}")
 
 
+def generate(gen: nn.Module, mels: torch.Tensor) -> torch.Tensor:
+    """(B, T, n_mels) natural-log mels -> (B, T * hop) waveforms. A MelGAN
+    generator takes log10 mels, so it is fed mel / ln 10."""
+    return gen(mels / LN10 if isinstance(gen, MelGANGenerator) else mels)
+
+
 def vocoder_infer(gen: nn.Module, mels: torch.Tensor, lengths=None,
                   hop_length: int = 256) -> tuple[torch.Tensor, np.ndarray]:
-    """(B, T, n_mels) natural-log mels -> (waveforms (B, T * hop), each
-    item's sample count: lengths x hop_length, or the whole width without
-    lengths). A MelGAN generator takes log10 mels, so it is fed mel / ln 10."""
-    wavs = gen(mels / LN10 if isinstance(gen, MelGANGenerator) else mels)
+    """(B, T, n_mels) natural-log mels -> (waveforms (B, T * hop) by
+    `generate`, each item's sample count: lengths x hop_length, or the whole
+    width without lengths)."""
+    wavs = generate(gen, mels)
     if lengths is not None:
         sample_lens = np.asarray(lengths) * hop_length
     else:

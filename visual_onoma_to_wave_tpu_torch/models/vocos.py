@@ -89,6 +89,8 @@ class ConvNeXtBlock(nn.Module):
     def packed(self, dtype: torch.dtype) -> torch.Tensor:
         """pw1_w and pw2_w packed for the kernel in `dtype`
         (`pack_convnext_weights`), packed again only when either changed."""
+        if torch.compiler.is_exporting():    # fake tensors: packed inside the traced graph
+            return pack_convnext_weights(self.pw1_w, self.pw2_w, dtype)
         key = _identity(dtype, (self.pw1_w, self.pw2_w))
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, pack_convnext_weights(self.pw1_w, self.pw2_w, dtype))

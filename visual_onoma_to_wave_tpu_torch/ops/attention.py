@@ -15,11 +15,16 @@ softmax and divides by the fp32 sum at the end (see `csrc/flash_mha.cu`).
 Q, K, V and ctx are (B, T, H*dk) with heads packed on the feature axis -- the
 raw projection outputs -- and key_pad_mask is (B, T), True = padding.
 
-`attention_core` launches the CUDA kernel (`csrc/flash_mha.cu`) for tensors
-on the card and takes `attention_core_reference` for tensors on the CPU. It
-never falls back: a CUDA tensor the kernel does not take, a failed build, a
-refused launch or a call that would need a gradient raises.
-`attention_core.launches` counts kernel launches.
+`attention_core` calls the custom op `votw::attention_core`
+(`torch.library`, registered when this module is imported): its CUDA
+implementation launches the kernel (`csrc/flash_mha.cu`), its CPU
+implementation is `attention_core_reference`, and its fake implementation
+states the output's shape, so `torch.export` records the op by name and an
+exported program launches the kernel on the card. The op never falls back:
+a CUDA tensor the kernel does not take, a failed build, a refused launch, a
+call that would need a gradient or any other device raises. A CPU call that
+needs a gradient takes `attention_core_reference` directly (the op has no
+backward). `attention_core.launches` counts kernel launches.
 
 What bounds the kernel on the card: one (T, T) score tile per (item, head)
 costs 4*T*Tk*dk FLOPs over the Tk valid keys -- 0.5 GFLOP at the serving
@@ -41,6 +46,7 @@ PyTorch headers).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -72,13 +78,20 @@ def attention_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_pad_mask: torch.Tensor | None,
                    n_head: int) -> torch.Tensor:
-    """Masked softmax attention on packed (B, T, H*dk) heads.
-
-    CPU tensors take `attention_core_reference`; CUDA tensors launch the
-    kernel (fp32 or bf16, dk 64 or 128, any T) or raise.
-    """
-    if q.device.type == "cpu":
+    """Masked softmax attention on packed (B, T, H*dk) heads, through the
+    custom op: CPU tensors take `attention_core_reference`; CUDA tensors
+    launch the kernel (fp32 or bf16, dk 64 or 128, any T) or raise."""
+    if q.device.type == "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
         return attention_core_reference(q, k, v, key_pad_mask, n_head)
+    if q.device.type != "cpu":
+        _checked(q, k, v, key_pad_mask, n_head)
+        check_inference("flash_mha", q, k, v)
+    return torch.ops.votw.attention_core(q, k, v, key_pad_mask, n_head)
+
+
+def _checked(q, k, v, key_pad_mask, n_head: int) -> int:
+    """Raise on what the kernel does not take; returns dk."""
     if q.device.type != "cuda":
         raise ValueError(f"attention_core: unsupported device {q.device}")
     B, T, HD = q.shape
@@ -93,13 +106,37 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"attention_core: {name} {tuple(x.shape)} {x.dtype} "
                              f"{x.device} does not match q")
-    mask = None
-    if key_pad_mask is not None:
-        if key_pad_mask.shape != (B, T) or key_pad_mask.device != q.device:
-            raise ValueError(f"attention_core: key_pad_mask must be ({B}, {T}) "
-                             f"on {q.device}")
-        mask = key_pad_mask.to(torch.uint8).contiguous()
-    check_inference("flash_mha", q, k, v)
+    if key_pad_mask is not None and (key_pad_mask.shape != (B, T)
+                                     or key_pad_mask.device != q.device):
+        raise ValueError(f"attention_core: key_pad_mask must be ({B}, {T}) on {q.device}")
+    return dk
+
+
+attention_core.launches = 0
+
+
+@torch.library.custom_op("votw::attention_core", mutates_args=())
+def _attention_core_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       key_pad_mask: Optional[torch.Tensor], n_head: int) -> torch.Tensor:
+    raise ValueError(f"attention_core: unsupported device {q.device}")
+
+
+@_attention_core_op.register_fake
+def _(q, k, v, key_pad_mask, n_head):
+    return torch.empty_like(q)
+
+
+@_attention_core_op.register_kernel("cpu")
+def _(q, k, v, key_pad_mask, n_head):
+    return attention_core_reference(q, k, v, key_pad_mask, n_head)
+
+
+@_attention_core_op.register_kernel("cuda")
+def _attention_core_cuda(q, k, v, key_pad_mask, n_head):
+    """The kernel's launch, with every check it needs."""
+    B, T, HD = q.shape
+    dk = _checked(q, k, v, key_pad_mask, n_head)
+    mask = None if key_pad_mask is None else key_pad_mask.to(torch.uint8).contiguous()
     # the kernel loads 16-byte chunks: a view that starts off that grid is copied
     q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
                for x in (q.contiguous(), k.contiguous(), v.contiguous()))
@@ -114,9 +151,6 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch("flash_mha", err)
     attention_core.launches += 1
     return out
-
-
-attention_core.launches = 0
 
 
 def _load_library() -> ctypes.CDLL:

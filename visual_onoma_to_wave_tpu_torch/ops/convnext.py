@@ -13,10 +13,15 @@ Operands (x, dw, w1, w2) are fp32 or bf16 and every product accumulates in
 fp32; for bf16, h, a and y are rounded to bf16 where the TPU kernel rounds
 them. The trunk is `L` blocks in sequence with stacked (L, ...) weights.
 
-`convnext_block` and `convnext_trunk` launch the CUDA kernels
-(`csrc/convnext.cu`, built at first use by `ops/cuda_build.py`) for tensors
-on the card and take `convnext_block_reference` / `convnext_trunk_reference`
-for tensors on the CPU. They never fall back: a CUDA tensor the kernels do
+`convnext_block` calls the custom op `votw::convnext_block` (`torch.library`,
+registered when this module is imported): its CUDA implementation launches
+the block kernel, its CPU implementation is `convnext_block_reference`, and
+its fake implementation states the output's shape, so `torch.export` records
+the op by name. `convnext_trunk`, which only `models/vocos.py::apply_fused`
+calls, stays a plain function: it launches the trunk kernel for tensors on
+the card and takes `convnext_trunk_reference` on the CPU. Both kernels are
+in `csrc/convnext.cu`, built at first use by `ops/cuda_build.py`. Neither
+falls back: any other device, a CUDA tensor the kernels do
 not take (C other than 128, 256 or 512; M not a multiple of 128; even K or
 K over 35), a
 failed build, a refused launch or a call that would need a gradient
@@ -37,6 +42,7 @@ persistent kernel, is written in `csrc/convnext.cu`.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -198,16 +204,50 @@ def _load_library() -> ctypes.CDLL:
 def convnext_block(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
                    gelu_approximate: bool = True, packed: torch.Tensor | None = None
                    ) -> torch.Tensor:
-    """One ConvNeXt block. x: (B, T, C); dw (K, 1, C) or (K, C); w1 (C, M);
-    w2 (M, C); db, ls, lb, b2, gamma (C,); b1 (M,). `packed`:
-    `pack_convnext_weights(w1, w2, x.dtype)`, packed here if not given. CPU
-    tensors take `convnext_block_reference`; CUDA tensors launch the kernel
-    or raise."""
-    if x.device.type == "cpu":
-        return convnext_block_reference(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps,
-                                        gelu_approximate)
+    """One ConvNeXt block, through the custom op. x: (B, T, C); dw (K, 1, C)
+    or (K, C); w1 (C, M); w2 (M, C); db, ls, lb, b2, gamma (C,); b1 (M,).
+    `packed`: `pack_convnext_weights(w1, w2, x.dtype)`, packed here if not
+    given. CPU tensors take `convnext_block_reference`; CUDA tensors launch
+    the kernel or raise. A CPU call that needs a gradient takes the plain
+    version directly (the op has no backward)."""
+    weights = (dw, db, ls, lb, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights)):
+        return convnext_block_reference(x, *weights, eps, gelu_approximate)
+    if x.device.type != "cpu":
+        _checked(x, w1, "convnext_block")
+        check_inference("convnext_block", x, *weights)
+    return torch.ops.votw.convnext_block(x, *weights, float(eps), bool(gelu_approximate),
+                                         packed)
+
+
+convnext_block.launches = 0
+
+
+@torch.library.custom_op("votw::convnext_block", mutates_args=())
+def _convnext_block_op(x: torch.Tensor, dw: torch.Tensor, db: torch.Tensor, ls: torch.Tensor,
+                       lb: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                       b2: torch.Tensor, gamma: torch.Tensor, eps: float,
+                       gelu_approximate: bool, packed: Optional[torch.Tensor]) -> torch.Tensor:
+    raise ValueError(f"convnext_block: unsupported device {x.device}")
+
+
+@_convnext_block_op.register_fake
+def _(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps, gelu_approximate, packed):
+    return torch.empty_like(x)
+
+
+@_convnext_block_op.register_kernel("cpu")
+def _(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps, gelu_approximate, packed):
+    return convnext_block_reference(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps,
+                                    gelu_approximate)
+
+
+@_convnext_block_op.register_kernel("cuda")
+def _convnext_block_cuda(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps, gelu_approximate,
+                         packed):
+    """The block kernel's launch, with every check it needs."""
     _checked(x, w1, "convnext_block")
-    check_inference("convnext_block", x, dw, db, ls, lb, w1, b1, w2, b2, gamma)
     B, T, C = x.shape
     M = w1.shape[-1]
     (dw, packed, db, ls, lb, b1, b2, gamma), K = _operands(
@@ -224,9 +264,6 @@ def convnext_block(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,
     check_launch("convnext_block", err)
     convnext_block.launches += 1
     return y
-
-
-convnext_block.launches = 0
 
 
 def convnext_trunk(x, dw, db, ls, lb, w1, b1, w2, b2, gamma, eps: float = 1e-6,

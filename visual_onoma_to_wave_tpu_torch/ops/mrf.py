@@ -24,11 +24,15 @@ The kernel reads a second layout built from that packing,
 `pack_mrf_kernel_weights`: per branch the stream of (input-channel chunk,
 tap) planes it fetches, in core-matrix order, fp32 as TF32 hi and lo
 planes. `MRFStages` keeps both per stage of a generator and packs again
-only when a weight changes.
+only when a weight changes; under `torch.export` it packs inside the traced
+graph instead, so an exported program holds each weight once.
 
-`mrf_stage_fused` launches the CUDA kernel (`csrc/mrf.cu`, built at first
-use by `ops/cuda_build.py`) for tensors on the card and takes
-`mrf_stage_fused_reference` for tensors on the CPU. It never falls back: a
+`mrf_stage_fused` calls the custom op `votw::mrf_stage_fused`
+(`torch.library`, registered when this module is imported): its CUDA
+implementation launches the kernel (`csrc/mrf.cu`, built at first use by
+`ops/cuda_build.py`), its CPU implementation is `mrf_stage_fused_reference`,
+and its fake implementation states the output's shape, so `torch.export`
+records the op by name. It never falls back: any other device, a
 CUDA tensor the kernel does not take (C outside 8/16/32/64/128/256/512,
 other than three branches of three dilations, an even kernel size or one
 above 11, a stage reaching further than `HALO` frames), a failed build, a
@@ -43,6 +47,7 @@ What bounds the kernel on the card, and its design, is written in
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -229,17 +234,61 @@ def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: to
                     dtype: torch.dtype | None = None,
                     packed: list[torch.Tensor] | None = None) -> torch.Tensor:
     """One MRF stage. x: (B, C, T); weights from `pack_mrf_weights`; returns
-    (B, C, T) in `dtype` (x.dtype by default). CPU tensors take
-    `mrf_stage_fused_reference`; CUDA tensors launch the kernel or raise.
-    `packed`: the weights' `pack_mrf_kernel_weights(.., dtype)`, packed here
-    when not given."""
-    if x.device.type == "cpu":
+    (B, C, T) in `dtype` (x.dtype by default), through the custom op: CPU
+    tensors take `mrf_stage_fused_reference`; CUDA tensors launch the kernel
+    or raise. `packed`: the weights' `pack_mrf_kernel_weights(.., dtype)`,
+    packed here when not given. A CPU call that needs a gradient takes the
+    plain version directly (the op has no backward)."""
+    if x.device.type == "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w3, w7, w11, biases)):
         return mrf_stage_fused_reference(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype)
+    kernel_sizes = [int(k) for k in kernel_sizes]
+    dilations = [int(d) for ds in dilations for d in ds]
+    if x.device.type != "cpu":
+        _checked(x, (w3, w7, w11), biases, *_nested(kernel_sizes, dilations), dtype or x.dtype,
+                 packed)
+        check_inference("mrf_stage", x, w3, w7, w11, biases)
+    return torch.ops.votw.mrf_stage_fused(x, w3, w7, w11, biases, kernel_sizes, dilations,
+                                          dtype, list(packed or ()))
+
+
+mrf_stage_fused.launches = 0
+
+
+@torch.library.custom_op("votw::mrf_stage_fused", mutates_args=())
+def _mrf_stage_op(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
+                  biases: torch.Tensor, kernel_sizes: list[int], dilations: list[int],
+                  dtype: Optional[torch.dtype], packed: list[torch.Tensor]) -> torch.Tensor:
+    raise ValueError(f"mrf_stage_fused: unsupported device {x.device}")
+
+
+def _nested(kernel_sizes, dilations):
+    """The op's flat dilations as one tuple of three per branch."""
+    n = len(dilations) // max(len(kernel_sizes), 1)
+    return (tuple(int(k) for k in kernel_sizes),
+            tuple(tuple(int(d) for d in dilations[i:i + n])
+                  for i in range(0, len(dilations), n)))
+
+
+@_mrf_stage_op.register_fake
+def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
+    return x.new_empty(x.shape, dtype=dtype or x.dtype)
+
+
+@_mrf_stage_op.register_kernel("cpu")
+def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
+    return mrf_stage_fused_reference(x, w3, w7, w11, biases, *_nested(kernel_sizes, dilations),
+                                     dtype)
+
+
+@_mrf_stage_op.register_kernel("cuda")
+def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
+    """The kernel's launch (its 8 launches of one stage), with every check
+    it needs."""
     dtype = dtype or x.dtype
-    kernel_sizes = tuple(int(k) for k in kernel_sizes)
-    dilations = tuple(tuple(int(d) for d in ds) for ds in dilations)
+    kernel_sizes, dilations = _nested(kernel_sizes, dilations)
+    packed = packed or None
     _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype, packed)
-    check_inference("mrf_stage", x, w3, w7, w11, biases)
     if packed is None:
         packed = pack_mrf_kernel_weights((w3, w7, w11), dtype)
     B, C, T = x.shape
@@ -261,37 +310,45 @@ def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: to
     return out
 
 
-mrf_stage_fused.launches = 0
-
-
 class MRFStages:
     """The MRF stages of a generator whose stages are `ResBlock1` branches:
-    stage i of `blocks` runs through the kernel on CUDA tensors, with its
-    weights packed once (`pack_mrf_weights`, then `pack_mrf_kernel_weights`
-    in x's type) and packed again only when a weight changed (a new tensor,
-    or an in-place write such as `load_state_dict`, which bumps its version
-    counter); on the CPU, or with `fused=False` (a generator in `.train()`:
-    the kernel has no backward), the branches run as modules and are
-    averaged."""
+    stage i of `blocks` runs through the op `mrf_stage_fused` (the kernel on
+    CUDA tensors, its plain version on the CPU), with its weights packed once
+    (`pack_mrf_weights`, then on the card `pack_mrf_kernel_weights` in x's
+    type) and packed again only when a weight changed (a new tensor, or an
+    in-place write such as `load_state_dict`, which bumps its version
+    counter); under `torch.export` the packing is traced into the graph. With
+    `fused=False` (a generator in `.train()`: the kernel has no backward), and
+    on the CPU for a stage of other than three branches, the branches run as
+    modules and are averaged."""
 
     def __init__(self, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS):
         self.kernel_sizes = tuple(kernel_sizes)
         self.dilations = tuple(tuple(ds) for ds in dilations)
         self._packed: dict[int, tuple] = {}   # stage -> (identity, (mats, biases, packed))
 
-    def packed(self, i: int, blocks, dtype: torch.dtype):
+    @staticmethod
+    def pack(blocks, dtype: torch.dtype, device_type: str):
+        """(mats, biases, kernel stream or None on the CPU) of one stage."""
+        mats, biases = pack_mrf_weights(blocks)
+        return mats, biases, (pack_mrf_kernel_weights(mats, dtype) if device_type == "cuda"
+                              else None)
+
+    def packed(self, i: int, blocks, dtype: torch.dtype, device_type: str = "cuda"):
         params = list(blocks.parameters())
-        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        if torch.compiler.is_exporting():    # fake tensors: no identity to key a cache on
+            return self.pack(blocks, dtype, device_type)
+        key = (dtype, device_type, tuple((p.data_ptr(), p._version) for p in params))
         cached = self._packed.get(i)
         if cached is None or cached[0] != key:
-            mats, biases = pack_mrf_weights(blocks)
-            cached = (key, (mats, biases, pack_mrf_kernel_weights(mats, dtype)))
+            cached = (key, self.pack(blocks, dtype, device_type))
             self._packed[i] = cached
         return cached[1]
 
     def __call__(self, i: int, blocks, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
-        if fused and x.device.type == "cuda":
-            mats, biases, packed = self.packed(i, blocks, x.dtype)
+        # the op takes three branches; on the CPU a stage of another shape runs as modules
+        if fused and (x.device.type != "cpu" or len(self.kernel_sizes) == 3):
+            mats, biases, packed = self.packed(i, blocks, x.dtype, x.device.type)
             return mrf_stage_fused(x, *mats, biases, self.kernel_sizes, self.dilations,
                                    packed=packed)
         acc = None

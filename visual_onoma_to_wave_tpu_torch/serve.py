@@ -86,7 +86,11 @@ class BatchingServer:
                  batch_queue_reserve: int | None = None, pipeline_depth: int = 2):
         self.synth = synthesizer
         self.max_batch = int(max_batch)
-        self.max_text_len = MAX_TEXT_LEN
+        # the server's text cap, tightened to an ExportedSynthesizer's largest
+        # text bucket: an over-limit text gets a 400 at the edge and never
+        # fails a micro-batch group in the worker
+        self.max_text_len = min(MAX_TEXT_LEN,
+                                int(getattr(synthesizer, "max_text_len", MAX_TEXT_LEN)))
         self.window_s = float(batch_window_ms) / 1e3
         self.timeout_s = float(request_timeout_s)
         # watchdog of one device call; a signature's first call (kernel

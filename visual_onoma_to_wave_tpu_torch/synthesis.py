@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from visual_onoma_to_wave_tpu_torch.bridge import load_npz, vocoder_state_dict, vtts_state_dict
-from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder, vocoder_infer
+from visual_onoma_to_wave_tpu_torch.models.vocoder import generate, get_vocoder, vocoder_infer
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
 from visual_onoma_to_wave_tpu_torch.precision import pin_fp32
 
@@ -65,8 +65,8 @@ def load_vocoder(config, path: str):
 
 def vocode(gen, mel: torch.Tensor) -> torch.Tensor:
     """(B, T, n_mels) natural-log mels -> (B, samples) waveforms through
-    `models.vocoder.vocoder_infer` (which feeds a MelGAN mel / ln 10)."""
-    return vocoder_infer(gen, mel)[0]
+    `models.vocoder.generate` (which feeds a MelGAN mel / ln 10)."""
+    return generate(gen, mel)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

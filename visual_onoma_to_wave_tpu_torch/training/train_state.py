@@ -3,7 +3,12 @@ visual_onoma_to_wave_tpu/training/train_state.py).
 
 Plain functions over a `TrainState`: the model, its `NoamAdam`, the
 `torch.Generator` every dropout mask is drawn from (on the model's device),
-and the count of mini-steps taken. The train step runs the model in
+the count of mini-steps taken, and under data parallelism over processes the
+shard (process, processes) whose rows of each global batch this process
+holds: the train step then draws the global batch's dropout masks and
+BatchNorm statistics (`models/layers.py::set_data_parallel`), divides each
+loss by the global valid count, sums the gradients over the processes
+before the optimizer clips them, and reports the global batch's losses. The train step runs the model in
 `.train()` (dropout, BatchNorm on batch statistics, attention through its
 plain version with autograd: no hand-written kernel runs under autograd);
 the eval and synth steps run it in `.eval()` under `torch.no_grad()`, where
@@ -19,7 +24,7 @@ from dataclasses import dataclass
 
 import torch
 
-from visual_onoma_to_wave_tpu_torch.models.layers import set_dropout_generator
+from visual_onoma_to_wave_tpu_torch.models.layers import set_data_parallel, set_dropout_generator
 from visual_onoma_to_wave_tpu_torch.training.loss import fastspeech2_loss
 from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam, global_norm
 
@@ -32,6 +37,7 @@ class TrainState:
     optimizer: NoamAdam
     generator: torch.Generator
     step: int = 0          # mini-steps taken (the reference's TrainState.step)
+    shard: tuple[int, int] | None = None   # (process, processes) under data parallelism
 
 
 def _teacher_forced(model, batch: dict) -> dict:
@@ -51,9 +57,20 @@ def train_step(state: TrainState, batch: dict) -> dict:
     model = state.model
     model.train()
     set_dropout_generator(model, state.generator)
-    losses = fastspeech2_loss(_teacher_forced(model, batch), batch)
+    set_data_parallel(model, state.shard)
+    losses = fastspeech2_loss(_teacher_forced(model, batch), batch,
+                              global_counts=state.shard is not None)
     state.optimizer.zero_grad()
     losses["total_loss"].backward()
+    if state.shard is not None:
+        from visual_onoma_to_wave_tpu_torch.parallel.distributed import (
+            all_reduce_grads,
+            all_reduce_tensors,
+        )
+
+        all_reduce_grads(state.optimizer.params)
+        losses = {k: v.detach().clone() for k, v in losses.items()}
+        all_reduce_tensors(list(losses.values()))
     with torch.no_grad():
         grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
     state.optimizer.step()

@@ -17,9 +17,19 @@ from one `torch.Generator` seeded `train.seed + 1`, as the reference does.
 The train step runs no hand-written kernel (the attention kernel has no
 backward); evaluate and sample synthesis run the model in `.eval()`, where
 it does. On the card, TF32 is turned off before the first step
-(`precision.pin_fp32`). Not ported: the device mesh and multi-host data
-parallelism (ROADMAP A5), the compile cache, the profiler trace, and the
-sample's figure (matplotlib); `train.compute_dtype: bfloat16` raises.
+(`precision.pin_fp32`).
+
+Under a process group of more than one (`parallel.init_distributed`), every
+process plans the same global batches, keeps its rows of each
+(`parallel.shard_batch_multiprocess`) and runs the data-parallel train step
+(`train_state.py`): P processes take the one-process step on the global
+batch. The batch size must divide by P. Parameters start equal (broadcast
+from process 0); evaluate runs the whole val split on every process, so
+every process holds the same numbers; only process 0 writes checkpoints,
+logs and samples, and a barrier after each checkpoint keeps the others from
+running ahead or leaving early. Not ported: the compile cache, the profiler
+trace, and the sample's figure (matplotlib); `train.compute_dtype:
+bfloat16` raises.
 """
 from __future__ import annotations
 
@@ -32,6 +42,15 @@ import torch
 from visual_onoma_to_wave_tpu_torch.config import Config, DatasetMetadata
 from visual_onoma_to_wave_tpu_torch.data.dataset import OnomaDataset, to_device
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
+from visual_onoma_to_wave_tpu_torch.parallel.distributed import (
+    barrier,
+    broadcast_module,
+    is_primary,
+    local_device,
+    process_count,
+    process_index,
+    shard_batch_multiprocess,
+)
 from visual_onoma_to_wave_tpu_torch.synthesis import resolve_device, vocode
 from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
 from visual_onoma_to_wave_tpu_torch.training.train_state import (
@@ -42,7 +61,7 @@ from visual_onoma_to_wave_tpu_torch.training.train_state import (
     train_step,
 )
 from visual_onoma_to_wave_tpu_torch.utils.checkpoint import CheckpointManager
-from visual_onoma_to_wave_tpu_torch.utils.logging import MetricsLogger, StepTimer
+from visual_onoma_to_wave_tpu_torch.utils.logging import MetricsLogger, NullLogger, StepTimer
 
 LOSS_KEYS = ("total_loss", "mel_loss", "postnet_mel_loss", "energy_loss",
              "kurtosis_loss", "duration_loss")
@@ -59,7 +78,11 @@ class Trainer:
             raise NotImplementedError(
                 f"compute_dtype {config.train.compute_dtype!r}: the port trains float32 "
                 "only so far (ROADMAP A6, bf16 compute)")
-        self.device = resolve_device(device)
+        world = process_count()
+        self.device = resolve_device(local_device(device) if world > 1 else device)
+        if config.train.optimizer.batch_size % world:
+            raise ValueError(f"batch_size {config.train.optimizer.batch_size} does not divide "
+                             f"by the {world} processes")
         self.config = config
         self.loader_workers = loader_workers
         self.metadata = DatasetMetadata.load(config.path.preprocessed)
@@ -76,20 +99,23 @@ class Trainer:
             anneal_steps=opt.anneal_steps, anneal_rate=opt.anneal_rate, betas=opt.betas,
             eps=opt.eps, weight_decay=opt.weight_decay, grad_clip=opt.grad_clip_thresh,
             grad_acc_steps=opt.grad_acc_step)
+        broadcast_module(model)
         generator = torch.Generator(device=self.device).manual_seed(config.train.seed + 1)
-        self.state = TrainState(model, optimizer, generator)
+        self.state = TrainState(model, optimizer, generator,
+                                shard=(process_index(), world) if world > 1 else None)
 
         self.ckpt = CheckpointManager(config.path.ckpt)
         # the vocabulary beside the checkpoints: a checkpoint directory is
         # then self-describing for serving
         from visual_onoma_to_wave_tpu_torch.data.symbols import save_symbol_map
-        save_symbol_map(self.ckpt.dir, self.train_ds.symbol_map)
+        if is_primary():
+            save_symbol_map(self.ckpt.dir, self.train_ds.symbol_map)
         if restore_step == -1:      # -1 = the latest available
             restore_step = self.ckpt.latest_step()
         if restore_step is not None:
             self.ckpt.restore(self.state, restore_step)
-        self.train_log = MetricsLogger(config.path.log, "train")
-        self.val_log = MetricsLogger(config.path.log, "val")
+        log = MetricsLogger if is_primary() else lambda *a: NullLogger()
+        self.train_log, self.val_log = log(config.path.log, "train"), log(config.path.log, "val")
         self.result_dir = pathlib.Path(config.path.result)
         (self.result_dir / "Val").mkdir(parents=True, exist_ok=True)
         self.vocoder = vocoder.to(self.device).eval() if vocoder is not None else None
@@ -110,26 +136,35 @@ class Trainer:
         step = self.state.step
         if step >= total:
             print(f"training: already at step {step} >= {total}, nothing to do")
-            self.ckpt.save(self.state)
+            self._save()
             return self.state
         from visual_onoma_to_wave_tpu_torch.data.loader import ProcessLoader
         loader = ProcessLoader(self.train_ds, "train.txt", num_workers=self.loader_workers)
-        print(f"training: {self.n_params() / 1e6:.2f}M params, {len(self.train_ds)} clips, "
-              f"target {total} steps, {self.device}, loader backend {loader.backend}"
-              + (f" x{loader.num_workers}" if loader.backend == "process" else ""))
+        if is_primary():
+            print(f"training: {self.n_params() / 1e6:.2f}M params, {len(self.train_ds)} clips, "
+                  f"target {total} steps, {self.device}, loader backend {loader.backend}"
+                  + (f" x{loader.num_workers}" if loader.backend == "process" else "")
+                  + (f", {process_count()} processes" if self.state.shard else ""))
         try:
             self._train_loop(loader, total, step, cfg, on_step)
         finally:
             loader.close()
-        self.ckpt.save(self.state)
+        self._save()
         return self.state
+
+    def _save(self) -> None:
+        """A checkpoint of the state, written by process 0 while the others
+        wait."""
+        if is_primary():
+            self.ckpt.save(self.state)
+        barrier("checkpoint")
 
     def _train_loop(self, loader, total, step, cfg, on_step) -> None:
         epoch = 0
         while step < total:
             epoch += 1
             for batch in loader.epoch(group_size=4, seed=self.config.train.seed + epoch):
-                jb = to_device(batch, self.device)
+                jb = to_device(shard_batch_multiprocess(batch), self.device)
                 self.timer.start()
                 losses = train_step(self.state, jb)
                 step = self.state.step
@@ -146,10 +181,10 @@ class Trainer:
                     self.timer.stop(n_frames)
                 if step % cfg.step.val_step == 0:
                     self.val_log.scalars(step, self.evaluate(step, metrics=cfg.step.val_metrics))
-                if step % cfg.step.synth_step == 0:
+                if step % cfg.step.synth_step == 0 and is_primary():
                     self._synth_sample(step)
                 if step % cfg.step.save_step == 0:
-                    self.ckpt.save(self.state)
+                    self._save()
                 if on_step is not None:
                     on_step(step, losses)
                 if step >= total:

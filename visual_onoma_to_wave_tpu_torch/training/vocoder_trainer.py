@@ -1,6 +1,5 @@
 """GAN training of a vocoder generator against MPD + MSD (or MRD)
-discriminators (port of visual_onoma_to_wave_tpu/training/vocoder_trainer.py,
-one device).
+discriminators (port of visual_onoma_to_wave_tpu/training/vocoder_trainer.py).
 
 One step is the official HiFi-GAN update order, as the reference's:
 
@@ -28,8 +27,16 @@ Checkpoints are `.npz` files: `<ckpt>/<step>/generator.npz` (and
 `full_state.npz` (every parameter, both optimizers' moments and counts, the
 EMA and the step) and `sampler_state.json` for an exact resume.
 
-Not ported here: `compute_dtype="bfloat16"` (ROADMAP A6), the device mesh
-and multi-process training (ROADMAP A5); the compile cache is never ported.
+Under a process group of more than one (`parallel.init_distributed`) the
+trainer is data-parallel: every process draws the same global batch from
+its sampler and keeps its rows; every loss is a plain mean over equal
+shares, so averaging both updates' gradients over the processes (before
+the clip) gives the one-process step on the global batch. Both optimizers
+and the EMA then move alike everywhere, the losses each step returns are
+averaged too, so the watchdog decides alike, and only process 0 writes
+checkpoints while a barrier holds the others. Not ported here:
+`compute_dtype="bfloat16"` (ROADMAP A6); JAX's device mesh (`use_mesh`),
+whose role one process per device takes; the compile cache.
 """
 from __future__ import annotations
 
@@ -59,6 +66,16 @@ from visual_onoma_to_wave_tpu_torch.models.hifigan_disc import (
 from visual_onoma_to_wave_tpu_torch.models.istftnet import ISTFTNetGenerator
 from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator
 from visual_onoma_to_wave_tpu_torch.ops.stft import hann_window, logmel_and_energy, melscale_fbanks
+from visual_onoma_to_wave_tpu_torch.parallel.distributed import (
+    all_reduce_grads,
+    all_reduce_tensors,
+    barrier,
+    broadcast_module,
+    is_primary,
+    local_device,
+    process_count,
+    shard_batch_multiprocess,
+)
 from visual_onoma_to_wave_tpu_torch.synthesis import resolve_device
 from visual_onoma_to_wave_tpu_torch.training.schedule import global_norm
 
@@ -351,8 +368,9 @@ class VocoderTrainer:
     `msd` takes any module of the MSD's (y, y_hat) interface, such as
     `MultiResolutionDiscriminator()`. The generator and discriminators are
     initialised here from `cfg.seed` (the reference's distributions), then
-    moved to `device` (CUDA unless "cpu" is asked for). `use_mesh=True` and
-    a torch.distributed group of more than one process raise (ROADMAP A5)."""
+    moved to `device` (CUDA unless "cpu" is asked for; under a process group
+    of more than one, this process's card). `use_mesh=True` raises: data
+    parallelism is over processes (module docstring)."""
 
     def __init__(self, clips: Sequence[np.ndarray] | None, cfg: VocoderTrainConfig | None = None,
                  gen: nn.Module | None = None, ckpt_dir: str | pathlib.Path | None = None,
@@ -360,11 +378,15 @@ class VocoderTrainer:
                  mpd: nn.Module | None = None, msd: nn.Module | None = None,
                  pairs=None, device: str | torch.device = "cuda", use_mesh: bool = False):
         self.cfg = c = cfg or VocoderTrainConfig()
-        distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
-        if use_mesh or (distributed and torch.distributed.get_world_size() > 1):
+        if use_mesh:
             raise NotImplementedError(
-                "data-parallel and multi-process vocoder training: the port trains on one "
-                "device so far (ROADMAP A5, scale-out)")
+                "use_mesh is JAX's device mesh: the port's data parallelism (ROADMAP A5) runs "
+                "one process per device (parallel.init_distributed, then a VocoderTrainer in "
+                "every process)")
+        self.world = process_count()
+        if c.batch_size % self.world:
+            raise ValueError(f"batch_size {c.batch_size} does not divide by the {self.world} "
+                             "processes")
         if c.compute_dtype not in ("float32", "fp32"):
             raise NotImplementedError(
                 f"compute_dtype {c.compute_dtype!r}: the port's GAN step is float32 only "
@@ -378,13 +400,15 @@ class VocoderTrainer:
         up = int(getattr(gen, "total_upsample", 0) or np.prod(gen.upsample_rates))
         if up != c.hop_length:
             raise ValueError(f"generator upsampling {up} != hop_length {c.hop_length}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(local_device(device) if self.world > 1 else device)
         mpd = mpd if mpd is not None else MultiPeriodDiscriminator()
         msd = msd if msd is not None else MultiScaleDiscriminator()
         torch.manual_seed(c.seed)
         for m in (gen, mpd, msd):
             init_like_reference_(m)
         gen, mpd, msd = (m.to(self.device).train() for m in (gen, mpd, msd))
+        for m in (gen, mpd, msd):
+            broadcast_module(m)
         self.gen, self.mpd, self.msd = gen, mpd, msd
         if pairs is not None:
             self.sampler = PairedSegmentSampler(pairs, c)
@@ -392,7 +416,7 @@ class VocoderTrainer:
             self.sampler = SegmentSampler(clips, c)
         self.ckpt_dir = pathlib.Path(ckpt_dir) if ckpt_dir else None
         self.log = None
-        if log_dir is not None:
+        if log_dir is not None and is_primary():
             from visual_onoma_to_wave_tpu_torch.utils.logging import MetricsLogger
             self.log = MetricsLogger(log_dir, name="vocoder")
 
@@ -449,6 +473,7 @@ class VocoderTrainer:
         d_total = d_mpd + d_msd
         st.disc_opt.zero_grad()
         d_total.backward()
+        all_reduce_grads(st.disc_opt.params, average=True)
         st.disc_opt.step()
 
         # the generator's loss against the updated discriminators, which
@@ -464,6 +489,7 @@ class VocoderTrainer:
             g_total = adv + fm + c.mel_loss_weight * mel_l1
             st.gen_opt.zero_grad()
             g_total.backward()
+            all_reduce_grads(st.gen_opt.params, average=True)
             st.gen_opt.step()
         finally:
             for p in st.disc_opt.params:
@@ -475,9 +501,11 @@ class VocoderTrainer:
                 torch._foreach_mul_(st.gen_ema, d)
                 torch._foreach_add_(st.gen_ema, torch._foreach_mul(st.gen_opt.params, 1.0 - d))
         st.step += 1
-        return {k: v.detach() for k, v in
-                {"d_total": d_total, "d_mpd": d_mpd, "d_msd": d_msd, "g_adv": adv, "g_fm": fm,
-                 "mel_l1": mel_l1, "g_total": g_total}.items()}
+        losses = {k: v.detach().clone() for k, v in
+                  {"d_total": d_total, "d_mpd": d_mpd, "d_msd": d_msd, "g_adv": adv, "g_fm": fm,
+                   "mel_l1": mel_l1, "g_total": g_total}.items()}
+        all_reduce_tensors(list(losses.values()), average=True)
+        return losses
 
     # ------------------------------------------------------------ checkpoints
     def _tree(self, state_dict: dict, ema=None) -> dict:
@@ -507,6 +535,9 @@ class VocoderTrainer:
         setting the run was saved with."""
         if self.ckpt_dir is None:
             return
+        if not is_primary():
+            barrier("vocoder checkpoint")
+            return
         final = self.ckpt_dir / str(step)
         tmp = self.ckpt_dir / f".{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -519,6 +550,7 @@ class VocoderTrainer:
         (tmp / "sampler_state.json").write_text(json.dumps(self.sampler.rng.bit_generator.state))
         shutil.rmtree(final, ignore_errors=True)
         tmp.rename(final)
+        barrier("vocoder checkpoint")
 
     def restore(self, step: int | None = None) -> int:
         """Resume from <ckpt>/<step> (the latest step when None): every
@@ -646,17 +678,19 @@ class VocoderTrainer:
         while step < target:
             batch = self.sampler.next_batch()
             if isinstance(batch, tuple):               # paired fine-tuning
-                audio, mel = batch
+                audio, mel = (shard_batch_multiprocess({"x": x})["x"] for x in batch)
                 metrics = self.train_step(self._to_device(audio), self._to_device(mel))
             else:
-                metrics = self.train_step(self._to_device(batch))
+                metrics = self.train_step(
+                    self._to_device(shard_batch_multiprocess({"x": batch})["x"]))
             step += 1
             if step % c.log_every == 0 or step == target:
                 m = {k: float(v) for k, v in metrics.items()}
                 rate = (step - done0) / (time.perf_counter() - t0)
                 line = (f"vocoder step {step}: mel_l1={m['mel_l1']:.4f} g={m['g_total']:.3f} "
                         f"d={m['d_total']:.3f} ({rate:.2f} steps/s)")
-                print(line)
+                if is_primary():
+                    print(line)
                 if self.log is not None:
                     self.log.scalars(step, m, prefix="Vocoder")
                     self.log.text(line)
@@ -673,8 +707,8 @@ class VocoderTrainer:
                         self.log.text(warn)
                     if c.on_divergence == "halt":
                         self.save(step)
-                        note = self._save_last_healthy(step)
-                        if self.ckpt_dir is not None:
+                        note = self._save_last_healthy(step) if is_primary() else ""
+                        if self.ckpt_dir is not None and is_primary():
                             # restore() refuses this step: a fresh process
                             # would reset the watchdog's running best
                             (self.ckpt_dir / str(step) / "HALTED.json").write_text(
