@@ -154,14 +154,28 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      DP_PARAM_ATOL), both timed; `parallel.make_sharded_synth` over the
      card's device list against the live batch. Nothing measures NCCL across
      GPUs.
+  20. bf16: phase 4's acoustic model as `train.compute_dtype: bfloat16`
+     builds it, with bf16 HiFi-GAN V1, iSTFTNet-mel and mel-Vocos
+     (`get_vocoder(..., dtype=torch.bfloat16)`), the same weights, at phase
+     4's batch: B1 10, B2 4 / 1 and B4 8 launches a call, every kernel's
+     operands bf16; each path against the same bf16 path with the plain
+     versions on the card and against fp32 (the bounds above
+     `BF16_VS_PLAIN_OF_SCALE`); synthesis, acoustic and vocoder ms, x real
+     time and peak GiB beside the fp32 numbers of phases 4, 6 and 10. Then
+     three bf16 train steps of phase 4's model beside three fp32 steps on
+     the same batch, and bf16 GAN steps of HiFi-GAN V1 with MPD + MSD at B
+     16 x 8192 (losses finite, parameters fp32, no launch), beside phases 13
+     and 17's fp32 steps; then the bf16 HiFi-GAN V1 synthesizer exported and
+     run against the live bf16 step.
 
-Each path (phases 4-7, 9-19) is driven with every launch count set to 0 just
+Each path (phases 4-7, 9-20) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its main path, its error against the plain version, kernel,
-plain and library ms and the card's bound at the timed shape; for the
+plain and library ms and the card's bound at the timed shape, and the bf16
+launches of phase 20 as `launches_bf16`; for the
 attention, ConvNeXt and MRF kernels the bound is that of the tensor cores,
 fp32 as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside
 it, and for attention the same numbers under the served mask; for the mel
@@ -741,14 +755,14 @@ def phase_vocos_golden(dev) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def icassp_acoustic(dev):
+def icassp_acoustic(dev, seed: int = 0):
     """The ICASSP acoustic model (the `Config()` defaults = configs/icassp.yaml)
-    with random weights from seed 0 and one padded batch of 16 requests of 8
-    characters, on `dev`; built once per device and shared by the phases
-    (they run it in `.eval()` and change no weight)."""
+    with random weights from `seed` and one padded batch of 16 requests of 8
+    characters from `seed`, on `dev`; built once per device and seed and
+    shared by the phases (they run it in `.eval()` and change no weight)."""
     from visual_onoma_to_wave_tpu_torch.models import VTTS
 
-    torch.manual_seed(0)
+    torch.manual_seed(seed)
     model = VTTS(n_vocab=64, n_audiotype=10, max_mel_len=MAX_MEL)
     # each character predicts ~FRAMES frames (exp(log d) - 1), as bench.py
     # biases its durations, so the decoder and vocoder see realistic lengths
@@ -756,7 +770,7 @@ def icassp_acoustic(dev):
     with torch.no_grad():
         dur.weight.mul_(0.01)
         dur.bias.fill_(float(np.log(FRAMES + 1)))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     batch = {
         "audiotypes": torch.from_numpy((np.arange(B) % 10).astype(np.int64)),
         "texts": torch.from_numpy(rng.integers(1, 64, (B, C)).astype(np.int64)),
@@ -780,6 +794,21 @@ def icassp_b16(dev, vocoder: str = "HiFi-GAN"):
         if isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
             torch.nn.init.normal_(mod.weight, 0.0, 0.01)  # the reference's init
     return model, gen.to(dev).eval(), batch
+
+
+def icassp_bf16(dev, vocoder: str = "HiFi-GAN"):
+    """`icassp_b16`'s models with the same weights in bf16 compute (the
+    acoustic model as `train.compute_dtype: bfloat16` builds it, the vocoder
+    by `get_vocoder(vocoder, dtype=torch.bfloat16)`): (model, vocoder, batch)
+    on `dev`, parameters fp32."""
+    from visual_onoma_to_wave_tpu_torch.models import VTTS, get_vocoder
+
+    model, gen, batch = icassp_b16(dev, vocoder)
+    model16 = VTTS(n_vocab=64, n_audiotype=10, max_mel_len=MAX_MEL, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    gen16 = get_vocoder(vocoder, dtype=torch.bfloat16)
+    gen16.load_state_dict(gen.state_dict())
+    return model16.to(dev).eval(), gen16.to(dev).eval(), batch
 
 
 def phase_full(dev, card: str, phase: str = "4 full width", vocoder: str = "HiFi-GAN",
@@ -864,7 +893,7 @@ def phase_vocos_full(dev, card: str, hifigan: dict) -> dict:
         max_abs_err_vs_served=err, atol=1e-6,
         vocoder_ms={k: float(np.mean(v)) for k, v in times.items()}, vocoder_ms_runs=times)
     return {"block_launches": served["launches"]["convnext_block"],
-            "trunk_launches": trunk["convnext_trunk"]}
+            "trunk_launches": trunk["convnext_trunk"], "served": served}
 
 
 # Mel frontend (phase 7): the kernel against its plain version on the card,
@@ -2265,9 +2294,11 @@ def vocoder_clips():
 
 def vocoder_trainer(dev, clips, family: str = "hifigan", batch: int = VOC_B, **kw):
     """The port's `VocoderTrainer` for `family` with its recipe (lr, clip,
-    MSD or MRD) at `batch` x VOC_SEGMENT, on `dev`."""
+    MSD or MRD) at `batch` x VOC_SEGMENT, on `dev`; `compute_dtype=
+    "bfloat16"` among `kw` builds every module in bf16."""
     from visual_onoma_to_wave_tpu_torch.models.hifigan_disc import MultiResolutionDiscriminator
     from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
+    from visual_onoma_to_wave_tpu_torch.precision import compute_dtype
     from visual_onoma_to_wave_tpu_torch.training.vocoder_trainer import (
         VocoderTrainConfig,
         VocoderTrainer,
@@ -2280,8 +2311,10 @@ def vocoder_trainer(dev, clips, family: str = "hifigan", batch: int = VOC_B, **k
                              learning_rate=recipe["learning_rate"],
                              grad_clip_norm=recipe["grad_clip_norm"], log_every=10 ** 9,
                              save_every=10 ** 9, **kw)
-    msd = MultiResolutionDiscriminator() if recipe["disc"] == "mrd" else None
-    return VocoderTrainer(clips, cfg, gen=get_vocoder(family), msd=msd, pairs=pairs, device=dev)
+    dtype = compute_dtype(cfg.compute_dtype)
+    msd = MultiResolutionDiscriminator(dtype=dtype) if recipe["disc"] == "mrd" else None
+    return VocoderTrainer(clips, cfg, gen=get_vocoder(family, dtype=dtype), msd=msd, pairs=pairs,
+                          device=dev)
 
 
 def gan_steps(vt, steps: int, timed: bool = True) -> dict:
@@ -2500,19 +2533,26 @@ def demo_synthesizer(dev, config: str = "config.json", vocoder: str = "vocoder.n
                                        str(DEMO / "torch" / vocoder), device=dev)
 
 
-def icassp_synthesizer(dev, vocoder: str):
-    """A `Synthesizer` around `icassp_b16`'s models: the ICASSP config, a
-    vocabulary of 64 ids, 10 sound classes, cells of 24 x 102 pixels."""
+def icassp_synthesizer(dev, vocoder: str, dtype: torch.dtype = torch.float32):
+    """A `Synthesizer` around `icassp_b16`'s models (`icassp_bf16`'s in bf16):
+    the ICASSP config, a vocabulary of 64 ids, 10 sound classes, cells of 24
+    x 102 pixels."""
+    import dataclasses
+
     from visual_onoma_to_wave_tpu_torch.config import Config, DatasetMetadata, FeatureStats
     from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
-    model, gen, batch = icassp_b16(dev, vocoder)
+    model, gen, batch = (icassp_b16(dev, vocoder) if dtype == torch.float32
+                         else icassp_bf16(dev, vocoder))
+    config = Config()
+    config = config.replace(train=dataclasses.replace(config.train,
+                                                      compute_dtype=str(dtype)[len("torch."):]))
     stats = FeatureStats(-2.0, 2.0, 0.0, 1.0)
     meta = DatasetMetadata(audiotype_map={f"class{i}": i for i in range(10)},
                            energy_stats=stats, kurtosis_stats=stats, max_pixelsize=102,
                            image_height=24, label_width={})
     symbols = {chr(0x30A0 + i): i for i in range(1, 64)}
-    return Synthesizer(Config(), model, meta, symbols, gen, device=dev), batch
+    return Synthesizer(config, model, meta, symbols, gen, device=dev), batch
 
 
 def artifact_bytes(d: pathlib.Path) -> int:
@@ -2768,6 +2808,280 @@ def phase_scale_out(dev, card: str) -> dict:
     return result
 
 
+# phase 20: bf16 compute where the JAX package runs it. Bounds, stated before
+# the run: the bf16 path with its kernels against the same bf16 path with the
+# plain versions on the card, within BF16_VS_PLAIN_OF_SCALE of the plain
+# output's max (the slice bound of the CPU tests against JAX: the kernels
+# round at other points than their plain versions, B1 the unnormalised
+# probabilities, B2 its residual streams kept fp32, and a flipped bf16
+# rounding travels down the network); the bf16 vocoders against the fp32
+# ones on phase 4's fp32 mel by the JAX package's own bf16 tests: HiFi-GAN
+# V1 and iSTFTNet-mel (HiFi-GAN's trunk) max error < 0.05 and relative L2 <
+# 0.05 (tests/test_hifigan.py:136), Vocos max error < 0.1 of max |fp32|
+# (tests/test_vocos.py:91); the bf16 acoustic model teacher-forced with the
+# fp32 run's durations against the fp32 postnet mel, mean relative error <
+# 0.1 (tests/test_training.py:126); the exported bf16 artifact against the
+# live bf16 step within EXPORT_ATOL
+BF16_VS_PLAIN_OF_SCALE = 5e-2
+BF16_VS_FP32 = {"HiFi-GAN": {"max_abs": 0.05, "rel_l2": 0.05},
+                "iSTFTNet-mel": {"max_abs": 0.05, "rel_l2": 0.05},
+                "Vocos": {"max_of_scale": 0.1}}
+BF16_MEL_MEAN_REL = 0.1
+BF16_TRAIN_STEPS, BF16_GAN_STEPS = 3, 4
+# the phase's fp32 numbers to print beside bf16 (phases 4, 6, 10)
+SERVED_KEYS = ("acoustic_ms", "vocoder_ms", "synthesis_ms", "synthesis_x_realtime",
+               "peak_mem_gib")
+
+
+@contextlib.contextmanager
+def kernel_operand_dtypes():
+    """While the context lasts, records the operand dtype of every call the
+    models make to the attention, MRF and ConvNeXt block kernels, by kernel
+    record name: through the names `models/layers.py` and `models/vocos.py`
+    call (`attention_core`, `convnext_block`) and through
+    `ops/mrf.py::MRFStages.__call__`, so that the wrappers themselves, and
+    the launch counts they keep, are untouched."""
+    import visual_onoma_to_wave_tpu_torch.models.layers as layers
+    import visual_onoma_to_wave_tpu_torch.models.vocos as vocos
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
+
+    seen = {"flash_mha": set(), "mrf_stage": set(), "convnext_block": set()}
+    attention, block, stage = layers.attention_core, vocos.convnext_block, MRFStages.__call__
+
+    def note(name, x):
+        seen[name].add(str(x.dtype)[len("torch."):])
+
+    def attention_call(q, *args, **kw):
+        note("flash_mha", q)
+        return attention(q, *args, **kw)
+
+    def block_call(x, *args, **kw):
+        note("convnext_block", x)
+        return block(x, *args, **kw)
+
+    def stage_call(self, i, blocks, x, fused=True):
+        if fused:
+            note("mrf_stage", x)
+        return stage(self, i, blocks, x, fused)
+
+    layers.attention_core, vocos.convnext_block = attention_call, block_call
+    MRFStages.__call__ = stage_call
+    try:
+        yield seen
+    finally:
+        layers.attention_core, vocos.convnext_block = attention, block
+        MRFStages.__call__ = stage
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """While the context lasts, every attention of the acoustic model takes
+    `attention_core_reference` on the card (the plain version B1 is held
+    to)."""
+    import visual_onoma_to_wave_tpu_torch.models.layers as layers
+
+    kernel = layers.attention_core
+    layers.attention_core = layers.attention_core_reference
+    try:
+        yield
+    finally:
+        layers.attention_core = kernel
+
+
+def _of_scale(got: torch.Tensor, ref: torch.Tensor) -> float:
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-6))
+
+
+def bf16_served(dev, card: str, vocoder: str, fp32: dict) -> dict:
+    """Phase 20 (a) for one vocoder: the bf16 fused step at phase 4's batch,
+    its launches and their operand dtype, against the same bf16 path with
+    the plain versions on the card and against fp32; timed beside `fp32`
+    (that phase's numbers)."""
+    from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+
+    phase = f"20 bf16 {vocoder}"
+    torch.cuda.reset_peak_memory_stats(dev)
+    model16, gen16, batch = icassp_bf16(dev, vocoder)
+    model, gen, _ = icassp_b16(dev, vocoder)
+    fused16 = make_fused_infer(model16, gen16)
+    per_call = per_call_launches(model16, gen16)
+    zero_launch_counts()
+    with kernel_operand_dtypes() as seen:
+        out = fused16(batch)
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches(phase, launches, per_call)
+    dtypes = {k: sorted(v) for k, v in seen.items() if v}
+    if any(v != ["bfloat16"] for v in dtypes.values()) or \
+            set(dtypes) != {k for k, n in per_call.items() if n}:
+        raise AssertionError(f"{phase}: kernel operand dtypes {dtypes}, expected bfloat16 for "
+                             f"every kernel of {per_call}")
+    wav, mel_lens = out["wav"], out["mel_lens"]
+    if wav.dtype != torch.float32 or not bool(torch.isfinite(wav).all()) or \
+            not bool(torch.isfinite(out["postnet_mel"]).all()):
+        raise AssertionError(f"{phase}: waveform {wav.dtype}, finite "
+                             f"{bool(torch.isfinite(wav).all())}")
+    mel = out["postnet_mel"]
+    inputs = {k: batch[k] for k in ("audiotypes", "texts", "src_lens", "image_cells")}
+    with torch.inference_mode():
+        # the same bf16 path through the plain versions, teacher-forced with
+        # the kernel run's durations (a flipped duration would move frames)
+        with plain_attention():
+            plain_mel = model16(**inputs, duration_targets=out["duration_rounded"])["postnet_mel"]
+        with plain_on_card(gen16):
+            plain_wav = gen16(mel)
+        ours = {"mel": _of_scale(mel, plain_mel), "wav": _of_scale(wav, plain_wav)}
+        # against fp32: the vocoders on the fp32 mel, the acoustic model
+        # teacher-forced with the fp32 run's durations
+        out32 = make_fused_infer(model, gen)(batch)
+        w32, w16 = gen(out32["postnet_mel"]), gen16(out32["postnet_mel"])
+        tf16 = model16(**inputs, duration_targets=out32["duration_rounded"])["postnet_mel"]
+    zero_launch_counts()
+    m32 = out32["postnet_mel"]
+    vs_fp32 = {"max_abs": float((w16 - w32).abs().max()),
+               "rel_l2": float(torch.linalg.vector_norm(w16 - w32)
+                               / (torch.linalg.vector_norm(w32) + 1e-9)),
+               "max_of_scale": _of_scale(w16, w32),
+               "mel_mean_rel": float((tf16 - m32).abs().mean() / (m32.abs().mean() + 1e-6))}
+    lens32 = out32["mel_lens"]
+    mel_len_moves = {"items": int((mel_lens != lens32).sum()),
+                     "max_frames": int((mel_lens - lens32).abs().max())}
+    bounds = BF16_VS_FP32[vocoder]
+    if max(ours.values()) > BF16_VS_PLAIN_OF_SCALE or \
+            any(vs_fp32[k] >= v for k, v in bounds.items()) or \
+            vs_fp32["mel_mean_rel"] >= BF16_MEL_MEAN_REL:
+        raise AssertionError(f"{phase}: kernels vs plain {ours} (bound "
+                             f"{BF16_VS_PLAIN_OF_SCALE} of max), vs fp32 {vs_fp32} (bounds "
+                             f"{bounds}, mel mean relative {BF16_MEL_MEAN_REL})")
+    acoustic = lambda: model16(**inputs)  # noqa: E731
+    with torch.inference_mode():
+        acoustic_ms = time_cuda(acoustic, 5, warmup=2)
+        vocoder_ms = time_cuda(lambda: gen16(mel), 5, warmup=2)
+    synthesis_ms = time_cuda(lambda: fused16(batch), 5, warmup=2)
+    audio_s = int(mel_lens.sum()) * HOP / SR
+    result = {"acoustic_ms": acoustic_ms, "vocoder_ms": vocoder_ms, "synthesis_ms": synthesis_ms,
+              "synthesis_x_realtime": audio_s / (synthesis_ms / 1e3),
+              "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+              "launches": launches}
+    say(phase, card=card, batch=B, chars=C, mel_lens=mel_lens.tolist(),
+        kernel_launches_per_call=launches, kernel_operand_dtypes=dtypes,
+        kernels_vs_plain_of_max=ours, kernels_vs_plain_bound=BF16_VS_PLAIN_OF_SCALE,
+        vs_fp32=vs_fp32, vs_fp32_bounds={**bounds, "mel_mean_rel": BF16_MEL_MEAN_REL},
+        mel_len_moves_vs_fp32=mel_len_moves,
+        **{k: v for k, v in result.items() if k != "launches"},
+        fp32={k: fp32[k] for k in SERVED_KEYS})
+    return result
+
+
+def bf16_training(dev, card: str, fp32_steps: dict) -> dict:
+    """Phase 20 (b): BF16_TRAIN_STEPS bf16 train steps of phase 4's acoustic
+    model on phase 19's batch beside the fp32 step on the same batch, then
+    BF16_GAN_STEPS bf16 GAN steps of HiFi-GAN V1 against MPD + MSD at B 16 x
+    8192 (`VocoderTrainConfig(compute_dtype="bfloat16")`); losses finite,
+    parameters fp32, no kernel launched."""
+    import copy
+
+    from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
+    from visual_onoma_to_wave_tpu_torch.training.train_state import TrainState, train_step
+
+    phase = "20 bf16 training"
+    train_batch = dp_batch(dev)
+    steps = {}
+    for name, (model, _, _) in (("fp32", icassp_b16(dev, "HiFi-GAN")),
+                                ("bf16", icassp_bf16(dev, "HiFi-GAN"))):
+        m = copy.deepcopy(model).train()
+        state = TrainState(m, NoamAdam(m.parameters(), init_lr=1e-3, warmup_steps=400),
+                           torch.Generator(device=dev).manual_seed(1))
+        ms, losses = [], []
+        zero_launch_counts()
+        for _ in range(BF16_TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append({k: float(v) for k, v in train_step(state, train_batch).items()})
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        expect_launches(f"{phase} acoustic {name}", launch_counts(), {})
+        if not all(np.isfinite(v) for step in losses for v in step.values()) or \
+                any(p.dtype != torch.float32 for p in m.parameters()):
+            raise AssertionError(f"{phase} acoustic {name}: losses {losses}, parameter dtypes "
+                                 f"{sorted({str(p.dtype) for p in m.parameters()})}")
+        steps[name] = {"step_ms": ms, "total_loss": [s["total_loss"] for s in losses]}
+        del m, state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vt = vocoder_trainer(dev, vocoder_clips(), compute_dtype="bfloat16")
+    zero_launch_counts()
+    warm = gan_steps(vt, 1)
+    run = gan_steps(vt, BF16_GAN_STEPS - 1)
+    expect_launches(phase + " gan", launch_counts(), {})
+    if any(p.dtype != torch.float32 for m in (vt.gen, vt.mpd, vt.msd) for p in m.parameters()) \
+            or {vt.gen.dtype, vt.mpd.dtype, vt.msd.dtype} != {torch.bfloat16}:
+        raise AssertionError(f"{phase} gan: modules or parameters in the wrong dtype")
+    ms = float(np.median(run["ms"]))
+    steps["gan_bf16"] = {"step_ms": warm["ms"] + run["ms"], "step_ms_median_after_first": ms,
+                         "audio_s_per_s": VOC_B * VOC_SEGMENT / SR / (ms / 1e3),
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                         "g_total": warm["losses"]["g_total"] + run["losses"]["g_total"]}
+    del vt
+    torch.cuda.empty_cache()
+    say(phase, card=card, acoustic_batch=B, acoustic_mel_frames=480, gan_batch=VOC_B,
+        gan_segment=VOC_SEGMENT, **steps, fp32_phase13_step_ms_median=fp32_steps["acoustic"],
+        fp32_phase17_gan_step_ms_median=fp32_steps["gan"])
+    return steps
+
+
+def bf16_export(dev, card: str, tmp: pathlib.Path) -> dict:
+    """Phase 20 (c): the bf16 ICASSP B16 HiFi-GAN V1 synthesizer exported,
+    loaded and run at phase 4's batch against the live bf16 step."""
+    import time
+
+    from visual_onoma_to_wave_tpu_torch.export import ExportedSynthesizer, export_synthesizer
+    from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer
+
+    phase = "20 bf16 export"
+    synth, batch = icassp_synthesizer(dev, "HiFi-GAN", torch.bfloat16)
+    t0 = time.perf_counter()
+    manifest = export_synthesizer(synth, tmp / "icassp_bf16", max_batch=B, text_lens=(C,),
+                                  devices=(dev.type,))
+    export_s = time.perf_counter() - t0
+    exp = ExportedSynthesizer.load(tmp / "icassp_bf16", device=dev.type)
+    args = (batch["audiotypes"].int(), batch["texts"].int(), batch["src_lens"].int(),
+            torch.ones(B, device=dev), torch.ones(B, device=dev))
+    program = functools.partial(exp._program, *args, image_cells=batch["image_cells"])
+    fused = make_fused_infer(synth.model, synth.vocoder)
+    with torch.inference_mode():
+        want = fused(batch)
+        zero_launch_counts()
+        got = program()
+        per_call = per_call_launches(synth.model, synth.vocoder)
+        expect_launches(phase, launch_counts(), per_call)
+        err = {"mel": float((got[0] - want["postnet_mel"]).abs().max()),
+               "wav": float((got[4] - want["wav"]).abs().max())}
+        if not torch.equal(got[1], want["mel_lens"]) or any(err[k] > EXPORT_ATOL[k] for k in err):
+            raise AssertionError(f"{phase}: artifact off the live bf16 step: mel_lens equal "
+                                 f"{torch.equal(got[1], want['mel_lens'])}, {err}")
+        artifact_ms = time_cuda(program, 5, warmup=2)
+        live_ms = time_cuda(lambda: fused(batch), 5, warmup=2)
+    result = {"dtypes": [manifest["acoustic_dtype"], manifest["vocoder_dtype"]],
+              "export_s": export_s, "artifact_bytes": artifact_bytes(tmp / "icassp_bf16"),
+              "launches_per_call": per_call, "max_abs_err": err, "atol": EXPORT_ATOL,
+              "artifact_ms": artifact_ms, "live_ms": live_ms}
+    say(phase, card=card, batch=B, chars=C, **result)
+    return result
+
+
+def phase_bf16(dev, card: str, fp32_served: dict, fp32_steps: dict,
+               tmp: pathlib.Path) -> dict:
+    """Phase 20: bf16 compute on the served path (HiFi-GAN V1, iSTFTNet-mel
+    and mel-Vocos), in training and in the exported artifact."""
+    served = {v: bf16_served(dev, card, v, fp32_served[v])
+              for v in ("HiFi-GAN", "iSTFTNet-mel", "Vocos")}
+    return {"served": served, "training": bf16_training(dev, card, fp32_steps),
+            "export": bf16_export(dev, card, tmp)}
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -2793,20 +3107,30 @@ def main() -> int:
         phase_chunked(dev, probe["smi"], served["postnet_mel"])
         phase_quality_gate(dev, probe["smi"])
         phase_demo_server(dev, probe["smi"])
-        phase_vocoder_training(dev, probe["smi"], served["postnet_mel"][:CHUNK_B].contiguous(),
-                               train["cfg"], pathlib.Path(tmp))
+        gan = phase_vocoder_training(dev, probe["smi"],
+                                     served["postnet_mel"][:CHUNK_B].contiguous(), train["cfg"],
+                                     pathlib.Path(tmp))
         phase_export(dev, probe["smi"], pathlib.Path(tmp))
     phase_scale_out(dev, probe["smi"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        bf16 = phase_bf16(dev, probe["smi"],
+                          {"HiFi-GAN": full, "iSTFTNet-mel": melrate, "Vocos": vocos["served"]},
+                          {"acoustic": train["step_ms"], "gan": gan["hifigan"]["step_ms_median"]},
+                          pathlib.Path(tmp))
+    served16 = bf16["served"]
 
     source = "visual_onoma_to_wave_tpu_torch/csrc/"
     tpu = "visual_onoma_to_wave_tpu/ops/"
     record = {"kernels": [
         {"name": "flash_mha", "route": "cuda", "source": source + "flash_mha.cu",
          "replaces": tpu + "pallas_attention.py:130",
-         "launches": full["launches"]["flash_mha"], **attention_record(attn)},
+         "launches": full["launches"]["flash_mha"],
+         "launches_bf16": served16["HiFi-GAN"]["launches"]["flash_mha"],
+         **attention_record(attn)},
         {"name": "convnext_block", "route": "cuda", "source": source + "convnext.cu",
          "replaces": tpu + "pallas_convnext.py:138",
-         "launches": vocos["block_launches"], **convnext["block"]},
+         "launches": vocos["block_launches"],
+         "launches_bf16": served16["Vocos"]["launches"]["convnext_block"], **convnext["block"]},
         {"name": "convnext_trunk", "route": "cuda", "source": source + "convnext.cu",
          "replaces": tpu + "pallas_convnext.py:230",
          "launches": vocos["trunk_launches"], **convnext["trunk"]},
@@ -2814,7 +3138,9 @@ def main() -> int:
          "replaces": tpu + "pallas_mel.py:161", **mel},
         {"name": "mrf_stage", "route": "cuda", "source": source + "mrf.cu",
          "replaces": tpu + "pallas_mrf.py:164",
-         "launches": melrate["launches"]["mrf_stage"], **mrf},
+         "launches": melrate["launches"]["mrf_stage"],
+         "launches_bf16": served16["iSTFTNet-mel"]["launches"]["mrf_stage"],
+         "launches_bf16_hifigan_v1": served16["HiFi-GAN"]["launches"]["mrf_stage"], **mrf},
     ]}
     print(probe["smi"])
     print(json.dumps(record))

@@ -31,7 +31,7 @@ from visual_onoma_to_wave_tpu_torch.config import load_config
 from visual_onoma_to_wave_tpu_torch.data.dataset import OnomaDataset, to_device
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
 from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
-from visual_onoma_to_wave_tpu_torch.training.train_state import eval_step, synth_step
+from visual_onoma_to_wave_tpu_torch.training.train_state import eval_step, synth_step, train_step
 from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
 
 SMALL = {"transformer": {"encoder_layer": 1, "decoder_layer": 1, "encoder_hidden": 32,
@@ -126,7 +126,19 @@ def test_checkpoint_gives_jax_the_same_mels(trained):
 
 
 def test_bf16_compute_raises_before_building(trained):
+    """`train.compute_dtype: bfloat16` raised here until the port had bf16
+    compute; now the trainer builds the bf16 model, restores the fp32 run's
+    checkpoint into it (parameters are fp32 in both), and a bf16 train step
+    keeps every parameter fp32 and every loss finite."""
     path, config = trained
     bf16 = config.replace(train=dataclasses.replace(config.train, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        Trainer(bf16, device="cpu")
+    trainer = Trainer(bf16, restore_step=3, device="cpu", loader_workers=0)
+    fp32 = Trainer(config, restore_step=3, device="cpu", loader_workers=0)
+    assert trainer.state.model.dtype == torch.bfloat16 and fp32.state.model.dtype == torch.float32
+    for (name, a), b in zip(trainer.state.model.state_dict().items(),
+                            fp32.state.model.state_dict().values()):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    batch = to_device(next(trainer.train_ds.batches(group_size=4, seed=1)), "cpu")
+    losses = train_step(trainer.state, batch)
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert all(p.dtype == torch.float32 for p in trainer.state.model.parameters())

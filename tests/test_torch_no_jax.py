@@ -22,7 +22,10 @@ generator.npz then serving `cli synthesize --vocoder` with a config that
 names it, and `tools/vocoder_longrun_torch.py` trains and scores
 iSTFTNet-mel at a tiny batch; `cli export` writes a CPU artifact of the
 demo checkpoint, `cli serve --exported` serves one HTTP request from it,
-and `parallel.make_sharded_synth` runs two CPU replicas. A source scan of
+and `parallel.make_sharded_synth` runs two CPU replicas; in bf16 the demo
+synthesizer serves (HiFi-GAN and Vocos), the acoustic model takes a train
+step, `cli train-vocoder --bf16` takes a GAN step, and chip_smoke's phase-20
+models build. A source scan of
 every port module (`demo_server.py`, `utils/plotting.py`,
 `models/hifigan_disc.py`, `training/vocoder_trainer.py`, `export.py` and
 `parallel/` included) and those scripts backs this up for imports inside
@@ -42,12 +45,14 @@ PORT = ROOT / "visual_onoma_to_wave_tpu_torch"
 SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
            ROOT / "tools" / "acoustic_floor_torch.py", ROOT / "tools" / "eval_quality_demo_torch.py",
            ROOT / "tools" / "vocoder_longrun_torch.py",
-           ROOT / "tools" / "gan_step_ab_torch.py", ROOT / "tools" / "corpus_compare_torch.py")
+           ROOT / "tools" / "gan_step_ab_torch.py", ROOT / "tools" / "corpus_compare_torch.py",
+           ROOT / "tools" / "step_compare_torch.py", ROOT / "tools" / "trajectory_compare_torch.py",
+           ROOT / "tools" / "bf16_attention_gap_torch.py")
 # port modules the source scans must reach (added with the demo server and
 # with GAN vocoder training)
 SCANNED = ("demo_server.py", "utils/plotting.py", "models/hifigan_disc.py",
            "training/vocoder_trainer.py", "export.py", "parallel/distributed.py",
-           "parallel/serving.py")
+           "parallel/serving.py", "precision.py")
 JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 NO_JAX = JAX_STACK + (JAX_PACKAGE,)
@@ -271,6 +276,60 @@ shutil.rmtree(work)     # two full-state checkpoints of the full-width GAN: 2.3 
 """
 
 
+# bf16 compute: the demo synthesizer served in bf16 (`train.compute_dtype`
+# and the vocoder's `dtype` in `model.vocoder_kwargs`), a bf16 acoustic train
+# step, `cli train-vocoder --bf16` one step, and chip_smoke's bf16 models of
+# phase 20 built with their launches per call
+BF16 = """
+import dataclasses, pathlib, shutil, tempfile, numpy as np, torch
+torch.set_num_threads(2)
+import chip_smoke
+from visual_onoma_to_wave_tpu_torch.cli import main
+from visual_onoma_to_wave_tpu_torch.config import load_config
+from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
+from visual_onoma_to_wave_tpu_torch.models import VTTS
+from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
+from visual_onoma_to_wave_tpu_torch.training.train_state import TrainState, train_step
+demo = "examples/checkpoints/demo"
+for config, vocoder in (("config.json", "vocoder.npz"), ("config_vocos.json", "vocoder_vocos.npz")):
+    cfg = load_config(demo + "/" + config)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"),
+                      model=dataclasses.replace(cfg.model, vocoder_kwargs={
+                          **cfg.model.vocoder_kwargs, "dtype": "bfloat16"}))
+    synth = Synthesizer.from_checkpoint(cfg, demo + "/torch/acoustic.npz",
+                                        demo + "/torch/" + vocoder, device="cpu")
+    assert synth.model.dtype == synth.vocoder.dtype == torch.bfloat16
+    r = synth.synthesize("パンパン", "drum")
+    assert r.wav.dtype == np.float32 and r.wav.shape == (r.mel_len * 256,)
+torch.manual_seed(0)
+model = VTTS(n_vocab=16, n_audiotype=2, hidden=32, encoder_layers=1, decoder_layers=1,
+             d_inner=64, max_mel_len=32, n_mels=16, vfe_layers=1, cell_hw=(24, 30),
+             dtype=torch.bfloat16)
+state = TrainState(model, NoamAdam(model.parameters(), warmup_steps=5), torch.Generator())
+batch = {"audiotypes": torch.zeros(2, dtype=torch.int32),
+         "texts": torch.ones(2, 4, dtype=torch.int32), "src_lens": torch.full((2,), 4),
+         "image_cells": torch.rand(2, 4, 24, 30), "energies": torch.zeros(2, 4),
+         "durations": torch.full((2, 4), 8), "mels": torch.randn(2, 32, 16)}
+losses = train_step(state, batch)
+assert all(np.isfinite(float(v)) for v in losses.values())
+assert all(p.dtype == torch.float32 for p in model.parameters())
+work = pathlib.Path(tempfile.mkdtemp())
+(work / "wavs").mkdir()
+t = np.arange(6000) / 22050
+write_wav(work / "wavs" / "c.wav", (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32), 22050)
+main(["train-vocoder", str(work / "wavs"), str(work / "voc"), "--steps", "1", "--batch-size",
+      "1", "--segment-size", "2048", "--bf16", "--device", "cpu"])
+assert (work / "voc" / "1" / "generator.npz").exists()
+shutil.rmtree(work)     # a full-state checkpoint of the full-width GAN
+for vocoder, mrf, blocks in (("HiFi-GAN", 4, 0), ("iSTFTNet-mel", 1, 0), ("Vocos", 0, 8)):
+    model16, gen16, _ = chip_smoke.icassp_bf16("cpu", vocoder)
+    assert model16.dtype == gen16.dtype == torch.bfloat16
+    assert chip_smoke.per_call_launches(model16, gen16) == {
+        "flash_mha": 10, "convnext_block": blocks, "convnext_trunk": 0, "mrf_stage": mrf}
+"""
+
+
 # `cli export` of the demo checkpoint for the CPU, `cli serve --exported`
 # answering one HTTP request from it, and two CPU replicas of the demo models
 # through `parallel.make_sharded_synth`
@@ -438,12 +497,14 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), GATE),
     (NO_JAX + ("yaml",), VOCODER_TRAIN),
     (NO_JAX + ("yaml",), EXPORT),
+    (NO_JAX + ("yaml",), BF16),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
         "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
         "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax",
         "cli-demo-without-jax", "quality-gate-scoring-without-jax",
-        "train-vocoder-and-longrun-tool-without-jax", "export-and-serve-exported-without-jax"])
+        "train-vocoder-and-longrun-tool-without-jax", "export-and-serve-exported-without-jax",
+        "bf16-served-and-training-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus

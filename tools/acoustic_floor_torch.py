@@ -6,7 +6,7 @@
         [--batch 16] [--val-step 2000] [--train-seed 0] [--work DIR] [--device cuda]
         [--width {icassp,demo,small}] [--allow-tf32] [--loader-workers N]
         [--threads N] [--mask-device cpu] [--mask-check] [--corpus-device cpu|cuda]
-        [--zero-roundoff-grads]
+        [--zero-roundoff-grads] [--snapshot-every N]
 
 Builds the port's synthetic corpus (`data/synthetic_corpus.py`, the
 examples' generator: 2 classes x --n-per-class clips, seed 0), formats it,
@@ -47,6 +47,11 @@ roundoff (`roundoff_leaves`): every attention's key-projection bias (the
 softmax is invariant to it) and every bias of a convolution that feeds a
 BatchNorm (the batch mean removes it). Adam moves such a leaf by about lr a
 step in the direction of its roundoff's sign; with the flag it stays put.
+
+`--snapshot-every N` writes the model's state (parameters and BatchNorm
+statistics, fp32 numpy) to `<work>/snapshots/step_<step>.npz` before the
+first step and every N steps after it: `tools/trajectory_compare_torch.py`
+holds two runs' snapshots against each other.
 
 `--mask-check` instead runs two train steps on the first batch, reads every
 dropout mask of both, prints one JSON line of their statistics (each mask's
@@ -219,6 +224,18 @@ def roundoff_leaves(model) -> dict:
     return leaves
 
 
+def save_snapshot(model, directory: pathlib.Path, step: int) -> pathlib.Path:
+    """The model's state dict as fp32 numpy arrays in
+    `directory/step_<step>.npz` (`--snapshot-every`)."""
+    import numpy as np
+
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / f"step_{step:06d}.npz"
+    np.savez(path, **{k: v.detach().float().cpu().numpy()
+                      for k, v in model.state_dict().items() if v.is_floating_point()})
+    return path
+
+
 def val_fields(means: dict) -> dict:
     """`Trainer.evaluate`'s means with its losses renamed `val_*` (the
     quality metrics keep their names)."""
@@ -262,6 +279,8 @@ def main(argv=None) -> int:
                     help="where the corpus is preprocessed (default: --device)")
     ap.add_argument("--zero-roundoff-grads", action="store_true",
                     help="zero the gradients that are zero in exact arithmetic (evidence only)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="save the model's state every N steps (and at step 0)")
     ap.add_argument("--mask-check", action="store_true",
                     help="print the dropout masks' statistics over two steps and exit")
     args = ap.parse_args(argv)
@@ -311,6 +330,9 @@ def main(argv=None) -> int:
         return 0 if stats["ok"] else 1
     last = {"t": time.perf_counter(), "step": 0}
     logged: list[dict] = []
+    snapshots = work / "snapshots"
+    if args.snapshot_every:
+        save_snapshot(trainer.state.model, snapshots, 0)
 
     def on_step(step, losses):
         """On a log step, keeps the step's losses (floats there). Every
@@ -319,6 +341,8 @@ def main(argv=None) -> int:
         as one JSON line."""
         if step % cfg.train.step.log_step == 0:
             logged.append(losses)
+        if args.snapshot_every and step % args.snapshot_every == 0:
+            save_snapshot(trainer.state.model, snapshots, step)
         if step % args.val_step:
             return
         if trainer.device.type == "cuda":

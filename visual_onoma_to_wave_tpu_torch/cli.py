@@ -302,13 +302,12 @@ VOCODER_FAMILIES = ("hifigan", "hifigan-v2", "hifigan-v3", "istftnet", "istftnet
 def cmd_train_vocoder(args) -> None:
     """GAN-train a vocoder from a directory of wavs (the reference's
     `train-vocoder`): the family's recipe (`family_recipe`) unless --lr,
-    --grad-clip or --disc say otherwise; checkpoints under out_dir."""
-    if args.bf16:
-        raise SystemExit("train-vocoder --bf16: the port's GAN step is float32 only so far "
-                         "(ROADMAP A6, bf16 compute)")
+    --grad-clip or --disc say otherwise; checkpoints under out_dir. --bf16 is
+    the mixed-precision GAN step (`VocoderTrainConfig.compute_dtype`)."""
     _maybe_init_distributed(args)
     from visual_onoma_to_wave_tpu_torch.models.hifigan_disc import MultiResolutionDiscriminator
     from visual_onoma_to_wave_tpu_torch.models.vocoder import get_vocoder
+    from visual_onoma_to_wave_tpu_torch.precision import compute_dtype
     from visual_onoma_to_wave_tpu_torch.training.vocoder_trainer import (
         VocoderTrainConfig,
         VocoderTrainer,
@@ -322,14 +321,17 @@ def cmd_train_vocoder(args) -> None:
         learning_rate=args.lr if args.lr is not None else recipe["learning_rate"],
         grad_clip_norm=args.grad_clip if args.grad_clip is not None else recipe["grad_clip_norm"],
         total_steps=args.steps, save_every=args.save_every, seed=args.seed,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
         ema_decay=args.ema_decay, on_divergence=args.on_divergence)
     disc = args.disc or recipe["disc"]
     clips = load_wav_dir(args.wav_dir, target_sr=cfg.sampling_rate)
     print(f"training {args.family} (MPD+{disc.upper()}) on {len(clips)} clips "
           f"({sum(len(c) for c in clips) / cfg.sampling_rate:.0f}s of audio) on {args.device}")
-    trainer = VocoderTrainer(clips, cfg, gen=get_vocoder(args.family), ckpt_dir=args.out_dir,
-                             log_dir=args.log_dir,
-                             msd=MultiResolutionDiscriminator() if disc == "mrd" else None,
+    dtype = compute_dtype(cfg.compute_dtype)
+    trainer = VocoderTrainer(clips, cfg, gen=get_vocoder(args.family, dtype=dtype),
+                             ckpt_dir=args.out_dir, log_dir=args.log_dir,
+                             msd=(MultiResolutionDiscriminator(dtype=dtype) if disc == "mrd"
+                                  else None),
                              device=args.device)
     if args.restore_step is not None:
         step = trainer.restore(args.restore_step if args.restore_step >= 0 else None)
@@ -487,7 +489,8 @@ def main(argv=None):
                    help="the discriminator beside the MPD (default: mrd for bigvgan, msd "
                         "otherwise)")
     s.add_argument("--bf16", action="store_true",
-                   help="mixed-precision GAN step: not ported yet (ROADMAP A6)")
+                   help="mixed-precision GAN step (bf16 conv compute, fp32 parameters, "
+                        "optimizer state, EMA, losses and mel DSP)")
     s.add_argument("--on-divergence", default="halt", choices=["halt", "warn"],
                    help="the GAN-collapse watchdog's action: halt checkpoints the diverged "
                         "state beside a generator_last_healthy artifact and stops; warn "

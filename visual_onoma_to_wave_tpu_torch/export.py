@@ -27,7 +27,11 @@ importing this module registers.
 
 A `cuda` program is traced on the card and loading it without a card
 raises: no artifact falls back to the CPU. The e/d controls are (B,) inputs,
-so any mix of per-item controls shares the program.
+so any mix of per-item controls shares the program. A synthesizer of bf16
+compute (`train.compute_dtype`, a vocoder's `dtype`) exports as it runs: the
+casts are traced, the custom ops' fake implementations return the dtype of
+their inputs, the programs launch the kernels' bf16 instantiations, and the
+manifest records both compute dtypes.
 """
 from __future__ import annotations
 
@@ -143,6 +147,8 @@ def export_synthesizer(synth: Synthesizer, out_dir: str | pathlib.Path, *, max_b
         "sampling_rate": synth.config.audio.sampling_rate,
         "hop_length": synth.config.audio.stft.hop_length,
         "vocoder_model": synth.config.model.vocoder_model,
+        "acoustic_dtype": str(synth.model.dtype).removeprefix("torch."),
+        "vocoder_dtype": str(getattr(synth.vocoder, "dtype", torch.float32)).removeprefix("torch."),
     }
     with open(out / MANIFEST, "w") as f:
         json.dump(manifest, f, indent=2)

@@ -17,6 +17,11 @@ kernel: its convs, FIRs and snake run as PyTorch ops (cuDNN on the card),
 as the reference runs them through XLA. Module names: conv_pre, ups.i,
 resblocks.{i * n_kernels + j}.convs1|convs2.k, resblocks.r.acts1|acts2.k
 .log_alpha|log_beta, act_post, conv_post (`bridge.bigvgan_state_dict`).
+
+`dtype` is the compute dtype (JAX bigvgan.py:83-172): in bfloat16 the convs
+and the anti-aliasing FIRs (their taps rounded to bf16) compute in bf16 with
+fp32 parameters (`precision.at_dtype`), snake takes exp of its fp32 log
+parameters and computes the rest in bf16, and conv_post and tanh stay fp32.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.models.hifigan import receptive_halo_frames
+from visual_onoma_to_wave_tpu_torch.precision import at_dtype
 
 AA_KERNEL = 12  # K = int(6 * ratio / 2) * 2 at ratio 2
 
@@ -69,7 +75,8 @@ def upsample2(x: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
     conv equals the reference's lhs-dilated correlation without a flip."""
     c, t = x.shape[1], x.shape[2]
     pad = AA_KERNEL // 2 - 1
-    y = F.conv_transpose1d(F.pad(x, (pad, pad), mode="replicate"), w_up, stride=2, groups=c)
+    y = F.conv_transpose1d(F.pad(x, (pad, pad), mode="replicate"), w_up.to(x.dtype), stride=2,
+                           groups=c)
     lo = 2 * pad + (AA_KERNEL - 2) // 2
     return y[:, :, lo:lo + 2 * t]
 
@@ -78,7 +85,7 @@ def downsample2(x: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """(B, C, 2T) -> (B, C, T): edge pad (K/2 - 1, K/2), then a stride-2
     depthwise conv with the lowpass filter `w_down` (C, 1, K)."""
     xp = F.pad(x, (AA_KERNEL // 2 - 1, AA_KERNEL // 2), mode="replicate")
-    return F.conv1d(xp, w_down, stride=2, groups=x.shape[1])
+    return F.conv1d(xp, w_down.to(x.dtype), stride=2, groups=x.shape[1])
 
 
 def snake(x: torch.Tensor, log_alpha: torch.Tensor) -> torch.Tensor:
@@ -97,10 +104,12 @@ def snake_beta(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor)
 
 class SnakeAct(nn.Module):
     """One activation site: snake or snake-beta, optionally between the 2x
-    resamplers (whose filters are non-persistent buffers)."""
+    resamplers (whose filters are non-persistent buffers), in `dtype`."""
 
-    def __init__(self, channels: int, activation: str = "snakebeta", anti_aliased: bool = True):
+    def __init__(self, channels: int, activation: str = "snakebeta", anti_aliased: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if activation not in ("snake", "snakebeta"):
             raise ValueError(f"unknown activation {activation!r}")
         self.log_alpha = nn.Parameter(torch.zeros(channels))
@@ -117,6 +126,7 @@ class SnakeAct(nn.Module):
         return snake_beta(x, self.log_alpha, self.log_beta)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         if not self.anti_aliased:
             return self.act(x)
         return downsample2(self.act(upsample2(x, self.w_up)), self.w_down)
@@ -131,18 +141,21 @@ class AMPBlock1(nn.Module):
     x += conv2(act2(conv1_d(act1(x))))."""
 
     def __init__(self, channels: int, kernel_size: int, dilations=(1, 3, 5),
-                 activation: str = "snakebeta", anti_aliased: bool = True):
+                 activation: str = "snakebeta", anti_aliased: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.convs1 = nn.ModuleList(_conv(channels, kernel_size, d) for d in dilations)
         self.convs2 = nn.ModuleList(_conv(channels, kernel_size, 1) for _ in dilations)
-        self.acts1 = nn.ModuleList(SnakeAct(channels, activation, anti_aliased)
+        self.acts1 = nn.ModuleList(SnakeAct(channels, activation, anti_aliased, dtype)
                                    for _ in dilations)
-        self.acts2 = nn.ModuleList(SnakeAct(channels, activation, anti_aliased)
+        self.acts2 = nn.ModuleList(SnakeAct(channels, activation, anti_aliased, dtype)
                                    for _ in dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2, a1, a2 in zip(self.convs1, self.convs2, self.acts1, self.acts2):
-            x = x + c2(a2(c1(a1(x))))
+            h = a2(at_dtype(c1, a1(x), self.dtype))
+            x = x + at_dtype(c2, h, self.dtype)
         return x
 
 
@@ -162,8 +175,10 @@ class BigVGANGenerator(nn.Module):
     def __init__(self, upsample_rates=(8, 8, 2, 2), upsample_kernel_sizes=(16, 16, 4, 4),
                  upsample_initial_channel: int = 512, resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilations=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 activation: str = "snakebeta", anti_aliased: bool = True, n_mels: int = 80):
+                 activation: str = "snakebeta", anti_aliased: bool = True, n_mels: int = 80,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.upsample_initial_channel = upsample_initial_channel
@@ -179,11 +194,11 @@ class BigVGANGenerator(nn.Module):
                                padding=(k - u) // 2)
             for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)))
         self.resblocks = nn.ModuleList(
-            AMPBlock1(ch0 // 2 ** (i + 1), rk, tuple(rd), activation, anti_aliased)
+            AMPBlock1(ch0 // 2 ** (i + 1), rk, tuple(rd), activation, anti_aliased, dtype)
             for i in range(len(upsample_rates))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations))
         ch_last = ch0 // 2 ** len(upsample_rates)
-        self.act_post = SnakeAct(ch_last, activation, anti_aliased)
+        self.act_post = SnakeAct(ch_last, activation, anti_aliased, dtype)
         self.conv_post = nn.Conv1d(ch_last, 1, 7, padding=3)
         # the reference's initial distributions: weights N(0, 0.01), biases
         # and log-alpha / log-beta 0
@@ -198,10 +213,10 @@ class BigVGANGenerator(nn.Module):
         return int(np.prod(self.upsample_rates, dtype=np.int64))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(mel.transpose(1, 2))
+        x = at_dtype(self.conv_pre, mel.transpose(1, 2), self.dtype)
         n = self.num_kernels
         for i, up in enumerate(self.ups):
-            x = up(x)
+            x = at_dtype(up, x, self.dtype)
             acc = None
             for block in self.resblocks[i * n:(i + 1) * n]:
                 y = block(x)

@@ -14,6 +14,12 @@ every stage of a generator in `.train()` (the kernel has no backward; GAN
 training takes the plain chain, as the reference's takes XLA) run through
 the modules.
 
+`dtype` is the compute dtype (the JAX generators' field): in bfloat16
+conv_pre, the upsampling and every MRF stage compute in bf16 with fp32
+parameters (`precision.at_dtype`; on the card B2's bf16 instantiation), and
+conv_post and tanh in fp32 on the bf16 trunk's output cast up, so the
+waveform leaves in fp32 (JAX hifigan.py:36-67, :76-113, :146-183).
+
 `receptive_halo_frames` is the generator's one-sided receptive field in mel
 frames; `vocoder_infer_chunked` vocodes long or streamed mels in bounded
 memory through any generator with a known halo (HiFi-GAN, iSTFTNet, Vocos,
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
+from visual_onoma_to_wave_tpu_torch.precision import at_dtype, leaky_relu
 
 LRELU_SLOPE = 0.1
 
@@ -49,30 +56,34 @@ def _conv(c: int, k: int, d: int) -> nn.Conv1d:
 
 
 class ResBlock1(nn.Module):
-    """3x [lrelu -> dilated conv -> lrelu -> conv d=1 -> +x]."""
+    """3x [lrelu -> dilated conv -> lrelu -> conv d=1 -> +x], in `dtype`."""
 
-    def __init__(self, channels: int, kernel_size: int, dilations=(1, 3, 5)):
+    def __init__(self, channels: int, kernel_size: int, dilations=(1, 3, 5),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.convs1 = nn.ModuleList(_conv(channels, kernel_size, d) for d in dilations)
         self.convs2 = nn.ModuleList(_conv(channels, kernel_size, 1) for _ in dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
-            h = c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
-            x = x + h
+            h = at_dtype(c1, leaky_relu(x, LRELU_SLOPE), self.dtype)
+            x = x + at_dtype(c2, leaky_relu(h, LRELU_SLOPE), self.dtype)
         return x
 
 
 class ResBlock2(nn.Module):
-    """2x [lrelu -> dilated conv -> +x] (config_v3.json)."""
+    """2x [lrelu -> dilated conv -> +x] (config_v3.json), in `dtype`."""
 
-    def __init__(self, channels: int, kernel_size: int, dilations=(1, 3)):
+    def __init__(self, channels: int, kernel_size: int, dilations=(1, 3),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.convs = nn.ModuleList(_conv(channels, kernel_size, d) for d in dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c in self.convs:
-            x = x + c(F.leaky_relu(x, LRELU_SLOPE))
+            x = x + at_dtype(c, leaky_relu(x, LRELU_SLOPE), self.dtype)
         return x
 
 
@@ -80,8 +91,10 @@ class HiFiGANGenerator(nn.Module):
     def __init__(self, upsample_rates=(8, 8, 2, 2), upsample_kernel_sizes=(16, 16, 4, 4),
                  upsample_initial_channel: int = 512, resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilations=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 resblock_type: str = "1", n_mels: int = 80):
+                 resblock_type: str = "1", n_mels: int = 80,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         # the architecture fields `receptive_halo_frames` reads
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
@@ -97,7 +110,7 @@ class HiFiGANGenerator(nn.Module):
             for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)))
         block = ResBlock2 if resblock_type == "2" else ResBlock1
         self.resblocks = nn.ModuleList(
-            block(ch0 // 2 ** (i + 1), rk, tuple(rd))
+            block(ch0 // 2 ** (i + 1), rk, tuple(rd), dtype)
             for i in range(len(upsample_rates))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations))
         self.conv_post = nn.Conv1d(ch0 // 2 ** len(upsample_rates), 1, 7, padding=3)
@@ -105,10 +118,10 @@ class HiFiGANGenerator(nn.Module):
                      else MRFStages(resblock_kernel_sizes, resblock_dilations))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(mel.transpose(1, 2))
+        x = at_dtype(self.conv_pre, mel.transpose(1, 2), self.dtype)
         n = self.num_kernels
         for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            x = at_dtype(up, leaky_relu(x, LRELU_SLOPE), self.dtype)
             blocks = self.resblocks[i * n:(i + 1) * n]
             if self._mrf is not None:
                 x = self._mrf(i, blocks, x, fused=not self.training)
@@ -118,7 +131,7 @@ class HiFiGANGenerator(nn.Module):
                 y = block(x)
                 acc = y if acc is None else acc + y
             x = acc / n
-        x = self.conv_post(F.leaky_relu(x, 0.01))  # PyTorch's default slope
+        x = self.conv_post(leaky_relu(x, 0.01).float())  # PyTorch's default slope; fp32
         return torch.tanh(x)[:, 0, :]
 
 

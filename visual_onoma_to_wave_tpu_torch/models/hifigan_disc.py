@@ -23,7 +23,11 @@ it.
 The convolutions run in torch's channels-first layout: a feature map is
 the reference's NHWC / NHC map transposed, and each logits tensor is the
 reference's, element for element. These modules run no hand-written
-kernel; fp32 only (bf16 compute is ROADMAP A6).
+kernel. `dtype` is the compute dtype (JAX hifigan_disc.py:43-81): in
+bfloat16 each conv runs in bf16 on its input and weight cast down (the
+weight-norm math stays fp32), its output rounded once and its bias added in
+bf16; feature maps are bf16 and the logits fp32. The MRD's STFT magnitude
+is fp32.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.ops.stft import frame_signal, hann_window, reflect_pad
+from visual_onoma_to_wave_tpu_torch.precision import in_dtype, leaky_relu
 
 LRELU_SLOPE = 0.1
 
@@ -44,8 +49,9 @@ class WNConv(nn.Module):
     normalisation; channels-first input."""
 
     def __init__(self, in_channels: int, features: int, kernel_size, stride=None,
-                 padding=None, groups: int = 1):
+                 padding=None, groups: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         k = tuple(kernel_size)
         self.stride = tuple(stride or (1,) * len(k))
         self.padding = tuple(padding or (0,) * len(k))   # symmetric, per spatial axis
@@ -65,33 +71,36 @@ class WNConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = F.conv1d if self.v.ndim == 3 else F.conv2d
-        return conv(x, self.weight(), self.b, stride=self.stride, padding=self.padding,
-                    groups=self.groups)
+        return in_dtype(conv, x, self.weight(), self.b, self.dtype, stride=self.stride,
+                        padding=self.padding, groups=self.groups)
 
 
 def _stack(convs, h: torch.Tensor):
     """Every conv but the last followed by leaky ReLU 0.1, each output a
-    feature map, the last conv's output the logits: (logits (B, N), maps)."""
+    feature map, the last conv's output the logits: (logits (B, N) fp32,
+    maps in the compute dtype)."""
     fmaps = []
     for conv in convs[:-1]:
-        h = F.leaky_relu(conv(h), LRELU_SLOPE)
+        h = leaky_relu(conv(h), LRELU_SLOPE)
         fmaps.append(h)
     h = convs[-1](h)
     fmaps.append(h)
-    return h.reshape(h.shape[0], -1), fmaps
+    return h.reshape(h.shape[0], -1).float(), fmaps
 
 
 class PeriodDiscriminator(nn.Module):
     """One MPD sub-discriminator over a (T/p, p) view of the waveform."""
 
-    def __init__(self, period: int, channels=(32, 128, 512, 1024)):
+    def __init__(self, period: int, channels=(32, 128, 512, 1024),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.period = period
         chans = (1,) + tuple(channels)
         self.convs = nn.ModuleList(
-            [WNConv(chans[i], chans[i + 1], (5, 1), (3, 1), (2, 0)) for i in range(len(channels))]
-            + [WNConv(chans[-1], chans[-1], (5, 1), (1, 1), (2, 0)),
-               WNConv(chans[-1], 1, (3, 1), (1, 1), (1, 0))])
+            [WNConv(chans[i], chans[i + 1], (5, 1), (3, 1), (2, 0), dtype=dtype)
+             for i in range(len(channels))]
+            + [WNConv(chans[-1], chans[-1], (5, 1), (1, 1), (2, 0), dtype=dtype),
+               WNConv(chans[-1], 1, (3, 1), (1, 1), (1, 0), dtype=dtype)])
 
     def forward(self, x: torch.Tensor):
         """x: (B, T) -> (logits (B, N), feature maps (B, C, T/p, p))."""
@@ -112,7 +121,7 @@ _SCALE_LAYERS = ((1, 15, 1, 1, 7), (1, 41, 2, 4, 20), (2, 41, 2, 16, 20), (4, 41
 class ScaleDiscriminator(nn.Module):
     """One MSD sub-discriminator: a grouped Conv1d stack on raw audio."""
 
-    def __init__(self, channels: int = 128):
+    def __init__(self, channels: int = 128, dtype: torch.dtype = torch.float32):
         super().__init__()
         convs, cin = [], 1
         for mult, k, s, g, pad in _SCALE_LAYERS:
@@ -120,9 +129,9 @@ class ScaleDiscriminator(nn.Module):
             # the official group counts at channels 128; gcd keeps narrow
             # widths valid while preserving them at full size
             groups = math.gcd(math.gcd(g, cin), ch)
-            convs.append(WNConv(cin, ch, (k,), (s,), (pad,), groups))
+            convs.append(WNConv(cin, ch, (k,), (s,), (pad,), groups, dtype))
             cin = ch
-        self.convs = nn.ModuleList(convs + [WNConv(cin, 1, (3,), (1,), (1,))])
+        self.convs = nn.ModuleList(convs + [WNConv(cin, 1, (3,), (1,), (1,), dtype=dtype)])
 
     def forward(self, x: torch.Tensor):
         """x: (B, T) -> (logits (B, N), feature maps (B, C, T'))."""
@@ -160,11 +169,13 @@ class _Pair(nn.Module):
 
 
 class MultiPeriodDiscriminator(_Pair):
-    def __init__(self, periods=(2, 3, 5, 7, 11), channels=(32, 128, 512, 1024)):
+    def __init__(self, periods=(2, 3, 5, 7, 11), channels=(32, 128, 512, 1024),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.periods = tuple(periods)
         for p in self.periods:
-            self.add_module(f"p{p}", PeriodDiscriminator(p, channels))
+            self.add_module(f"p{p}", PeriodDiscriminator(p, channels, dtype))
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         subs = [getattr(self, f"p{p}") for p in self.periods]
@@ -172,11 +183,13 @@ class MultiPeriodDiscriminator(_Pair):
 
 
 class MultiScaleDiscriminator(_Pair):
-    def __init__(self, n_scales: int = 3, channels: int = 128):
+    def __init__(self, n_scales: int = 3, channels: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.n_scales = n_scales
         for s in range(n_scales):
-            self.add_module(f"s{s}", ScaleDiscriminator(channels))
+            self.add_module(f"s{s}", ScaleDiscriminator(channels, dtype))
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         ys, y_hats = [y], [y_hat]
@@ -191,7 +204,8 @@ class ResolutionDiscriminator(nn.Module):
     (B, 1, freq bins, frames); kernels (3, 9) span 3 bins x 9 frames,
     strides (1, 2) decimate time."""
 
-    def __init__(self, resolution=(1024, 120, 600), channels: int = 32):
+    def __init__(self, resolution=(1024, 120, 600), channels: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resolution = tuple(int(r) for r in resolution)
         n_fft, _, win = self.resolution
@@ -201,10 +215,10 @@ class ResolutionDiscriminator(nn.Module):
             window = F.pad(window, (lpad, n_fft - win - lpad))
         self.register_buffer("window", window, persistent=False)
         self.convs = nn.ModuleList(
-            [WNConv(1 if i == 0 else channels, channels, (3, 9), s, (1, 4))
+            [WNConv(1 if i == 0 else channels, channels, (3, 9), s, (1, 4), dtype=dtype)
              for i, s in enumerate(((1, 1), (1, 2), (1, 2), (1, 2)))]
-            + [WNConv(channels, channels, (3, 3), (1, 1), (1, 1)),
-               WNConv(channels, 1, (3, 3), (1, 1), (1, 1))])
+            + [WNConv(channels, channels, (3, 3), (1, 1), (1, 1), dtype=dtype),
+               WNConv(channels, 1, (3, 3), (1, 1), (1, 1), dtype=dtype)])
 
     def magnitude(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T) -> (B, T', F): sqrt(re^2 + im^2 + 1e-9), so that the exactly
@@ -224,11 +238,12 @@ class MultiResolutionDiscriminator(_Pair):
     UnivNet / BigVGAN triple by default."""
 
     def __init__(self, resolutions=((1024, 120, 600), (2048, 240, 1200), (512, 50, 240)),
-                 channels: int = 32):
+                 channels: int = 32, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.resolutions = tuple(tuple(int(v) for v in r) for r in resolutions)
         for r in self.resolutions:
-            self.add_module(f"r{r[0]}", ResolutionDiscriminator(r, channels))
+            self.add_module(f"r{r[0]}", ResolutionDiscriminator(r, channels, dtype))
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         subs = [getattr(self, f"r{r[0]}") for r in self.resolutions]

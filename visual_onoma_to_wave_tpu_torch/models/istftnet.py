@@ -18,7 +18,10 @@ r = i * 3 + j, `conv_post`), so `bridge.hifigan_state_dict` maps the JAX
 tree. On the card every MRF stage of a generator in `.eval()` is one launch
 of the fused MRF kernel (`ops/mrf.py`, `csrc/mrf.cu`); on the CPU, and in
 `.train()` on any device (the kernel has no backward), it runs through the
-`ResBlock1` modules.
+`ResBlock1` modules. `dtype` is the trunk's compute dtype (JAX
+istftnet.py:157-198): in bfloat16 conv_pre, the upsampling and the MRF stages
+compute in bf16 (on the card B2's bf16 instantiation), and conv_post and the
+iSTFT head in fp32.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from torch import nn
 from visual_onoma_to_wave_tpu_torch.models.hifigan import LRELU_SLOPE, ResBlock1
 from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
 from visual_onoma_to_wave_tpu_torch.ops.stft import hann_window
+from visual_onoma_to_wave_tpu_torch.precision import at_dtype, leaky_relu
 
 # mag = exp(min(logmag, ln(_MAX_MAG))), as the reference caps it
 _MAX_MAG = 100.0
@@ -111,8 +115,9 @@ class ISTFTNetGenerator(nn.Module):
     def __init__(self, upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
                  upsample_initial_channel: int = 512, resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilations=((1, 3, 5),) * 3, n_mels: int = 80, istft_n_fft: int = 16,
-                 post_kernel_size: int = 7):
+                 post_kernel_size: int = 7, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         ch0 = upsample_initial_channel
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
@@ -129,7 +134,7 @@ class ISTFTNetGenerator(nn.Module):
         # one MRF stage after each upsampling, or one at mel rate without any
         widths = [ch0 // 2 ** (i + 1) for i in range(len(self.ups))] or [ch0]
         self.resblocks = nn.ModuleList(
-            ResBlock1(c, rk, rd) for c in widths
+            ResBlock1(c, rk, rd, dtype) for c in widths
             for rk, rd in zip(self.resblock_kernel_sizes, self.resblock_dilations))
         self.conv_post = nn.Conv1d(widths[-1], 2 * (istft_n_fft // 2 + 1), post_kernel_size,
                                    padding=(post_kernel_size - 1) // 2)
@@ -148,13 +153,14 @@ class ISTFTNetGenerator(nn.Module):
         return self.resblocks[i * n:(i + 1) * n]
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(mel.transpose(1, 2))
+        x = at_dtype(self.conv_pre, mel.transpose(1, 2), self.dtype)
         for i, up in enumerate(self.ups):
-            x = self._mrf(i, self._stage_blocks(i), up(F.leaky_relu(x, LRELU_SLOPE)),
+            x = self._mrf(i, self._stage_blocks(i),
+                          at_dtype(up, leaky_relu(x, LRELU_SLOPE), self.dtype),
                           fused=not self.training)
         if not self.ups:
             x = self._mrf(0, self._stage_blocks(0), x, fused=not self.training)
-        spec = self.conv_post(F.leaky_relu(x, 0.01)).float().transpose(1, 2)  # head in fp32
+        spec = self.conv_post(leaky_relu(x, 0.01).float()).transpose(1, 2)  # head in fp32
         n_bins = self.istft_n_fft // 2 + 1
         logmag, phase = spec[..., :n_bins], spec[..., n_bins:]
         mag = torch.exp(torch.clamp(logmag, max=math.log(_MAX_MAG)))
@@ -178,8 +184,10 @@ class ISTFTNetGenerator(nn.Module):
         return halo + 3  # conv_pre k = 7
 
 
-def build_istftnet(preset: str = "c8c8i", **overrides) -> ISTFTNetGenerator:
-    """An ISTFTNetGenerator from a named preset plus overrides."""
+def build_istftnet(preset: str = "c8c8i", *, dtype: torch.dtype = torch.float32,
+                   **overrides) -> ISTFTNetGenerator:
+    """An ISTFTNetGenerator of compute dtype `dtype` from a named preset plus
+    overrides."""
     kw = dict(ISTFT_PRESETS[preset.lower()])
     kw.update(overrides)
-    return ISTFTNetGenerator(**kw)
+    return ISTFTNetGenerator(dtype=dtype, **kw)

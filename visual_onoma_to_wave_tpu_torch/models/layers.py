@@ -15,6 +15,15 @@ layout; convolutions transpose to PyTorch's (B, C, T) internally. Parameter
 names follow the reference state_dict layout that
 `visual_onoma_to_wave_tpu/models/convert_acoustic.py` reads.
 
+Compute dtype (`dtype`, the JAX modules' field of that name): in bfloat16
+the attention's projections, its product with V and its output projection,
+the conv FFN and the PostNet's first four convolutions run in bf16 with fp32
+parameters (`precision.at_dtype`); the attention logits and softmax, every
+LayerNorm (on the fp32 sum of the sub-block and its residual), the
+BatchNorms and the PostNet's last convolution stay fp32, and so does every
+block's output. In float32 every module computes what it computed before the
+dtype existed.
+
 Initialisation is flax's, leaf by leaf (`init_like_flax`): lecun-normal
 kernels (a normal truncated at two standard deviations, scaled to variance
 1/fan_in) and zero biases for every linear and convolution, N(0, 1/features)
@@ -33,6 +42,7 @@ from visual_onoma_to_wave_tpu_torch.ops.attention import (
     attention_core,
     attention_core_reference,
 )
+from visual_onoma_to_wave_tpu_torch.precision import at_dtype
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -188,14 +198,17 @@ class MultiHeadAttention(nn.Module):
     version (`attention_core_reference`) with autograd through it, as the
     reference takes its XLA path whenever it is not deterministic: the kernel
     has no backward. The config key `model.fused_attention`, which gated the
-    reference's TPU kernel on TPU tiling rules, is ignored.
+    reference's TPU kernel on TPU tiling rules, is ignored. In bf16 the core
+    takes bf16 projections (the kernel's bf16 instantiation on the card).
     """
 
-    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, dropout: float = 0.1):
+    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if d_k != d_v:
             raise ValueError(f"attention core needs d_k == d_v; got {d_k}, {d_v}")
         self.n_head = n_head
+        self.dtype = dtype
         self.w_qs = nn.Linear(d_model, n_head * d_k)
         self.w_ks = nn.Linear(d_model, n_head * d_k)
         self.w_vs = nn.Linear(d_model, n_head * d_v)
@@ -206,33 +219,38 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, key_pad_mask: torch.Tensor) -> torch.Tensor:
         # x: (B, T, D); key_pad_mask: (B, T) True = padding
         core = attention_core_reference if self.training else attention_core
-        ctx = core(self.w_qs(x), self.w_ks(x), self.w_vs(x), key_pad_mask, self.n_head)
-        return self.layer_norm(self.dropout(self.fc(ctx)) + x)
+        q, k, v = (at_dtype(m, x, self.dtype) for m in (self.w_qs, self.w_ks, self.w_vs))
+        out = self.dropout(at_dtype(self.fc, core(q, k, v, key_pad_mask, self.n_head), self.dtype))
+        return self.layer_norm(out.float() + x.float())
 
 
 class PositionwiseFeedForward(nn.Module):
     """Conv FFN: k=9 expand -> ReLU -> k=1 project, post-LN."""
 
-    def __init__(self, d_in: int, d_hid: int, kernel_size=(9, 1), dropout: float = 0.1):
+    def __init__(self, d_in: int, d_hid: int, kernel_size=(9, 1), dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.w_1 = nn.Conv1d(d_in, d_hid, kernel_size[0], padding="same")
         self.w_2 = nn.Conv1d(d_hid, d_in, kernel_size[1], padding="same")
         self.layer_norm = nn.LayerNorm(d_in, eps=1e-5)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.w_2(torch.relu(self.w_1(x.transpose(1, 2)))).transpose(1, 2)
-        return self.layer_norm(self.dropout(h) + x)
+        h = at_dtype(self.w_1, x.transpose(1, 2), self.dtype)
+        h = at_dtype(self.w_2, torch.relu(h), self.dtype).transpose(1, 2)
+        return self.layer_norm(self.dropout(h).float() + x.float())
 
 
 class FFTBlock(nn.Module):
     """Attention + conv FFN, each followed by zeroing the padding positions."""
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
-                 d_inner: int, kernel_size=(9, 1), dropout: float = 0.1):
+                 d_inner: int, kernel_size=(9, 1), dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size, dropout)
+        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout, dtype)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size, dropout, dtype)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         pad = pad_mask[:, :, None]
@@ -264,11 +282,15 @@ class VariancePredictor(nn.Module):
 
 class PostNet(nn.Module):
     """5-layer conv PostNet: [conv -> BatchNorm -> tanh -> dropout] x 4,
-    conv -> BatchNorm -> dropout (the reference drops after the last layer too)."""
+    conv -> BatchNorm -> dropout (the reference drops after the last layer too).
+    In bf16 the first convolutions run in bf16 and the last in fp32; every
+    BatchNorm normalises an fp32 input."""
 
     def __init__(self, n_mel_channels: int = 80, embedding_dim: int = 512,
-                 kernel_size: int = 5, n_convolutions: int = 5, dropout: float = 0.5):
+                 kernel_size: int = 5, n_convolutions: int = 5, dropout: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         dims = [n_mel_channels] + [embedding_dim] * (n_convolutions - 1) + [n_mel_channels]
         self.convolutions = nn.ModuleList(
             nn.Sequential(Conv(dims[i], dims[i + 1], kernel_size),
@@ -281,7 +303,7 @@ class PostNet(nn.Module):
         h = x.transpose(1, 2)
         last = len(self.convolutions) - 1
         for i, (conv, bn) in enumerate(self.convolutions):
-            h = bn(conv.conv(h))
+            h = bn(at_dtype(conv.conv, h, self.dtype if i < last else torch.float32).float())
             if i < last:
                 h = torch.tanh(h)
             h = self.dropout(h)

@@ -16,6 +16,7 @@ from visual_onoma_to_wave_tpu_torch.models.hifigan import HIFIGAN_PRESETS, HiFiG
 from visual_onoma_to_wave_tpu_torch.models.istftnet import build_istftnet
 from visual_onoma_to_wave_tpu_torch.models.melgan import LN10, MelGANGenerator
 from visual_onoma_to_wave_tpu_torch.models.vocos import VocosGenerator
+from visual_onoma_to_wave_tpu_torch.precision import compute_dtype
 
 # Vocos keys of the reference's config that select TPU serving options; the
 # port always runs its ConvNeXt kernel on the card and its iSTFT product in
@@ -28,25 +29,31 @@ def family(model: str) -> str:
     return model.lower().replace("-", "").replace("_", "")
 
 
-def get_vocoder(model: str = "HiFi-GAN", **kwargs) -> nn.Module:
+def get_vocoder(model: str = "HiFi-GAN", *, dtype=torch.float32, **kwargs) -> nn.Module:
     """Build the configured generator; explicit kwargs override the preset.
+    `dtype` is the compute dtype (torch.bfloat16 or "bfloat16" / "bf16" for
+    bf16, `precision.compute_dtype`) of every family but MelGAN, which
+    ignores it, as the JAX package's `get_vocoder` builds MelGAN without one.
     For Vocos, `fused_kernel` and `head_precision` are accepted and not
     passed on (the port has one serving form: kernel on the card, fp32 head)."""
     name = family(model)
+    dtype = compute_dtype(dtype)
     if name in ("hifigan", "hifiganv1", "hifiganv2", "hifiganv3"):
         preset = dict(HIFIGAN_PRESETS[name[-2:] if name != "hifigan" else "v1"])
         preset.update(kwargs)
-        return HiFiGANGenerator(**preset)
+        return HiFiGANGenerator(dtype=dtype, **preset)
     if name == "melgan":
         return MelGANGenerator(**kwargs)
     if name in ("istftnet", "istftnetmel"):
-        return build_istftnet("melrate" if name == "istftnetmel" else "c8c8i", **kwargs)
+        return build_istftnet("melrate" if name == "istftnetmel" else "c8c8i", dtype=dtype,
+                              **kwargs)
     if name == "vocos":
-        return VocosGenerator(**{k: v for k, v in kwargs.items() if k not in _VOCOS_TPU_KEYS})
+        return VocosGenerator(dtype=dtype, **{k: v for k, v in kwargs.items()
+                                              if k not in _VOCOS_TPU_KEYS})
     if name in ("bigvgan", "bigvganbase", "bigvganlarge"):
         preset = dict(BIGVGAN_PRESETS["large" if name.endswith("large") else "base"])
         preset.update(kwargs)
-        return BigVGANGenerator(**preset)
+        return BigVGANGenerator(dtype=dtype, **preset)
     raise ValueError(f"unknown vocoder family: {model!r}")
 
 

@@ -19,6 +19,12 @@ the blocks' weights stacked (and packed) for the trunk, both made again only
 when a weight changed (a new tensor, or an in-place write such as
 `load_state_dict`, which bumps its version counter).
 
+`dtype` is the trunk's compute dtype (JAX vocos.py:55-79, :93-126, :154-172):
+in bfloat16 the embed conv computes in bf16 (its output rounded once, the
+bias added in bf16), the LayerNorms take fp32 statistics and return bf16,
+and every block (B4 on the card, B5 through `apply_fused`) runs in bf16;
+the head Linear and the iSTFT stay fp32.
+
 Parameters keep the flax names and shapes (this family is self-trained, so
 there is no reference PyTorch layout): flax `params/<name>` is the torch
 parameter `<name>`, and `params/block_<i>/<name>` is `blocks.<i>.<name>`
@@ -39,6 +45,7 @@ from visual_onoma_to_wave_tpu_torch.ops.convnext import (
     convnext_trunk,
     pack_convnext_weights,
 )
+from visual_onoma_to_wave_tpu_torch.precision import in_dtype
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -108,8 +115,9 @@ class ConvNeXtBlock(nn.Module):
 class VocosGenerator(nn.Module):
     def __init__(self, n_mels: int = 80, dim: int = 512, intermediate_dim: int = 1536,
                  num_layers: int = 8, embed_kernel_size: int = 7, istft_n_fft: int = 1024,
-                 gelu_approximate: bool = True):
+                 gelu_approximate: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.embed_kernel_size = embed_kernel_size
         self.istft_n_fft = istft_n_fft
         self.gelu_approximate = gelu_approximate
@@ -137,10 +145,13 @@ class VocosGenerator(nn.Module):
         return self.istft_hop
 
     def embed(self, mel: torch.Tensor) -> torch.Tensor:
-        """k=7 conv n_mels -> dim (zero padding) and the input LayerNorm; the
-        flax kernel (K, n_mels, dim) is the Conv1d weight (dim, n_mels, K)."""
-        x = F.conv1d(mel.transpose(1, 2), self.embed_w.permute(2, 1, 0), self.embed_b,
-                     padding=(self.embed_kernel_size - 1) // 2).transpose(1, 2)
+        """k=7 conv n_mels -> dim (zero padding) in the compute dtype and the
+        input LayerNorm; the flax kernel (K, n_mels, dim) is the Conv1d weight
+        (dim, n_mels, K)."""
+        pad = (self.embed_kernel_size - 1) // 2
+        w = self.embed_w.permute(2, 1, 0)
+        x = in_dtype(F.conv1d, mel.transpose(1, 2), w, self.embed_b, self.dtype,
+                     padding=pad).transpose(1, 2)
         return _layer_norm(x, self.norm_in_scale, self.norm_in_bias)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:

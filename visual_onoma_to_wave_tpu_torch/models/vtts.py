@@ -8,6 +8,12 @@ converter is the inverse of `bridge.vtts_state_dict`. `.train()` /
 `.eval()` are the reference's `deterministic=False` / `True`
 (`models/layers.py`); the forward takes the teacher-forcing targets of
 training and of the eval step.
+
+`dtype` is the compute dtype (`train.compute_dtype` through `from_config`):
+in bfloat16 the encoder and decoder FFT stacks and the PostNet compute in
+bf16 (`models/layers.py`), while the VFE, the embeddings, the variance
+adaptor and `mel_linear` compute in fp32 on fp32 inputs, and the parameters
+stay fp32, as in the JAX model (its vtts.py:205-253).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from visual_onoma_to_wave_tpu_torch.models.layers import (
 from visual_onoma_to_wave_tpu_torch.models.variance_adaptor import VarianceAdaptor
 from visual_onoma_to_wave_tpu_torch.models.vfe import VisualFeatureExtractor
 from visual_onoma_to_wave_tpu_torch.ops.length_regulator import get_mask_from_lengths
+from visual_onoma_to_wave_tpu_torch.precision import compute_dtype
 
 
 class _PositionTable(nn.Module):
@@ -45,11 +52,11 @@ class FFTStack(nn.Module):
     """A stack of FFT blocks sharing one padding mask (`layer_stack.{i}`)."""
 
     def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int,
-                 kernel_size, dropout: float = 0.2):
+                 kernel_size, dropout: float = 0.2, dtype: torch.dtype = torch.float32):
         super().__init__()
         d_k = d_model // n_head
         self.layer_stack = nn.ModuleList(
-            FFTBlock(d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout)
+            FFTBlock(d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout, dtype)
             for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
@@ -91,8 +98,9 @@ class VTTS(nn.Module):
                  energy_stats=(-1.0, 1.0, 0.0, 1.0), kurtosis_stats=(-1.0, 1.0, 0.0, 1.0),
                  multi_audiotype: bool = True, postnet_dim: int = 512,
                  encoder_dropout: float = 0.2, decoder_dropout: float = 0.2,
-                 vp_dropout: float = 0.5):
+                 vp_dropout: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.use_image = use_image
         self.max_mel_len = max_mel_len
         self.encoder = Encoder(
@@ -100,7 +108,7 @@ class VTTS(nn.Module):
             vfe=dict(embed_dim=hidden, cell_hw=tuple(cell_hw), kernel_size=tuple(vfe_kernel),
                      num_convolutions=vfe_layers, channels=vfe_channels),
             n_layers=encoder_layers, d_model=hidden, n_head=n_head, d_inner=d_inner,
-            kernel_size=tuple(ffn_kernel), dropout=encoder_dropout)
+            kernel_size=tuple(ffn_kernel), dropout=encoder_dropout, dtype=dtype)
         self.audiotype_emb = nn.Embedding(n_audiotype, hidden) if multi_audiotype else None
         self.variance_adaptor = VarianceAdaptor(
             hidden=hidden, n_bins=n_bins, filter_size=vp_filter, kernel_size=vp_kernel,
@@ -110,9 +118,9 @@ class VTTS(nn.Module):
             energy_stats=energy_stats, kurtosis_stats=kurtosis_stats,
             max_mel_len=max_mel_len, dropout=vp_dropout)
         self.decoder = FFTStack(decoder_layers, hidden, decoder_n_head or n_head, d_inner,
-                                tuple(ffn_kernel), decoder_dropout)
+                                tuple(ffn_kernel), decoder_dropout, dtype)
         self.mel_linear = nn.Linear(hidden, n_mels)
-        self.postnet = PostNet(n_mels, postnet_dim)
+        self.postnet = PostNet(n_mels, postnet_dim, dtype=dtype)
         self.position = _PositionTable(max_seq_len, hidden)
         vfe = [self.encoder.VisualFeatureExtractor] if use_image else []
         init_like_flax(self, skip=vfe)
@@ -124,15 +132,13 @@ class VTTS(nn.Module):
                     max_mel_len: int | None = None) -> "VTTS":
         """The reference's `VTTS.from_config` on the port's `config.Config` (read
         by attribute; this module does not import it). `model.fused_attention`
-        is ignored: every attention call takes `ops.attention.attention_core`."""
+        is ignored: every attention call takes `ops.attention.attention_core`.
+        `train.compute_dtype` "bfloat16" / "bf16" gives a bf16 model, anything
+        else fp32 (`precision.compute_dtype`)."""
         m, t = config.model, config.model.transformer
         if t.decoder_hidden != t.encoder_hidden:
             raise ValueError(f"decoder_hidden ({t.decoder_hidden}) must equal "
                              f"encoder_hidden ({t.encoder_hidden})")
-        if config.train.compute_dtype not in ("float32", "fp32"):
-            raise NotImplementedError(
-                f"compute_dtype {config.train.compute_dtype!r}: the port serves float32 "
-                "only so far (ROADMAP A6, bf16 compute)")
         kwargs = dict(
             n_vocab=n_vocab,
             n_audiotype=metadata.n_audiotype if metadata else 10,
@@ -153,7 +159,8 @@ class VTTS(nn.Module):
             kurtosis_quantization=m.variance_embedding.kurtosis_quantization,
             multi_audiotype=m.multi_audiotype, postnet_dim=m.postnet_channels,
             encoder_dropout=t.encoder_dropout, decoder_dropout=t.decoder_dropout,
-            vp_dropout=m.variance_predictor.dropout)
+            vp_dropout=m.variance_predictor.dropout,
+            dtype=compute_dtype(config.train.compute_dtype))
         if metadata is not None:
             kwargs["cell_hw"] = (metadata.image_height, metadata.max_pixelsize)
             e, k = metadata.energy_stats, metadata.kurtosis_stats
@@ -186,7 +193,7 @@ class VTTS(nn.Module):
                                                max_mel_len, energy_targets, kurtosis_targets,
                                                duration_targets)
         x = self.decoder(x + self.position(x.shape[1])[None], mel_pad_mask)
-        mel = self.mel_linear(x)
+        mel = self.mel_linear(x.float())
         return {
             "mel": mel,
             "postnet_mel": mel + self.postnet(mel),

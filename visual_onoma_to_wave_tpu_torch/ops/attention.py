@@ -63,7 +63,12 @@ _HEAD_DIMS = (64, 128)
 def attention_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              key_pad_mask: torch.Tensor | None,
                              n_head: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (the JAX module's XLA path)."""
+    """Plain PyTorch version of the kernel: the JAX module's non-fused core
+    (JAX models/layers.py:97-114). The logits Q K^T / sqrt(dk) are fp32 sums
+    of the bf16 (or fp32) operands' exact products, masked and softmaxed in
+    fp32; in bf16 the normalised probabilities P are rounded to bf16 before
+    the product with V (JAX's `attn.astype(dtype)`), that product sums in
+    fp32 and the output is rounded to bf16 once (JAX's bf16 einsum)."""
     B, T, HD = q.shape
     dk = HD // n_head
     qh, kh, vh = (x.reshape(B, T, n_head, dk).float() for x in (q, k, v))

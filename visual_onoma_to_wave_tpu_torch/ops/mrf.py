@@ -319,8 +319,11 @@ class MRFStages:
     in-place write such as `load_state_dict`, which bumps its version
     counter); under `torch.export` the packing is traced into the graph. With
     `fused=False` (a generator in `.train()`: the kernel has no backward), and
-    on the CPU for a stage of other than three branches, the branches run as
-    modules and are averaged."""
+    on the CPU for a stage of other than three branches or in bf16, the
+    branches run as modules and are averaged. In bf16 the modules are the JAX
+    generators' bf16 chain (JAX hifigan.py:36-67: every conv output rounded
+    once, the residual sums in bf16), which the kernel's plain version, kept
+    to the kernel's arithmetic (fp32 residual streams), is not."""
 
     def __init__(self, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS):
         self.kernel_sizes = tuple(kernel_sizes)
@@ -346,8 +349,10 @@ class MRFStages:
         return cached[1]
 
     def __call__(self, i: int, blocks, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
-        # the op takes three branches; on the CPU a stage of another shape runs as modules
-        if fused and (x.device.type != "cpu" or len(self.kernel_sizes) == 3):
+        # the op takes three branches; on the CPU a stage of another shape,
+        # or in bf16, runs as modules
+        if fused and (x.device.type != "cpu" or (len(self.kernel_sizes) == 3
+                                                 and x.dtype == torch.float32)):
             mats, biases, packed = self.packed(i, blocks, x.dtype, x.device.type)
             return mrf_stage_fused(x, *mats, biases, self.kernel_sizes, self.dilations,
                                    packed=packed)

@@ -11,6 +11,13 @@ the port's `serve.BatchingServer` serves. The host modules (config,
 renderer, symbols) are the port's own, imported where used so that the
 compute core here imports with torch and numpy alone. Not ported: the
 device mesh and the persistent compile cache.
+
+The compute dtype lives in the modules: `Synthesizer.from_checkpoint` builds
+the acoustic model of `train.compute_dtype` (`VTTS.from_config`: bf16 FFT
+stacks and PostNet) and `load_vocoder` the vocoder of `model.vocoder_kwargs`,
+whose `dtype` ("bfloat16") reaches `get_vocoder` as the JAX Synthesizer's
+kwargs reach its `get_vocoder`; the fused call and `vocode` take the mel and
+return the waveform in fp32 whatever the dtypes.
 """
 from __future__ import annotations
 

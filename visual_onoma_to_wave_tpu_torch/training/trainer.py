@@ -27,9 +27,11 @@ batch. The batch size must divide by P. Parameters start equal (broadcast
 from process 0); evaluate runs the whole val split on every process, so
 every process holds the same numbers; only process 0 writes checkpoints,
 logs and samples, and a barrier after each checkpoint keeps the others from
-running ahead or leaving early. Not ported: the compile cache, the profiler
-trace, and the sample's figure (matplotlib); `train.compute_dtype:
-bfloat16` raises.
+running ahead or leaving early. `train.compute_dtype: bfloat16` trains the
+bf16 model of `VTTS.from_config` (bf16 FFT stacks and PostNet convs) with
+fp32 parameters, Adam moments, BatchNorm statistics and losses, as the
+reference's bf16 step does. Not ported: the compile cache, the profiler
+trace, and the sample's figure (matplotlib).
 """
 from __future__ import annotations
 
@@ -74,10 +76,6 @@ class Trainer:
                  loader_workers: Optional[int] = None):
         """vocoder: a generator module with its weights (`synthesis.load_vocoder`),
         for the waveform metrics of `evaluate` and the sample's audio."""
-        if config.train.compute_dtype not in ("float32", "fp32"):
-            raise NotImplementedError(
-                f"compute_dtype {config.train.compute_dtype!r}: the port trains float32 "
-                "only so far (ROADMAP A6, bf16 compute)")
         world = process_count()
         self.device = resolve_device(local_device(device) if world > 1 else device)
         if config.train.optimizer.batch_size % world:

@@ -34,9 +34,15 @@ shares, so averaging both updates' gradients over the processes (before
 the clip) gives the one-process step on the global batch. Both optimizers
 and the EMA then move alike everywhere, the losses each step returns are
 averaged too, so the watchdog decides alike, and only process 0 writes
-checkpoints while a barrier holds the others. Not ported here:
-`compute_dtype="bfloat16"` (ROADMAP A6); JAX's device mesh (`use_mesh`),
-whose role one process per device takes; the compile cache.
+checkpoints while a barrier holds the others.
+
+`compute_dtype="bfloat16"` is the reference's mixed-precision GAN step: the
+default generator and discriminators are built in bf16 (their convs compute
+in bf16, `precision.at_dtype`), while the parameters, both optimizers'
+state, the EMA, every loss and the mel DSP stay fp32 (the generator's
+waveform and the discriminators' logits leave their modules in fp32). Not
+ported here: JAX's device mesh (`use_mesh`), whose role one process per
+device takes; the compile cache.
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ from visual_onoma_to_wave_tpu_torch.parallel.distributed import (
     process_count,
     shard_batch_multiprocess,
 )
+from visual_onoma_to_wave_tpu_torch.precision import compute_dtype
 from visual_onoma_to_wave_tpu_torch.synthesis import resolve_device
 from visual_onoma_to_wave_tpu_torch.training.schedule import global_norm
 
@@ -105,7 +112,7 @@ class VocoderTrainConfig:
     n_mels: int = 80
     f_min: float = 0.0
     f_max: float = 8000.0
-    compute_dtype: str = "float32"    # "bfloat16" is ROADMAP A6
+    compute_dtype: str = "float32"    # "bfloat16": the mixed-precision GAN step
     ema_decay: float = 0.0            # 0 = off (the official recipe)
     grad_clip_norm: float = 0.0       # global-norm clip of both updates; 0 = off
     # the divergence watchdog (`VocoderTrainer._check_divergence`)
@@ -387,22 +394,19 @@ class VocoderTrainer:
         if c.batch_size % self.world:
             raise ValueError(f"batch_size {c.batch_size} does not divide by the {self.world} "
                              "processes")
-        if c.compute_dtype not in ("float32", "fp32"):
-            raise NotImplementedError(
-                f"compute_dtype {c.compute_dtype!r}: the port's GAN step is float32 only "
-                "so far (ROADMAP A6, bf16 compute)")
         if not 0.0 <= c.ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1), got {c.ema_decay}")
         if c.on_divergence not in ("warn", "halt"):
             raise ValueError(f"on_divergence must be 'warn' or 'halt', got {c.on_divergence!r}")
-        gen = gen if gen is not None else HiFiGANGenerator()
+        dtype = compute_dtype(c.compute_dtype)
+        gen = gen if gen is not None else HiFiGANGenerator(dtype=dtype)
         self.family = generator_family(gen)
         up = int(getattr(gen, "total_upsample", 0) or np.prod(gen.upsample_rates))
         if up != c.hop_length:
             raise ValueError(f"generator upsampling {up} != hop_length {c.hop_length}")
         self.device = resolve_device(local_device(device) if self.world > 1 else device)
-        mpd = mpd if mpd is not None else MultiPeriodDiscriminator()
-        msd = msd if msd is not None else MultiScaleDiscriminator()
+        mpd = mpd if mpd is not None else MultiPeriodDiscriminator(dtype=dtype)
+        msd = msd if msd is not None else MultiScaleDiscriminator(dtype=dtype)
         torch.manual_seed(c.seed)
         for m in (gen, mpd, msd):
             init_like_reference_(m)
