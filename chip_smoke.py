@@ -167,8 +167,18 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      16 x 8192 (losses finite, parameters fp32, no launch), beside phases 13
      and 17's fp32 steps; then the bf16 HiFi-GAN V1 synthesizer exported and
      run against the live bf16 step.
+  21. the rest of the JAX package's surface: phase 13's checkpoint served
+     through `Synthesizer.from_checkpoint(restore_step=-1)` bit for bit as
+     through its `acoustic.npz`, with the checkpoint's vocabulary, and `cli
+     synthesize --restore-step -1` in a subprocess on the card (a wav of mel
+     frames x 256 samples); phase 4's batch and an odd batch of 5 requests
+     over two replicas on the card against one (B1 and B2 launched per
+     replica); B3 over two shares of phase 7's first 64 clips (two launches,
+     the log-mel bit for bit); phase 13's trainer resumed with a `torch.profiler` trace
+     over three steps (its five longest device operations printed) and the
+     sample's mel + energy figure; `griffin_lim` on the card against the CPU.
 
-Each path (phases 4-7, 9-20) is driven with every launch count set to 0 just
+Each path (phases 4-7, 9-21) is driven with every launch count set to 0 just
 before it and read just after. The full `Preprocessor.build` on the card is
 checked by `tests/test_torch_preprocess_cuda.py`.
 
@@ -3082,6 +3092,265 @@ def phase_bf16(dev, card: str, fp32_served: dict, fp32_steps: dict,
             "export": bf16_export(dev, card, tmp)}
 
 
+# phase 21: the rest of the JAX package's surface. Bounds, stated before the
+# run: serving a checkpoint through `restore_step` is the same computation as
+# through its `acoustic.npz`, bit for bit; one batch split over two replicas
+# on the card against one replica within SHARD_OF_SCALE of the output's max
+# (other batch sizes take other GEMM tilings); B3's log-mel on two shares of
+# a batch bit for bit what it gives on the whole batch (each clip is its own
+# blocks' work), the char energy and kurtosis after it within
+# CHAR_STATS_OF_SCALE of their max (`scatter_add_` sums the frames with
+# atomics on the card, in no fixed order); griffin_lim on the card against
+# the CPU within GL_OF_SCALE of max (cuFFT against pocketfft, 30 iterations)
+SHARD_OF_SCALE, GL_OF_SCALE, CHAR_STATS_OF_SCALE = 1e-5, 1e-4, 1e-6
+SURFACE_TEXTS = ("パンドン", "パン")
+
+
+def surface_checkpoint(dev, card: str, cfg, work: pathlib.Path) -> dict:
+    """Phase 21 (a): phase 13's checkpoint served through `restore_step`
+    against its `acoustic.npz` given, the checkpoint's vocabulary, and `cli
+    synthesize --restore-step -1` in a subprocess on the card."""
+    import wave
+
+    from visual_onoma_to_wave_tpu_torch.data.symbols import load_symbol_map
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+    from visual_onoma_to_wave_tpu_torch.utils.checkpoint import acoustic_path
+
+    import time
+
+    phase = "21a checkpoint serving"
+    latest = acoustic_path(cfg.path.ckpt)
+    synth = Synthesizer.from_checkpoint(cfg, restore_step=-1, device=dev)
+    given = Synthesizer.from_checkpoint(cfg, str(latest), device=dev)
+    types = ["drum"] * len(SURFACE_TEXTS)
+    zero_launch_counts()
+    got = synth.synthesize_batch(list(SURFACE_TEXTS), types)
+    launches = launch_counts()
+    expect_launches(phase, launches,
+                    {"flash_mha": len(synth.model.encoder.layer_stack)
+                     + len(synth.model.decoder.layer_stack)})
+    want = given.synthesize_batch(list(SURFACE_TEXTS), types)
+    same = all(np.array_equal(a.mel, b.mel) and np.array_equal(a.durations, b.durations)
+               for a, b in zip(got, want))
+    vocab = synth.symbol_map == load_symbol_map(cfg.path.ckpt)
+    if not (same and vocab):
+        raise AssertionError(f"{phase}: restore_step serving equal {same}, checkpoint "
+                             f"vocabulary {vocab}")
+    data = cfg.to_dict()
+    data["model"]["vocoder_kwargs"] = {"upsample_initial_channel": 128}    # the demo HiFi-GAN
+    cfg_path, wav_path = work / "surface_config.json", work / "surface.wav"
+    cfg_path.write_text(json.dumps(data))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "visual_onoma_to_wave_tpu_torch.cli",
+                           "synthesize", str(cfg_path), "--restore-step", "-1", "--vocoder",
+                           str(DEMO / "torch" / "vocoder.npz"), "--text", SURFACE_TEXTS[0],
+                           "--audiotype", "drum", "--out", str(wav_path)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: cli synthesize --restore-step -1 exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    frames = int(proc.stdout.split("mel frames:")[1].split(",")[0])
+    with wave.open(str(wav_path), "rb") as w:
+        n, pcm = w.getnframes(), np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    if frames != got[0].mel_len or n != frames * HOP or not np.abs(pcm).max() > 0:
+        raise AssertionError(f"{phase}: the CLI's wav has {n} samples for {frames} mel "
+                             f"frames (in process {got[0].mel_len})")
+    result = {"checkpoint": str(latest.parent.name), "launches": launches,
+              "restore_step_bit_equal": same, "checkpoint_vocabulary": vocab,
+              "cli_mel_frames": frames, "cli_wav_samples": n, "cli_s": cli_s}
+    say(phase, card=card, **result)
+    return result
+
+
+def surface_sharded(dev, card: str) -> dict:
+    """Phase 21 (b): phase 4's batch over two replicas on the card
+    (`make_sharded_fused` over [dev, dev]) against the one-replica fused
+    step, and an odd batch of 5 requests through a two-device `Synthesizer`
+    (padded to 8) against a one-device one; B1 and B2 launched per replica."""
+    from visual_onoma_to_wave_tpu_torch.parallel import make_sharded_fused
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer, make_fused_infer
+
+    phase = "21b sharded serving"
+    synth, batch = icassp_synthesizer(dev, "HiFi-GAN")
+    model, gen = synth.model, synth.vocoder
+    per_call = per_call_launches(model, gen)
+    twice = {k: 2 * v for k, v in per_call.items()}
+    run = make_sharded_fused(model, gen, [dev, dev])
+    with torch.inference_mode():
+        want = make_fused_infer(model, gen)(batch)
+    zero_launch_counts()
+    got = run({k: v.cpu().numpy() for k, v in batch.items()})
+    expect_launches(phase + " B16", launch_counts(), twice)
+    err = {k: float(np.abs(got[k] - want[k].cpu().numpy()).max()
+                    / want[k].abs().max().item()) for k in ("postnet_mel", "wav")}
+    if (not np.array_equal(got["mel_lens"], want["mel_lens"].cpu().numpy())
+            or not max(err.values()) <= SHARD_OF_SCALE):
+        raise AssertionError(f"{phase}: two replicas off one at B{B}: {err}")
+    sharded = Synthesizer(synth.config, model, synth.metadata, synth.symbol_map, gen,
+                          device=dev, devices=[dev, dev])
+    rng = np.random.default_rng(0)
+    chars = sorted(synth.symbol_map)
+    texts = ["".join(rng.choice(chars, int(n))) for n in rng.integers(3, C + 1, 5)]
+    classes = sorted(synth.metadata.audiotype_map)
+    types = [classes[i % len(classes)] for i in range(5)]
+    zero_launch_counts()
+    odd = sharded.synthesize_batch(texts, types, return_mel=True)
+    expect_launches(phase + " B5", launch_counts(), twice)
+    ref = synth.synthesize_batch(texts, types, return_mel=True)
+    odd_err = {}
+    for k in ("mel", "wav"):
+        scale = max(float(np.abs(getattr(r, k)).max()) for r in ref)
+        odd_err[k] = max(float(np.abs(getattr(a, k) - getattr(r, k)).max())
+                         for a, r in zip(odd, ref)) / scale
+    if (any(a.mel_len != r.mel_len for a, r in zip(odd, ref))
+            or not max(odd_err.values()) <= SHARD_OF_SCALE):
+        raise AssertionError(f"{phase}: a 5-request batch over two replicas off one: {odd_err}")
+    result = {"devices": [str(dev)] * 2, "launches_b16": twice, "of_scale_b16": err,
+              "padded_batch": sharded.batch_signature(texts)[0], "of_scale_b5": odd_err,
+              "bound_of_scale": SHARD_OF_SCALE,
+              "sharded_ms_b16": time_cuda(lambda: run({k: v.cpu().numpy()
+                                                       for k, v in batch.items()}), 3),
+              "one_replica_ms_b16": time_cuda(lambda: synth._run(
+                  {k: v.cpu().numpy() for k, v in batch.items()},
+                  np.ones(B, np.float32), np.ones(B, np.float32)), 3)}
+    say(phase, card=card, **result)
+    return result
+
+
+def surface_features(dev, card: str) -> dict:
+    """Phase 21 (c): phase 7's first batch of 64 clips through B3 over
+    [dev, dev] against one device: two launches, the log-mel bit for bit."""
+    from visual_onoma_to_wave_tpu_torch.data.features import extract_features
+
+    phase = "21c sharded features"
+    clips, durs = feature_clips()
+    clips, durs = clips[:64], durs[:64]
+    one = extract_features(clips, durs, device=dev, max_chars=MAX_CHARS)
+    zero_launch_counts()
+    two = extract_features(clips, durs, device=dev, max_chars=MAX_CHARS, devices=[dev, dev])
+    torch.cuda.synchronize(dev)
+    launches = launch_counts()
+    expect_launches(phase, launches, {"mel_frontend": 2})
+    n = len(clips)
+
+    def of_scale(a, b) -> float:
+        """Max |a - b| over max |a| where a is finite; inf unless both are
+        finite at the same places (the silent clips' kurtosis is not)."""
+        fin = torch.isfinite(a)
+        if not torch.equal(fin, torch.isfinite(b)):
+            return float("inf")
+        return float((a[fin] - b[fin]).abs().max() / a[fin].abs().max())
+
+    stats_err = {k: of_scale(a, b[:n])
+                 for k, a, b in (("char_energy", one[1], two[1]), ("kurtosis", one[2], two[2]))}
+    if not (torch.equal(one[0], two[0][:n])
+            and max(stats_err.values()) <= CHAR_STATS_OF_SCALE):
+        raise AssertionError(f"{phase}: B3 over two shares differs from one launch: log-mel "
+                             f"equal {torch.equal(one[0], two[0][:n])}, char stats {stats_err}")
+    result = {"clips": n, "launches": launches, "logmel_bit_equal": True,
+              "char_stats_of_scale": stats_err, "bound_of_scale": CHAR_STATS_OF_SCALE,
+              "one_ms": time_cuda(lambda: extract_features(clips, durs, device=dev,
+                                                           max_chars=MAX_CHARS), 3),
+              "two_shares_ms": time_cuda(lambda: extract_features(
+                  clips, durs, device=dev, max_chars=MAX_CHARS, devices=[dev, dev]), 3)}
+    say(phase, card=card, **result)
+    return result
+
+
+def surface_trainer(dev, card: str, cfg, work: pathlib.Path) -> dict:
+    """Phase 21 (d): phase 13's trainer resumed with `profile_dir` over three
+    steps and a sample synthesis at its last step: the trace holds CUDA
+    kernels (its five longest printed), the sample's figure is written, B1
+    runs in the sample alone."""
+    import dataclasses
+
+    from PIL import Image
+
+    from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
+    from visual_onoma_to_wave_tpu_torch.utils import plotting
+    from visual_onoma_to_wave_tpu_torch.utils.checkpoint import acoustic_path
+
+    phase = "21d trainer trace and figure"
+    start = int(acoustic_path(cfg.path.ckpt).parent.name)
+    last = start + 5
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, step=dataclasses.replace(cfg.train.step, synth_step=last)))
+    trainer = Trainer(cfg, restore_step=-1, device=dev, profile_dir=str(work / "profile"),
+                      profile_steps=(start, start + 3))
+    zero_launch_counts()
+    trainer.train(max_steps=last)
+    torch.cuda.synchronize(dev)
+    launches = launch_counts()
+    model = trainer.state.model
+    expect_launches(phase, launches, {"flash_mha": len(model.encoder.layer_stack)
+                                      + len(model.decoder.layer_stack)})
+    trace = trainer.profile_trace
+    events = json.loads(trace.read_text())["traceEvents"] if trace else []
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: -float(e.get("dur", 0)))
+    if not kernels:
+        raise AssertionError(f"{phase}: the trace {trace} holds no CUDA kernel")
+    longest = [{"name": e["name"][:80], "us": float(e["dur"])} for e in kernels[:5]]
+    pngs = sorted((trainer.result_dir / "Val").glob(f"{last}_*.png"))
+    if len(pngs) != 1:
+        raise AssertionError(f"{phase}: sample figures {pngs}")
+    with Image.open(pngs[0]) as im:
+        size = im.size
+    strip = plotting.STRIP_HEIGHT if cfg.train.use_image else 0
+    if size != (plotting.FIG_WIDTH, strip + 2 * plotting.PANEL_HEIGHT):
+        raise AssertionError(f"{phase}: figure of {size}")
+    print(json.dumps({"phase": phase, "five_longest_device_ops": longest}), flush=True)
+    result = {"trace": trace.name, "trace_kernels": len(kernels),
+              "trace_kernel_us": sum(float(e["dur"]) for e in kernels),
+              "figure": pngs[0].name, "figure_size": list(size), "launches": launches}
+    say(phase, card=card, **result)
+    return result
+
+
+def surface_griffin_lim(dev, card: str) -> dict:
+    """Phase 21 (e): `griffin_lim` of a 440 Hz tone on the card against the
+    CPU from the same initial angles, 30 iterations, with both times."""
+    import time
+
+    from visual_onoma_to_wave_tpu_torch.ops.stft import griffin_lim, hann_window
+    from visual_onoma_to_wave_tpu_torch.ops.stft import magnitude_spectrogram
+
+    phase = "21e griffin_lim"
+    t = np.arange(4 * 1024) / SR
+    sig = torch.from_numpy((0.6 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32))
+    window = torch.from_numpy(hann_window(MEL_N_FFT))
+    mag = magnitude_spectrogram(sig, window, MEL_N_FFT, MEL_HOP, MEL_N_FFT)
+    angles = torch.rand(mag.shape, generator=torch.Generator().manual_seed(0)) * 2 * np.pi - np.pi
+    t0 = time.perf_counter()
+    cpu = griffin_lim(mag, window, MEL_N_FFT, MEL_HOP, n_iters=30, angles=angles)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+
+    def card_call():
+        return griffin_lim(mag.to(dev), window.to(dev), MEL_N_FFT, MEL_HOP, n_iters=30,
+                           angles=angles.to(dev))
+
+    got = card_call().cpu()
+    err = float((got - cpu).abs().max() / cpu.abs().max())
+    if not (torch.isfinite(got).all() and err <= GL_OF_SCALE):
+        raise AssertionError(f"{phase}: the card off the CPU by {err:.3e} of max")
+    result = {"frames": int(mag.shape[1]), "iters": 30, "of_scale": err,
+              "bound_of_scale": GL_OF_SCALE, "card_ms": time_cuda(card_call, 5),
+              "cpu_ms": cpu_ms}
+    say(phase, card=card, **result)
+    return result
+
+
+def phase_surface(dev, card: str, cfg, work: pathlib.Path) -> dict:
+    """Phase 21: serving phase 13's checkpoint, serving and B3 over a device
+    list, the trainer's trace and figure, griffin_lim (see the docstring)."""
+    return {"checkpoint": surface_checkpoint(dev, card, cfg, work),
+            "sharded": surface_sharded(dev, card),
+            "features": surface_features(dev, card),
+            "trainer": surface_trainer(dev, card, cfg, work),
+            "griffin_lim": surface_griffin_lim(dev, card)}
+
+
 def main() -> int:
     probe = phase_probe()
     dev = torch.device("cuda", 0)
@@ -3111,6 +3380,7 @@ def main() -> int:
                                      served["postnet_mel"][:CHUNK_B].contiguous(), train["cfg"],
                                      pathlib.Path(tmp))
         phase_export(dev, probe["smi"], pathlib.Path(tmp))
+        phase_surface(dev, probe["smi"], train["cfg"], pathlib.Path(tmp))
     phase_scale_out(dev, probe["smi"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
         bf16 = phase_bf16(dev, probe["smi"],

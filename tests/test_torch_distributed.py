@@ -21,6 +21,13 @@ test_gan_step_data_parallel_equals_single_device):
 - the acoustic `Trainer` end to end: the same losses (1e-5) on both
   processes and alone, one checkpoint writer, resume from it.
 
+- partitioned loading (`ProcessLoader.epoch(local_slice=)`): each
+  process's rows, loaded alone and padded to the plan's shapes, equal its
+  slice of the full batch bit for bit, and the data-parallel step fed by
+  them equals the step fed by the sliced full batch bit for bit (losses
+  and every parameter and statistic); a batch that does not divide raises
+  JAX's error.
+
 `make_sharded_synth` over two CPU replicas equals one (no processes).
 Every spawn has its own time limit and is retried once on a gloo bring-up
 error, as JAX's `_spawn_cluster` does.
@@ -174,6 +181,35 @@ def test_trainer_over_two_processes_one_writer_and_resume(floor_corpus, tmp_path
     assert steps == [2, 4]
     for k in (k for k in ref if k.startswith("state/")):
         np.testing.assert_array_equal(results[0][k], results[1][k], err_msg=k)
+
+
+def test_partitioned_loading_equals_the_sliced_full_batch(floor_corpus, tmp_path):
+    results = spawn("partition", tmp_path, floor_corpus, tmp_path / "run")
+    for rank, r in enumerate(results):
+        keys = [k[len("local/batch/"):] for k in r if k.startswith("local/batch/")]
+        assert "mels" in keys and "image_cells" in keys
+        for k in keys:
+            a, b = r[f"local/batch/{k}"], r[f"full/batch/{k}"]
+            assert a.dtype == b.dtype and np.array_equal(a, b), (rank, k)
+        assert r["local/batch/texts"].shape[0] == 2           # batch 4 over 2 processes
+        for k in (k for k in r if k.startswith("local/loss/") or k.startswith("local/state/")):
+            np.testing.assert_array_equal(r[k], r["full/" + k[len("local/"):]], err_msg=k)
+    # the processes agree on the padded shapes and hold different rows
+    a, b = results
+    for k in ("mels", "texts", "image_cells"):
+        assert a[f"local/batch/{k}"].shape == b[f"local/batch/{k}"].shape
+    assert not np.array_equal(a["local/batch/mels"], b["local/batch/mels"])
+
+
+def test_local_slice_refuses_a_batch_that_does_not_divide(floor_corpus):
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.data.dataset import OnomaDataset
+    from visual_onoma_to_wave_tpu_torch.data.loader import ProcessLoader
+
+    ds = OnomaDataset("train.txt", load_config(floor_corpus), sort=True, drop_last=True)
+    with ProcessLoader(ds, "train.txt", num_workers=0) as loader:
+        with pytest.raises(ValueError, match="not divisible by 3 processes"):
+            next(iter(loader.epoch(group_size=4, seed=1, local_slice=(0, 3))))
 
 
 def test_sharded_synth_over_two_cpu_replicas_equals_one():

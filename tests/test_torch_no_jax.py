@@ -25,7 +25,12 @@ demo checkpoint, `cli serve --exported` serves one HTTP request from it,
 and `parallel.make_sharded_synth` runs two CPU replicas; in bf16 the demo
 synthesizer serves (HiFi-GAN and Vocos), the acoustic model takes a train
 step, `cli train-vocoder --bf16` takes a GAN step, and chip_smoke's phase-20
-models build. A source scan of
+models build; `cli convert-acoustic` and `convert-vocoder` (HiFi-GAN and
+MelGAN) convert reference checkpoints the script writes, `cli doctor`
+checks the formatted and preprocessed stages of a tiny corpus, `cli
+synthesize --restore-step -1` serves a training checkpoint, and
+`griffin_lim`, the sample figure, sharded serving and the feature pass over
+two CPU devices run. A source scan of
 every port module (`demo_server.py`, `utils/plotting.py`,
 `models/hifigan_disc.py`, `training/vocoder_trainer.py`, `export.py` and
 `parallel/` included) and those scripts backs this up for imports inside
@@ -52,7 +57,8 @@ SCRIPTS = (ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
 # with GAN vocoder training)
 SCANNED = ("demo_server.py", "utils/plotting.py", "models/hifigan_disc.py",
            "training/vocoder_trainer.py", "export.py", "parallel/distributed.py",
-           "parallel/serving.py", "precision.py")
+           "parallel/serving.py", "precision.py", "data/doctor.py", "models/convert_acoustic.py",
+           "utils/checkpoint.py", "data/features.py", "ops/stft.py", "data/native.py")
 JAX_STACK = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "visual_onoma_to_wave_tpu"
 NO_JAX = JAX_STACK + (JAX_PACKAGE,)
@@ -439,6 +445,65 @@ assert len(out["answered"]) == 4
 """
 
 
+# the surface of the sixteenth slice: converters, doctor, a checkpoint served
+# through --restore-step, griffin_lim, the sample figure, two CPU devices
+SURFACE = """
+import json, pathlib, shutil, tempfile, numpy as np, torch
+torch.set_num_threads(1)
+from visual_onoma_to_wave_tpu_torch.cli import main
+from visual_onoma_to_wave_tpu_torch.config import DatasetMetadata, load_config
+from visual_onoma_to_wave_tpu_torch.models.hifigan import HiFiGANGenerator
+from visual_onoma_to_wave_tpu_torch.models.melgan import MelGANGenerator
+from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
+from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+work = pathlib.Path(tempfile.mkdtemp())
+demo = pathlib.Path("examples/checkpoints/demo")
+cfg = json.loads((demo / "config.json").read_text())
+cfg["path"].update(preprocessed=str(demo / "preprocessed"), ckpt=str(work / "ckpt"))
+(work / "config.json").write_text(json.dumps(cfg))
+config = load_config(work / "config.json")
+# reference checkpoints from the port's modules (reference layout)
+sd = VTTS.from_config(config, DatasetMetadata.load(config.path.preprocessed), n_vocab=12).state_dict()
+torch.save({"model": {"module." + k: v for k, v in sd.items()}}, work / "a.pth.tar")
+torch.save({"generator": HiFiGANGenerator(upsample_initial_channel=8).state_dict()},
+           work / "h.pth.tar")
+torch.save({"model": MelGANGenerator(ngf=8).state_dict()}, work / "m.pth.tar")
+main(["convert-acoustic", str(work / "a.pth.tar"), str(work / "a.npz")])
+main(["convert-vocoder", str(work / "h.pth.tar"), str(work / "h.npz")])
+main(["convert-vocoder", str(work / "m.pth.tar"), str(work / "m.npz"), "--kind", "MelGAN"])
+# a training checkpoint at step 5 holding the demo acoustic model
+(work / "ckpt" / "5").mkdir(parents=True)
+shutil.copy(demo / "torch" / "acoustic.npz", work / "ckpt" / "5" / "acoustic.npz")
+np.savez(work / "ckpt" / "5" / "train_state.npz", step=np.array(5))
+main(["synthesize", str(work / "config.json"), "--restore-step", "-1", "--vocoder",
+      str(demo / "torch" / "vocoder.npz"), "--text", "パン", "--audiotype", "drum",
+      "--out", str(work / "out.wav"), "--device", "cpu"])
+assert (work / "out.wav").stat().st_size > 44
+synth = Synthesizer.from_checkpoint(config, vocoder=str(demo / "torch" / "vocoder.npz"),
+                                    device="cpu", devices=["cpu", "cpu"])
+assert len(synth.synthesize_batch(["パン", "ドン", "パパ"], ["drum"] * 3)) == 3
+from visual_onoma_to_wave_tpu_torch.data.features import extract_features
+logmel, _, _ = extract_features([np.zeros(3000, np.float32)] * 3, [np.array([5, 7], np.int32)] * 3,
+                                device="cpu", max_chars=48, devices=["cpu", "cpu"])
+assert logmel.shape[0] == 4
+from visual_onoma_to_wave_tpu_torch.ops.stft import griffin_lim, hann_window
+wav = griffin_lim(torch.rand(513, 8), torch.from_numpy(hann_window(1024)), n_iters=2,
+                  generator=torch.Generator().manual_seed(0))
+assert wav.shape == (7 * 256,) and torch.isfinite(wav).all()
+from visual_onoma_to_wave_tpu_torch.utils.plotting import expand_char_values, plot_mel
+e = expand_char_values(np.array([0.1, 0.5]), np.array([3, 4]))
+fig = plot_mel([(np.zeros((7, 80)), "x")], energies=[e], char_breaks=[[0, 3, 7]],
+               energy_ylim=(0, 1), input_image=np.zeros((8, 16), np.uint8))
+assert fig.size == (800, 360)
+# doctor on a tiny corpus the parent built (formatted and preprocessed)
+for stage in ("formatted", "preprocessed"):
+    try:
+        main(["doctor", CORPUS, "--stage", stage])
+    except SystemExit as exc:
+        assert exc.code == 1, exc.code
+"""
+
+
 def write_bigvgan_demo(work: pathlib.Path) -> None:
     """The demo config with a tiny BigVGAN as its vocoder, random weights for
     it in the flax layout (`bigvgan.npz`) and three batch rows, under `work`."""
@@ -498,13 +563,14 @@ def run_blocked(blocked, code: str) -> subprocess.CompletedProcess:
     (NO_JAX + ("yaml",), VOCODER_TRAIN),
     (NO_JAX + ("yaml",), EXPORT),
     (NO_JAX + ("yaml",), BF16),
+    (NO_JAX + ("yaml",), SURFACE),
 ], ids=["compute-core-torch-numpy-only", "served-path-without-jax",
         "preprocess-without-jax", "chip-smoke-without-the-jax-package",
         "chip-smoke-server-without-the-jax-package", "train-path-without-jax",
         "acoustic-floor-tool-without-jax", "synthesize-batch-bigvgan-without-jax",
         "cli-demo-without-jax", "quality-gate-scoring-without-jax",
         "train-vocoder-and-longrun-tool-without-jax", "export-and-serve-exported-without-jax",
-        "bf16-served-and-training-without-jax"])
+        "bf16-served-and-training-without-jax", "slice-16-surface-without-jax"])
 def test_port_imports_without(blocked, code, tmp_path):
     if "CORPUS" in code:
         from benchmarks.bench_preprocess import build_corpus

@@ -11,7 +11,11 @@ WORLD is 1), runs MODE and writes its result to OUT (an .npz):
   gan      2 GAN steps of a tiny `VocoderTrainer` on one global batch, then
            `train()` to step 3 with a checkpoint directory (ARG);
   trainer  the acoustic `Trainer` on the corpus of the config at ARG: 2
-           steps with a checkpoint, then a new trainer resumed from it to 4.
+           steps with a checkpoint, then a new trainer resumed from it to 4;
+  partition  the first batch of epoch 1 of the corpus of the config at ARG
+           loaded with `local_slice=(rank, WORLD)` and as the full batch
+           sliced by `shard_batch_multiprocess`, then one data-parallel
+           train step from each (two trainers of the same seed).
 
 The test runs the same functions in its own process with WORLD 1 for the
 reference.
@@ -154,6 +158,38 @@ def run_trainer(world: int, cfg_path: str, run_dir: str) -> dict:
     return out
 
 
+def run_partition(world: int, cfg_path: str, run_dir: str) -> dict:
+    import dataclasses
+
+    from visual_onoma_to_wave_tpu_torch.config import config_from_dict
+    from visual_onoma_to_wave_tpu_torch.data.dataset import to_device
+    from visual_onoma_to_wave_tpu_torch.data.loader import ProcessLoader
+    from visual_onoma_to_wave_tpu_torch.parallel import process_index, shard_batch_multiprocess
+    from visual_onoma_to_wave_tpu_torch.training.train_state import train_step
+    from visual_onoma_to_wave_tpu_torch.training.trainer import Trainer
+
+    cfg = config_from_dict(json.loads(pathlib.Path(cfg_path).read_text()))
+    run = pathlib.Path(run_dir)
+    cfg = cfg.replace(path=dataclasses.replace(cfg.path, ckpt=str(run / "ckpt"),
+                                               log=str(run / "log"),
+                                               result=str(run / "result")))
+    out: dict = {}
+    batches = {}
+    for tag, local in (("local", (process_index(), world)), ("full", None)):
+        trainer = Trainer(cfg, device="cpu", loader_workers=0)
+        with ProcessLoader(trainer.train_ds, "train.txt", num_workers=0) as loader:
+            batch = next(iter(loader.epoch(group_size=4, seed=cfg.train.seed + 1,
+                                           local_slice=local if world > 1 else None)))
+        batch = shard_batch_multiprocess(batch, already_local=local is not None)
+        batches[tag] = batch
+        out.update({f"{tag}/batch/{k}": np.asarray(v) for k, v in batch.items()})
+        losses = train_step(trainer.state, to_device(batch, "cpu"))
+        out.update({f"{tag}/loss/{k}": float(v) for k, v in losses.items()})
+        out.update({f"{tag}/state/{k}": v.numpy().copy()
+                    for k, v in trainer.state.model.state_dict().items()})
+    return out
+
+
 def main(argv: list[str]) -> int:
     mode, rank, world, port, out = argv[:5]
     rank, world = int(rank), int(world)
@@ -168,6 +204,8 @@ def main(argv: list[str]) -> int:
         result = run_gan(world, argv[5])
     elif mode == "trainer":
         result = run_trainer(world, argv[5], argv[6])
+    elif mode == "partition":
+        result = run_partition(world, argv[5], argv[6])
     else:
         raise SystemExit(f"unknown mode {mode}")
     np.savez(out, **result)

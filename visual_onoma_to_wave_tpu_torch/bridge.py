@@ -33,9 +33,10 @@ Every leaf must be consumed; a leaf the bridge does not know raises.
 `vtts_tree` is the inverse of `vtts_state_dict`: the port's trainer writes
 its checkpoints through it, in the flax layout the Synthesizer reads.
 `vocoder_tree` is the inverse of `vocoder_state_dict` for every family
-`cli train-vocoder` trains (HiFi-GAN, iSTFTNet, Vocos, BigVGAN): the port's
-GAN trainer writes its generators through it, as the `.npz` trees that
-`synthesis.load_vocoder` reads.
+(HiFi-GAN, iSTFTNet, Vocos, BigVGAN, MelGAN): the port's GAN trainer writes
+its generators through it, and `cli convert-vocoder` a reference PyTorch
+checkpoint (`torch_checkpoint_state`, `fold_weight_norms`), as the `.npz`
+trees that `synthesis.load_vocoder` reads.
 """
 from __future__ import annotations
 
@@ -78,6 +79,30 @@ def save_npz(path: str | pathlib.Path, tree: dict) -> None:
 def load_npz(path: str | pathlib.Path) -> dict:
     with np.load(path) as f:
         return unflatten_tree({k: f[k] for k in f.files})
+
+
+def torch_checkpoint_state(path: str | pathlib.Path, key: str) -> dict[str, np.ndarray]:
+    """The state_dict under `key` of a reference PyTorch checkpoint (or the
+    whole object when it has no such key) as numpy arrays, with a
+    DataParallel `module.` prefix stripped."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    state = obj[key] if isinstance(obj, dict) and key in obj else obj
+    return {k.removeprefix("module."): np.asarray(v) for k, v in state.items()}
+
+
+def fold_weight_norms(state: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Every `<p>.weight_g` / `<p>.weight_v` pair folded into a plain
+    `<p>.weight` = g * v / ||v|| (the norm over all but the first axis), in
+    float32 as `remove_weight_norm` and the JAX converters fold it."""
+    out = {k: v for k, v in state.items() if not k.endswith((".weight_g", ".weight_v"))}
+    for k in state:
+        if k.endswith(".weight_v"):
+            p = k[:-len(".weight_v")]
+            g = np.asarray(state[f"{p}.weight_g"], dtype=np.float32)
+            v = np.asarray(state[k], dtype=np.float32)
+            norm = np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+            out[f"{p}.weight"] = g * v / norm
+    return out
 
 
 class _Leaves:
@@ -376,12 +401,12 @@ def _stage_kernels(sd: dict) -> int:
 def vocoder_tree(family: str, state_dict: dict[str, torch.Tensor]) -> dict:
     """state_dict of the port's generator of `family` -> {"params"} of the
     JAX generator as numpy arrays: the inverse of `vocoder_state_dict` for
-    HiFi-GAN (V1-V3), iSTFTNet (both presets), Vocos and BigVGAN. A tensor
-    the family's layout does not have raises ValueError."""
+    HiFi-GAN (V1-V3), iSTFTNet (both presets), Vocos, BigVGAN and MelGAN. A
+    tensor the family's layout does not have raises ValueError."""
     layout = _vocoder_layout(family)
-    if layout == "melgan":
-        raise ValueError("MelGAN is served, not trained, by both packages: no vocoder_tree")
     sd = {k: v.detach().cpu().float() for k, v in state_dict.items()}
+    if layout == "melgan":
+        return _melgan_tree(sd)
     n_kernels = _stage_kernels(sd) if layout != "vocos" else 0
     flat: dict[str, torch.Tensor] = {}
     for key in sorted(sd):
@@ -417,6 +442,42 @@ def vocoder_tree(family: str, state_dict: dict[str, torch.Tensor]) -> dict:
         if path.endswith("_w") and not path.startswith("params/up_"):
             v = v.permute(2, 1, 0)          # (Cout, Cin, K) -> (K, Cin, Cout)
         flat[path] = v
+    return unflatten_tree({k: np.ascontiguousarray(v.numpy()) for k, v in flat.items()})
+
+
+def _melgan_tree(sd: dict[str, torch.Tensor]) -> dict:
+    """The melgan-neurips sequential layout -> MelGAN's flax tree: the inverse
+    of `melgan_state_dict`. The plain convs in index order are conv_pre, the
+    transposed convs and conv_post; the residual blocks between two
+    transposed convs follow the first of them."""
+    if any(not re.match(r"model\.\d+\.", k) for k in sd):
+        raise ValueError(f"vocoder_tree: MelGAN tensors outside model.<idx>: {sorted(sd)[:8]}")
+    idxs = sorted({int(k.split(".")[1]) for k in sd})
+    plain = [i for i in idxs if f"model.{i}.weight" in sd]
+    if len(plain) < 2:
+        raise ValueError("vocoder_tree: a MelGAN state_dict needs conv_pre and conv_post")
+    flat: dict[str, torch.Tensor] = {}
+
+    def conv(idx: str, flax_prefix: str, transposed: bool = False) -> None:
+        w = sd.pop(f"model.{idx}.weight")
+        # (Cin, Cout, K) -> flipped (K, Cin, Cout); (Cout, Cin, K) -> (K, Cin, Cout)
+        flat[f"{flax_prefix}_w"] = w.flip(-1).permute(2, 0, 1) if transposed else w.permute(2, 1, 0)
+        flat[f"{flax_prefix}_b"] = sd.pop(f"model.{idx}.bias")
+
+    conv(str(plain[0]), "params/conv_pre")
+    ups = plain[1:-1]
+    for i, up in enumerate(ups):
+        conv(str(up), f"params/up_{i}", transposed=True)
+        end = ups[i + 1] if i + 1 < len(ups) else plain[-1]
+        blocks = [b for b in idxs if up < b < end and f"model.{b}.block.2.weight" in sd]
+        for j, b in enumerate(blocks):
+            blk = f"params/resblock_{i}_{j}"
+            conv(f"{b}.block.2", f"{blk}/conv1")
+            conv(f"{b}.block.4", f"{blk}/conv2")
+            conv(f"{b}.shortcut", f"{blk}/shortcut")
+    conv(str(plain[-1]), "params/conv_post")
+    if sd:
+        raise ValueError(f"vocoder_tree: unknown MelGAN tensors {sorted(sd)[:8]}")
     return unflatten_tree({k: np.ascontiguousarray(v.numpy()) for k, v in flat.items()})
 
 

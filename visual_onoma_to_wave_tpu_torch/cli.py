@@ -23,10 +23,19 @@ serving as subcommands.
         --restore-step N] [--vocoder vocoder.npz] [--host 127.0.0.1] [--port 7860]
     python -m visual_onoma_to_wave_tpu_torch.cli train-vocoder <wav_dir> <out_dir>
         [--steps N] [--family hifigan|...] [--disc msd|mrd] [--ema-decay D] [--device cpu]
+    python -m visual_onoma_to_wave_tpu_torch.cli doctor <config> [--limit N] [--ckpt DIR]
+        [--stage preprocessed|formatted]
+    python -m visual_onoma_to_wave_tpu_torch.cli convert-acoustic <torch_ckpt> <out.npz>
+    python -m visual_onoma_to_wave_tpu_torch.cli convert-vocoder <torch_ckpt> <out.npz>
+        [--kind HiFi-GAN|MelGAN]
 
-Weights are `.npz` trees: those written by `examples/export_demo_for_torch.py`,
-a training checkpoint's `<ckpt>/<step>/acoustic.npz`, or a vocoder checkpoint's
-`<out_dir>/<step>/generator.npz` (`train-vocoder`). Configs load through
+Weights are `.npz` trees: those written by `examples/export_demo_for_torch.py`
+or by `convert-acoustic` / `convert-vocoder` (from the reference's PyTorch
+checkpoints), a training checkpoint's `<ckpt>/<step>/acoustic.npz`, or a
+vocoder checkpoint's `<out_dir>/<step>/generator.npz` (`train-vocoder`).
+`synthesize`, `synthesize-batch`, `serve`, `export` and `demo` serve
+`--acoustic` when given, else the training checkpoint under path.ckpt at
+`--restore-step` (default: the latest), with the checkpoint's vocabulary. Configs load through
 `config.load_config` (JSON, YAML or the reference's three-YAML directory).
 Every command that computes runs on `cuda` unless `--device cpu` is given.
 `train`, `evaluate` and `train-vocoder` take `--distributed` (with
@@ -44,11 +53,9 @@ import pathlib
 def cmd_synthesize(args) -> None:
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
-    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
     cfg = load_config(args.config)
-    synth = Synthesizer.from_checkpoint(cfg, acoustic=args.acoustic, vocoder=args.vocoder,
-                                        device=args.device)
+    synth = _synthesizer(cfg, args)
     rates = [float(x) for x in args.width_rates.split(",")] if args.width_rates else None
     result = synth.synthesize(args.text, args.audiotype, width_rates=rates,
                               e_control=args.e_control, d_control=args.d_control)
@@ -98,11 +105,9 @@ def cmd_synthesize_batch(args) -> int:
 
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
-    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
     cfg = load_config(args.config)
-    synth = Synthesizer.from_checkpoint(cfg, acoustic=args.acoustic, vocoder=args.vocoder,
-                                        device=args.device)
+    synth = _synthesizer(cfg, args)
     rows = _read_batch_rows(args.input)
     if not rows:
         print("no rows in input")
@@ -139,7 +144,6 @@ def cmd_synthesize_batch(args) -> int:
 def cmd_export(args) -> None:
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.export import export_synthesizer, validate_devices
-    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
     # the cheap arguments first: 'cuda, bogus' must not fail after a slow load
     try:
@@ -150,8 +154,7 @@ def cmd_export(args) -> None:
     if args.text_lens:
         kwargs["text_lens"] = [int(v) for v in args.text_lens.split(",")]
     cfg = load_config(args.config)
-    synth = Synthesizer.from_checkpoint(cfg, acoustic=args.acoustic, vocoder=args.vocoder,
-                                        device=devices[0])
+    synth = _synthesizer(cfg, args, device=devices[0])
     manifest = export_synthesizer(synth, args.out, max_batch=args.max_batch, devices=devices,
                                   **kwargs)
     print(f"exported {len(manifest['buckets'])} buckets in one program per device "
@@ -165,6 +168,7 @@ def cmd_serve(args) -> None:
         from visual_onoma_to_wave_tpu_torch.export import ExportedSynthesizer
 
         ignored = [n for n, v in (("config", args.config), ("--acoustic", args.acoustic),
+                                  ("--restore-step", args.restore_step),
                                   ("--vocoder", args.vocoder)) if v is not None]
         if ignored:
             print(f"warning: serving the --exported artifact; {', '.join(ignored)} ignored "
@@ -179,12 +183,10 @@ def cmd_serve(args) -> None:
               f"(artifact text buckets {synth.max_text_len}, server cap {MAX_TEXT_LEN})")
     else:
         from visual_onoma_to_wave_tpu_torch.config import load_config
-        from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
 
-        if not args.config or not args.acoustic:
-            raise SystemExit("serve: config and --acoustic are required (or pass --exported)")
-        synth = Synthesizer.from_checkpoint(load_config(args.config), acoustic=args.acoustic,
-                                            vocoder=args.vocoder, device=args.device)
+        if not args.config:
+            raise SystemExit("serve: a config is required (or pass --exported)")
+        synth = _synthesizer(load_config(args.config), args)
     server = BatchingServer(synth, host=args.host, port=args.port,
                             max_batch=args.max_batch, batch_window_ms=args.window_ms,
                             max_queue=args.max_queue,
@@ -193,30 +195,70 @@ def cmd_serve(args) -> None:
     server.serve_forever()
 
 
-def acoustic_checkpoint(config, acoustic: str | None, restore_step: int | None) -> str:
-    """`acoustic` if given, else the training checkpoint's
-    `<path.ckpt>/<step>/acoustic.npz` at `restore_step` (None or -1: the latest)."""
-    if acoustic is not None:
-        return acoustic
-    from visual_onoma_to_wave_tpu_torch.utils.checkpoint import ACOUSTIC, CheckpointManager
+def _synthesizer(cfg, args, device=None):
+    """The Synthesizer of a serving command: --acoustic when given, else the
+    training checkpoint under path.ckpt at --restore-step (default: the
+    latest); a missing step exits naming the checkpoint directory."""
+    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+    from visual_onoma_to_wave_tpu_torch.utils.checkpoint import acoustic_path
 
-    ckpt = CheckpointManager(config.path.ckpt)
-    step = ckpt.latest_step() if restore_step in (None, -1) else restore_step
-    if step is None or step not in ckpt.all_steps():
-        raise SystemExit(f"no --acoustic and no checkpoint at step {step} under {ckpt.dir}")
-    return str(ckpt.dir / str(step) / ACOUSTIC)
+    acoustic = args.acoustic
+    if acoustic is None:
+        try:
+            acoustic = str(acoustic_path(cfg.path.ckpt, args.restore_step))
+        except FileNotFoundError as e:
+            raise SystemExit(f"no --acoustic, and {e}") from None
+    return Synthesizer.from_checkpoint(cfg, acoustic=acoustic, vocoder=args.vocoder,
+                                       device=device or args.device)
 
 
 def cmd_demo(args) -> None:
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.demo_server import DemoServer
-    from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer
+
+    synth = _synthesizer(load_config(args.config), args)
+    DemoServer(synth, host=args.host, port=args.port).serve_forever()
+
+
+def cmd_doctor(args) -> None:
+    """Validate the preprocessed (or formatted) corpus; JSON report on
+    stdout, exit 1 when it names a problem."""
+    from visual_onoma_to_wave_tpu_torch.config import load_config
+    from visual_onoma_to_wave_tpu_torch.data.doctor import check_corpus, check_formatted
 
     cfg = load_config(args.config)
-    synth = Synthesizer.from_checkpoint(
-        cfg, acoustic=acoustic_checkpoint(cfg, args.acoustic, args.restore_step),
-        vocoder=args.vocoder, device=args.device)
-    DemoServer(synth, host=args.host, port=args.port).serve_forever()
+    if args.stage == "formatted":
+        report = check_formatted(cfg)
+    else:
+        symbols = None
+        if args.ckpt:
+            from visual_onoma_to_wave_tpu_torch.data.symbols import load_symbol_map
+
+            symbols = load_symbol_map(args.ckpt)
+            if symbols is None:
+                raise SystemExit(f"no symbols.json under {args.ckpt}")
+        report = check_corpus(cfg, limit=args.limit, symbols=symbols)
+    print(json.dumps(report, ensure_ascii=False, indent=2))
+    if not report["ok"]:
+        raise SystemExit(1)
+
+
+def cmd_convert_acoustic(args) -> None:
+    from visual_onoma_to_wave_tpu_torch.models.convert_acoustic import convert_acoustic
+
+    convert_acoustic(args.torch_ckpt, args.out)
+    print(f"converted vTTS acoustic checkpoint -> {args.out}")
+
+
+def cmd_convert_vocoder(args) -> None:
+    from visual_onoma_to_wave_tpu_torch.bridge import save_npz
+
+    if args.kind.lower() in ("melgan", "mel-gan"):
+        from visual_onoma_to_wave_tpu_torch.models.melgan import load_torch_melgan as load
+    else:
+        from visual_onoma_to_wave_tpu_torch.models.hifigan import load_torch_generator as load
+    save_npz(args.out, load(args.torch_ckpt))
+    print(f"converted {args.kind} generator -> {args.out}")
 
 
 def cmd_preprocess(args) -> None:
@@ -279,7 +321,8 @@ def _trainer(args):
     cfg = load_config(args.config)
     vocoder = load_vocoder(cfg, args.vocoder) if args.vocoder else None
     return Trainer(cfg, restore_step=args.restore_step, vocoder=vocoder, device=args.device,
-                   loader_workers=getattr(args, "loader_workers", None))
+                   loader_workers=getattr(args, "loader_workers", None),
+                   profile_dir=getattr(args, "profile_dir", None))
 
 
 def cmd_train(args) -> None:
@@ -345,10 +388,18 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="visual-onoma-to-wave-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def weights(s):
+        s.add_argument("--acoustic", default=None,
+                       help="acoustic weights (.npz, e.g. from convert-acoustic); default: the "
+                            "training checkpoint under path.ckpt at --restore-step")
+        s.add_argument("--restore-step", type=int, default=None,
+                       help="training checkpoint step without --acoustic (default or -1: the "
+                            "latest)")
+        s.add_argument("--vocoder", default=None, help="vocoder weights (.npz)")
+
     def common(s):
         s.add_argument("config")
-        s.add_argument("--acoustic", required=True, help="acoustic weights (.npz)")
-        s.add_argument("--vocoder", default=None, help="vocoder weights (.npz)")
+        weights(s)
         s.add_argument("--device", default="cuda",
                        help="torch device; 'cuda' fails when no GPU is visible")
 
@@ -390,8 +441,7 @@ def main(argv=None):
 
     s = sub.add_parser("serve", help="JSON API with micro-batching")
     s.add_argument("config", nargs="?", default=None)
-    s.add_argument("--acoustic", default=None, help="acoustic weights (.npz)")
-    s.add_argument("--vocoder", default=None, help="vocoder weights (.npz)")
+    weights(s)
     s.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when no GPU is visible")
     s.add_argument("--exported", default=None,
@@ -407,12 +457,7 @@ def main(argv=None):
 
     s = sub.add_parser("demo", help="interactive browser demo (prediction.ipynb GUI)")
     s.add_argument("config")
-    s.add_argument("--vocoder", default=None, help="vocoder weights (.npz) for audio playback")
-    s.add_argument("--acoustic", default=None,
-                   help="acoustic weights (.npz); default: the training checkpoint under "
-                        "path.ckpt at --restore-step")
-    s.add_argument("--restore-step", type=int, default=None,
-                   help="training checkpoint step without --acoustic (default: the latest)")
+    weights(s)
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=7860)
     s.add_argument("--device", default="cuda",
@@ -427,6 +472,35 @@ def main(argv=None):
     s.add_argument("--device", default="cuda",
                    help="torch device of the feature pass; 'cuda' fails when no GPU is visible")
     s.set_defaults(fn=cmd_preprocess)
+
+    s = sub.add_parser(
+        "doctor", help="validate a preprocessed corpus: feature files present, "
+                       "duration/mel/text/image invariants hold, splits disjoint, "
+                       "normalization applied (exit 1 on problems)")
+    s.add_argument("config")
+    s.add_argument("--limit", type=int, default=None,
+                   help="check at most N rows per split (default: all)")
+    s.add_argument("--ckpt", default=None,
+                   help="checkpoint dir: also check every row is encodable by its saved "
+                        "symbols.json (catches a corpus regenerated after training)")
+    s.add_argument("--stage", default="preprocessed", choices=["preprocessed", "formatted"],
+                   help="formatted = validate the format / prepare-tg outputs (data.txt "
+                        "rows, TextGrids, wavs) before preprocessing")
+    s.set_defaults(fn=cmd_doctor)
+
+    s = sub.add_parser("convert-acoustic",
+                       help="reference PyTorch vTTS checkpoint (200000.pth.tar) -> acoustic .npz")
+    s.add_argument("torch_ckpt")
+    s.add_argument("out", help="the .npz tree to write (what --acoustic reads)")
+    s.set_defaults(fn=cmd_convert_acoustic)
+
+    s = sub.add_parser("convert-vocoder",
+                       help="reference PyTorch vocoder checkpoint -> vocoder .npz")
+    s.add_argument("torch_ckpt")
+    s.add_argument("out", help="the .npz tree to write (what --vocoder reads)")
+    s.add_argument("--kind", default="HiFi-GAN", choices=["HiFi-GAN", "MelGAN"],
+                   help="vocoder family of the PyTorch checkpoint")
+    s.set_defaults(fn=cmd_convert_vocoder)
 
     s = sub.add_parser("format", help="raw RWCP-SSD corpus -> formatted corpus (01_format)")
     s.add_argument("config")
@@ -452,6 +526,9 @@ def main(argv=None):
     s = sub.add_parser("train", help="train the acoustic model (04_train)")
     trained(s, "the sample synthesis's audio")
     s.add_argument("--max-steps", type=int, default=None)
+    s.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of steps 10-15 here (CUDA activity "
+                        "on the card)")
     s.add_argument("--loader-workers", type=int, default=None,
                    help="batch-loader worker processes (default: min(10, cpus); <= 1 loads "
                         "in this process behind a prefetch thread)")

@@ -15,8 +15,9 @@ Differences from the reference kept from the JAX package:
     [0, 1] — the model's VFE consumes cells directly (no Python slicing).
 
 Batches are numpy dicts; `to_device` moves one onto the model's device.
-The JAX package fills the cells with a native C kernel when one is built;
-this copy always takes its numpy twin `pad_character_cells`.
+The cells are cut by the host C kernel (`data/native.py::pad_cells_u8`)
+when a C compiler builds it, as in the JAX package, else by its numpy twin
+`pad_character_cells`; the two are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -48,6 +49,14 @@ def pad_character_cells(img: np.ndarray, char_widths: np.ndarray,
         out[i, :, left : left + seg.shape[1]] = seg
         x += int(char_widths[i])
     return out
+
+
+def _pad_cells(img: np.ndarray, widths: np.ndarray, cell_width: int) -> np.ndarray:
+    from visual_onoma_to_wave_tpu_torch.data import native
+
+    if native.available():
+        return native.pad_cells_u8(img, widths, cell_width)
+    return pad_character_cells(img, widths, cell_width)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -115,7 +124,7 @@ class OnomaDataset:
                 .convert("L"),
                 dtype=np.uint8,
             )
-            cells = pad_character_cells(img, widths, self.cell_width)
+            cells = _pad_cells(img, widths, self.cell_width)
         return Sample(
             basename=name,
             audiotype_id=self.metadata.audiotype_map[audiotype],

@@ -35,8 +35,8 @@ def _worker_init(filename, config, sort, drop_last):
     _DS = OnomaDataset(filename, config, sort=sort, drop_last=drop_last)
 
 
-def _worker_load(idx_list):
-    return _DS.load_batch(idx_list)
+def _worker_load(idx_list, pad_to=None):
+    return _DS.load_batch(idx_list, pad_to=pad_to)
 
 
 def _worker_probe() -> bool:
@@ -105,23 +105,43 @@ class ProcessLoader:
             return None
 
     def epoch(self, group_size: int = 4, seed: int | None = None,
-              shuffle: bool = True) -> Iterator[dict]:
+              shuffle: bool = True,
+              local_slice: tuple[int, int] | None = None) -> Iterator[dict]:
         """Iterate one epoch of batches, in `OnomaDataset.batch_plan` order.
-        (The JAX package's `local_slice`, one host's rows of each batch, is
-        multi-host training, not ported: ROADMAP A5.)"""
-        plan = self.ds.batch_plan(group_size, seed, shuffle)
-        if self._pool is None or len(plan) < self.MIN_BATCHES_FOR_PROCS:
-            yield from prefetch(self.ds.load_batch(chunk) for chunk in plan)
-            return
-        yield from self._epoch_pooled(plan)
 
-    def _epoch_pooled(self, plan) -> Iterator[dict]:
+        local_slice=(p, n): partitioned loading. The epoch is planned
+        globally (the same on every process from the shared seed), but this
+        process loads and collates only rows [p*B/n, (p+1)*B/n) of each
+        batch, padded to the plan's metadata-derived shapes
+        (`OnomaDataset.plan_pad_shapes`), so that every process's rows agree
+        with the global batch's layout. Feed the result to
+        `parallel.shard_batch_multiprocess(..., already_local=True)`."""
+        plan = self.ds.batch_plan(group_size, seed, shuffle)
+        shapes: list = [None] * len(plan)
+        if local_slice is not None:
+            p, n = local_slice
+            shapes = self.ds.plan_pad_shapes(plan)
+            sliced = []
+            for chunk in plan:
+                if len(chunk) % n:
+                    raise ValueError(f"planned batch of {len(chunk)} rows not divisible "
+                                     f"by {n} processes")
+                rows = len(chunk) // n
+                sliced.append(chunk[p * rows:(p + 1) * rows])
+            plan = sliced
+        if self._pool is None or len(plan) < self.MIN_BATCHES_FOR_PROCS:
+            yield from prefetch(self.ds.load_batch(chunk, pad_to=pad)
+                                for chunk, pad in zip(plan, shapes))
+            return
+        yield from self._epoch_pooled(plan, shapes)
+
+    def _epoch_pooled(self, plan, shapes) -> Iterator[dict]:
         from collections import deque
 
         inflight: deque = deque()
         try:
-            for chunk in plan:
-                inflight.append(self._pool.submit(_worker_load, chunk))
+            for chunk, pad in zip(plan, shapes):
+                inflight.append(self._pool.submit(_worker_load, chunk, pad))
                 if len(inflight) >= self.depth:
                     yield inflight.popleft().result()
             while inflight:

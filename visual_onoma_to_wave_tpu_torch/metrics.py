@@ -23,9 +23,11 @@ of the natural-log mel spectrogram along the mel axis, coefficients 1..13
 
 Everything is plain numpy on purpose: the val split is small, DTW is a
 sequential DP, and keeping it off-device means the metric also works on
-mels loaded from disk with no model in memory. The JAX package runs the
-DTW recursion in a native C kernel when one is built; this copy fills it by
-anti-diagonals in numpy, with the same sums, moves and tie-breaking.
+mels loaded from disk with no model in memory. The DTW recursion runs in
+the host C kernel (`data/native.py`, the JAX package's `datakernels.c`)
+when a C compiler builds it, as the JAX package runs it; `dtw_path`, its
+numpy twin, fills it by anti-diagonals with the same sums, moves and
+tie-breaking, and runs where no compiler is found.
 """
 from __future__ import annotations
 
@@ -98,6 +100,13 @@ def dtw_path(cost: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(pi[::-1]), np.asarray(pj[::-1])
 
 
+def _dtw(cost: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The DTW path through the C kernel, or `dtw_path` without a C compiler."""
+    from visual_onoma_to_wave_tpu_torch.data import native
+
+    return native.dtw_path_f64(cost) if native.available() else dtw_path(cost)
+
+
 def mcd_dtw(pred_logmel: np.ndarray, gt_logmel: np.ndarray,
             n_coeffs: int = 13) -> float:
     """DTW-aligned MCD in dB between (T1, M) and (T2, M) log-mels
@@ -114,7 +123,7 @@ def mcd_dtw(pred_logmel: np.ndarray, gt_logmel: np.ndarray,
     d2 = (np.sum(cp**2, -1)[:, None] + np.sum(cg**2, -1)[None, :]
           - 2.0 * (cp @ cg.T))
     dist = np.sqrt(np.maximum(d2, 0.0))
-    pi, pj = dtw_path(dist)
+    pi, pj = _dtw(dist)
     return float(MCD_K * np.mean(dist[pi, pj]))
 
 

@@ -198,3 +198,18 @@ def vocoder_infer_chunked(gen: nn.Module, mel: torch.Tensor, chunk_frames: int =
     hop = wav.shape[-1] // win
     core = wav.reshape(b, n_chunks, win * hop)[:, :, halo * hop:(halo + chunk_frames) * hop]
     return core.reshape(b, t_pad * hop)[:, :t * hop]
+
+
+def load_torch_generator(ckpt_path) -> dict:
+    """A reference HiFi-GAN checkpoint (e.g. generator_universal.pth.tar):
+    its `ckpt['generator']`, weight norms folded, as the {"params"} `.npz`
+    tree that `synthesis.load_vocoder` reads (port of the JAX
+    `load_torch_generator`; equal to its tree leaf for leaf)."""
+    from visual_onoma_to_wave_tpu_torch.bridge import (
+        fold_weight_norms,
+        torch_checkpoint_state,
+        vocoder_tree,
+    )
+
+    state = fold_weight_norms(torch_checkpoint_state(ckpt_path, "generator"))
+    return vocoder_tree("HiFi-GAN", {k: torch.from_numpy(v) for k, v in state.items()})

@@ -62,3 +62,19 @@ class MelGANGenerator(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return self.model(mel.transpose(1, 2))[:, 0, :]
+
+
+def load_torch_melgan(ckpt_path) -> dict:
+    """A melgan-neurips generator checkpoint: its `ckpt['model']` (or the
+    whole object), `mel2wav.` prefix dropped, weight norms folded, as the
+    {"params"} `.npz` tree that `synthesis.load_vocoder` reads (port of the
+    JAX `load_torch_melgan`; equal to its tree leaf for leaf)."""
+    from visual_onoma_to_wave_tpu_torch.bridge import (
+        fold_weight_norms,
+        torch_checkpoint_state,
+        vocoder_tree,
+    )
+
+    state = torch_checkpoint_state(ckpt_path, "model")
+    state = fold_weight_norms({k.replace("mel2wav.", ""): v for k, v in state.items()})
+    return vocoder_tree("MelGAN", {k: torch.from_numpy(np.asarray(v)) for k, v in state.items()})

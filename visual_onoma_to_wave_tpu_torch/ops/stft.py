@@ -16,7 +16,9 @@ window and so cannot run win_length < n_fft.
 
 Shapes follow the JAX module: audio (..., samples), spectrograms
 (..., F, T), mels (..., n_mels, T); the char-level reductions take durations
-(..., max_chars) and work batched or per clip. `griffin_lim` is not ported.
+(..., max_chars) and work batched or per clip. `griffin_lim` is the
+reference's legacy inverse path (JAX stft.py:309); no kernel lies under it,
+so its `torch.fft` calls are the port's own implementation.
 """
 from __future__ import annotations
 
@@ -231,3 +233,54 @@ class MelPipeline:
     def kurtosis(self, audio: torch.Tensor, durations: torch.Tensor, max_chars: int):
         return spectral_kurtosis(audio, durations, self.window.to(audio.device), max_chars,
                                  self.n_fft, self.hop_length, self.win_length)
+
+
+# ---------------------------------------------------------------------------
+# Griffin-Lim (legacy inverse path: reference audio/audio_processing.py:66-82)
+# ---------------------------------------------------------------------------
+
+def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """(T, n_fft) frames -> (T - 1) * hop + n_fft samples, summed where they overlap."""
+    t, n_fft = frames.shape
+    total = (t - 1) * hop_length + n_fft
+    return F.fold(frames.T[None], output_size=(1, total), kernel_size=(1, n_fft),
+                  stride=(1, hop_length)).reshape(total)
+
+
+def griffin_lim(magnitudes: torch.Tensor, window: torch.Tensor, n_fft: int = 1024,
+                hop_length: int = 256, win_length: int = 1024, n_iters: int = 30,
+                angles: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Griffin-Lim phase reconstruction from an (F, T) magnitude spectrogram,
+    the JAX `griffin_lim`'s iteration: initial angles uniform in [-pi, pi)
+    (from `generator`, or `angles` when given), then `n_iters` rounds of
+    iSTFT (windowed irfft, overlap-add, divided by the summed squared window,
+    centre trimmed) and STFT (reflect pad, windowed rfft, unit phase); the
+    waveform of the last phase. Runs on the magnitudes' device."""
+    del win_length  # the window's own length
+    f, t = magnitudes.shape
+    dev = magnitudes.device
+    window = pad_window(window.to(dev, torch.float32), n_fft)
+    if angles is None:
+        angles = torch.rand((f, t), generator=generator,
+                            device=generator.device if generator is not None else dev)
+        angles = angles.to(dev) * (2 * np.pi) - np.pi
+    phase = torch.polar(torch.ones_like(magnitudes), angles.to(dev, torch.float32))
+    wsum = _overlap_add((window * window).expand(t, n_fft), hop_length)
+    wsum = torch.clamp(wsum, min=1e-8)
+    half = n_fft // 2
+
+    def istft(spec: torch.Tensor) -> torch.Tensor:
+        frames = torch.fft.irfft(spec.T, n=n_fft, dim=-1) * window       # (T, n_fft)
+        sig = _overlap_add(frames, hop_length) / wsum
+        return sig[half:sig.shape[0] - half]
+
+    def stft_phase(sig: torch.Tensor) -> torch.Tensor:
+        frames = frame_signal(reflect_pad(sig, half), n_fft, hop_length) * window
+        spec = torch.fft.rfft(frames, n=n_fft, dim=-1).T[:, :t]
+        return spec / torch.clamp(spec.abs(), min=1e-8)
+
+    mags = magnitudes.to(torch.float32)
+    for _ in range(n_iters):
+        phase = stft_phase(istft(mags * phase))[:, :t]
+    return istft(mags * phase)

@@ -12,7 +12,7 @@ from visual_onoma_to_wave_tpu_torch.parallel.distributed import (
     process_index,
     shard_batch_multiprocess,
 )
-from visual_onoma_to_wave_tpu_torch.parallel.serving import make_sharded_synth
+from visual_onoma_to_wave_tpu_torch.parallel.serving import make_sharded_fused, make_sharded_synth
 
 __all__ = [
     "all_reduce_grads",
@@ -24,6 +24,7 @@ __all__ = [
     "is_multiprocess",
     "is_primary",
     "local_device",
+    "make_sharded_fused",
     "make_sharded_synth",
     "process_count",
     "process_index",

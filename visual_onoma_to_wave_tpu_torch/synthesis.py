@@ -1,6 +1,7 @@
 """End-user synthesis API (port of visual_onoma_to_wave_tpu/synthesis.py).
 
     synth = Synthesizer.from_checkpoint(config, "acoustic.npz", "vocoder.npz", device="cuda")
+    synth = Synthesizer.from_checkpoint(config, vocoder="vocoder.npz", restore_step=-1)
     result = synth.synthesize("パンパン", "drum", width_rates=[1.0, 0.6, 1.0, 0.6])
 
 `make_fused_infer` is the serving hot path: acoustic forward and vocoder as
@@ -10,7 +11,15 @@ one call per padded batch. `Synthesizer` keeps the reference's surface
 the port's `serve.BatchingServer` serves. The host modules (config,
 renderer, symbols) are the port's own, imported where used so that the
 compute core here imports with torch and numpy alone. Not ported: the
-device mesh and the persistent compile cache.
+persistent compile cache.
+
+Several devices: `devices="auto"` (the default of `from_checkpoint`) takes
+every visible card when `device` is a CUDA device and more than one is
+visible, as the JAX `mesh="auto"` takes every local device; a list is taken
+as it is. With more than one device, `synthesize_batch` pads the batch to a
+multiple of the device count and splits it by rows over one replica per
+device (`parallel/serving.py::make_sharded_fused`); `synthesize` runs its one
+item on the first device.
 
 The compute dtype lives in the modules: `Synthesizer.from_checkpoint` builds
 the acoustic model of `train.compute_dtype` (`VTTS.from_config`: bf16 FFT
@@ -86,11 +95,33 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def serving_devices(device: str | torch.device, devices="auto") -> list[torch.device]:
+    """The devices a Synthesizer serves on: "auto" is every visible card when
+    `device` is a CUDA device and more than one is visible (as the JAX
+    `mesh="auto"` takes every local device), else `[device]`; None is
+    `[device]`; a list is taken as it is."""
+    if devices is None:
+        return [torch.device(device)]
+    if isinstance(devices, str):
+        if devices != "auto":
+            raise ValueError(f"devices must be 'auto', None or a list, got {devices!r}")
+        device = torch.device(device)
+        if device.type == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [device]
+    return [torch.device(d) for d in devices]
+
+
 class Synthesizer:
+    _sharded = None     # the runner over several devices (`make_sharded_fused`), if any
+
     def __init__(self, config, model: VTTS, metadata, symbol_map: dict[str, int],
-                 vocoder=None, device: str | torch.device = "cuda"):
+                 vocoder=None, device: str | torch.device = "cuda",
+                 devices: Optional[Sequence[str | torch.device]] = None):
         """config: a `config.Config`; model and vocoder (a generator module,
-        or None for mel-only synthesis) hold their weights."""
+        or None for mel-only synthesis) hold their weights. `devices`: more
+        than one shards `synthesize_batch` over them (the first is `device`'s
+        replica when they are the same device)."""
         from visual_onoma_to_wave_tpu_torch.data.renderer import VisualTextRenderer
 
         self.device = resolve_device(device)
@@ -108,6 +139,11 @@ class Synthesizer:
         self._lock = threading.Lock()
         self.text_bucket = 4
         self.mel_bucket = 64
+        self.devices = [resolve_device(d) for d in devices] if devices else [self.device]
+        if len(self.devices) > 1:
+            from visual_onoma_to_wave_tpu_torch.parallel.serving import make_sharded_fused
+
+            self._sharded = make_sharded_fused(self.model, self.vocoder, self.devices)
 
     @property
     def vocoder_params(self):
@@ -116,21 +152,36 @@ class Synthesizer:
         return None if self.vocoder is None else self.vocoder.state_dict()
 
     @classmethod
-    def from_checkpoint(cls, config, acoustic: str, vocoder: Optional[str] = None,
-                        device: str | torch.device = "cuda") -> "Synthesizer":
-        """Load the acoustic (and vocoder) `.npz` trees written by
-        `examples/export_demo_for_torch.py`, with metadata and vocabulary from
-        `config.path.preprocessed`."""
+    def from_checkpoint(cls, config, acoustic: Optional[str] = None,
+                        vocoder: Optional[str] = None, restore_step: Optional[int] = None,
+                        device: str | torch.device = "cuda",
+                        devices="auto") -> "Synthesizer":
+        """Load the acoustic `.npz` tree `acoustic` (written by `cli
+        convert-acoustic` or `examples/export_demo_for_torch.py`; it takes
+        priority) or else the training checkpoint's
+        `<path.ckpt>/<step>/acoustic.npz` at `restore_step` (None or -1: the
+        latest; a missing step raises naming the directory), and the vocoder
+        `.npz`. Metadata come from `config.path.preprocessed`; the vocabulary
+        from the checkpoint's `symbols.json` first (the trainer writes it
+        there), then the corpus's, then the corpus's split files, in the JAX
+        Synthesizer's order. `devices`: "auto" (every visible card when
+        `device` is a CUDA device and more than one is visible, else
+        `device`), or a list taken as it is."""
         from visual_onoma_to_wave_tpu_torch.config import DatasetMetadata
         from visual_onoma_to_wave_tpu_torch.data.symbols import build_symbol_map, load_symbol_map
+        from visual_onoma_to_wave_tpu_torch.utils.checkpoint import acoustic_path
 
+        if acoustic is None:
+            acoustic = str(acoustic_path(config.path.ckpt, restore_step))
         metadata = DatasetMetadata.load(config.path.preprocessed)
-        symbol_map = (load_symbol_map(config.path.preprocessed)
+        symbol_map = (load_symbol_map(config.path.ckpt)
+                      or load_symbol_map(config.path.preprocessed)
                       or build_symbol_map(config.path.preprocessed))
         model = VTTS.from_config(config, metadata, n_vocab=len(symbol_map))
         model.load_state_dict(vtts_state_dict(load_npz(acoustic)))
         gen = load_vocoder(config, vocoder) if vocoder is not None else None
-        return cls(config, model, metadata, symbol_map, gen, device=device)
+        return cls(config, model, metadata, symbol_map, gen, device=device,
+                   devices=serving_devices(device, devices))
 
     # ------------------------------------------------------------ inputs
     _TEXT_STRIP = str.maketrans("", "", "{}\n")
@@ -181,9 +232,14 @@ class Synthesizer:
                 raise ValueError(f"width_rates must be finite and > 0, got {width_rates!r}")
 
     def batch_signature(self, texts: Sequence[str]) -> tuple[int, int]:
-        """(padded_batch, padded_text_len): batch to a power of two, text
-        length to a multiple of `text_bucket`."""
+        """(padded_batch, padded_text_len): batch to a power of two (then to a
+        multiple of the device count), text length to a multiple of
+        `text_bucket`."""
+        return self._signature(texts, len(self.devices) if self._sharded is not None else 1)
+
+    def _signature(self, texts: Sequence[str], n_devices: int) -> tuple[int, int]:
         b_pad = max(1, 1 << (len(texts) - 1).bit_length())
+        b_pad = -(-b_pad // n_devices) * n_devices
         n_max = max(len(t) for t in texts)
         return b_pad, -(-n_max // self.text_bucket) * self.text_bucket
 
@@ -230,8 +286,8 @@ class Synthesizer:
         if width_rates is not None and len(width_rates) != len(text):
             raise ValueError(f"width_rates has {len(width_rates)} entries for "
                              f"{len(text)} characters")
-        result = self.synthesize_batch([text], [audiotype], width_rates=[width_rates],
-                                       e_control=e_control, d_control=d_control)[0]
+        result = self._synthesize_batch([text], [audiotype], [width_rates], e_control,
+                                        d_control, return_mel=True, sharded=False)[0]
         if result.durations.sum() == 0:
             result.wav = None    # no predicted frame: no audio, as the reference
         return result
@@ -243,7 +299,13 @@ class Synthesizer:
                          return_mel: bool = True) -> list[SynthesisResult]:
         """Batched text -> waveform in one fused call; batch size and text
         length are bucketed as in the reference. Controls are scalars or
-        per-item sequences. return_mel=False leaves `mel` None."""
+        per-item sequences. return_mel=False leaves `mel` None. Over several
+        devices the padded batch is split by rows over them."""
+        return self._synthesize_batch(texts, audiotypes, width_rates, e_control, d_control,
+                                      return_mel, sharded=self._sharded is not None)
+
+    def _synthesize_batch(self, texts, audiotypes, width_rates, e_control, d_control,
+                          return_mel: bool, sharded: bool) -> list[SynthesisResult]:
         if len(texts) != len(audiotypes):
             raise ValueError(f"{len(texts)} texts but {len(audiotypes)} audiotypes")
         texts = [self._clean_text(t) for t in texts]
@@ -253,7 +315,7 @@ class Synthesizer:
         for wr in width_rates:
             if wr is not None:
                 self._check_controls(1.0, 1.0, wr)
-        b_pad, C = self.batch_signature(texts)
+        b_pad, C = self._signature(texts, len(self.devices) if sharded else 1)
 
         ids = np.zeros((b_pad,), np.int32)
         text_ids = np.zeros((b_pad, C), np.int32)
@@ -281,7 +343,12 @@ class Synthesizer:
             col[:bsz] = np.asarray(c, np.float32)
             return col
 
-        out = self._run(batch, column(e_control), column(d_control))
+        if sharded:
+            with self._lock:
+                out = self._sharded(batch, e_control=column(e_control),
+                                    d_control=column(d_control))
+        else:
+            out = self._run(batch, column(e_control), column(d_control))
         mel_lens = out["mel_lens"][:bsz].astype(int)
         durs = out["duration_rounded"][:bsz].astype(np.int32)
         energies = out["energy_pred"][:bsz] if out["energy_pred"] is not None else None

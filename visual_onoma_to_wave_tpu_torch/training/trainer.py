@@ -20,8 +20,9 @@ it does. On the card, TF32 is turned off before the first step
 (`precision.pin_fp32`).
 
 Under a process group of more than one (`parallel.init_distributed`), every
-process plans the same global batches, keeps its rows of each
-(`parallel.shard_batch_multiprocess`) and runs the data-parallel train step
+process plans the same global batches, loads only its rows of each
+(`ProcessLoader.epoch(local_slice=)`, padded to the global batch's shapes)
+and runs the data-parallel train step
 (`train_state.py`): P processes take the one-process step on the global
 batch. The batch size must divide by P. Parameters start equal (broadcast
 from process 0); evaluate runs the whole val split on every process, so
@@ -30,8 +31,17 @@ logs and samples, and a barrier after each checkpoint keeps the others from
 running ahead or leaving early. `train.compute_dtype: bfloat16` trains the
 bf16 model of `VTTS.from_config` (bf16 FFT stacks and PostNet convs) with
 fp32 parameters, Adam moments, BatchNorm statistics and losses, as the
-reference's bf16 step does. Not ported: the compile cache, the profiler
-trace, and the sample's figure (matplotlib).
+reference's bf16 step does.
+
+`profile_dir` writes a `torch.profiler` trace (CPU, and CUDA activity on the
+card) of the steps after `profile_steps[0]` up to `profile_steps[1]` to
+`<profile_dir>/trace_p<process>_steps<lo>-<hi>.json` (Chrome trace format),
+closed at the end of training if the window is still open. The sample
+synthesis draws the reference's mel + energy figure (`utils/plotting.py`:
+the input strip, the target energy expanded by the target durations on both
+panels, the character breaks, the energy axis pinned to the corpus's energy
+min and max) to `<result>/Val/<step>_<name>.png` and to TensorBoard. Not
+ported: the compile cache.
 """
 from __future__ import annotations
 
@@ -51,7 +61,6 @@ from visual_onoma_to_wave_tpu_torch.parallel.distributed import (
     local_device,
     process_count,
     process_index,
-    shard_batch_multiprocess,
 )
 from visual_onoma_to_wave_tpu_torch.synthesis import resolve_device, vocode
 from visual_onoma_to_wave_tpu_torch.training.schedule import NoamAdam
@@ -73,9 +82,11 @@ class Trainer:
     def __init__(self, config: Config, restore_step: Optional[int] = None,
                  vocoder: Optional[torch.nn.Module] = None,
                  device: str | torch.device = "cuda",
-                 loader_workers: Optional[int] = None):
+                 loader_workers: Optional[int] = None,
+                 profile_dir: Optional[str] = None, profile_steps: tuple[int, int] = (10, 15)):
         """vocoder: a generator module with its weights (`synthesis.load_vocoder`),
-        for the waveform metrics of `evaluate` and the sample's audio."""
+        for the waveform metrics of `evaluate` and the sample's audio.
+        profile_dir: where the profiler trace of the steps in `profile_steps` goes."""
         world = process_count()
         self.device = resolve_device(local_device(device) if world > 1 else device)
         if config.train.optimizer.batch_size % world:
@@ -118,6 +129,10 @@ class Trainer:
         (self.result_dir / "Val").mkdir(parents=True, exist_ok=True)
         self.vocoder = vocoder.to(self.device).eval() if vocoder is not None else None
         self.timer = StepTimer()
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
+        self.profile_trace: Optional[pathlib.Path] = None    # the trace written last
+        self._profiler = None
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.state.model.parameters())
@@ -147,6 +162,7 @@ class Trainer:
             self._train_loop(loader, total, step, cfg, on_step)
         finally:
             loader.close()
+            self._stop_profile()
         self._save()
         return self.state
 
@@ -158,15 +174,22 @@ class Trainer:
         barrier("checkpoint")
 
     def _train_loop(self, loader, total, step, cfg, on_step) -> None:
+        # every process plans the epoch from the shared seed and loads only
+        # its rows of each batch (pad shapes from the plan's metadata)
+        world = process_count()
+        local_slice = (process_index(), world) if world > 1 else None
         epoch = 0
         while step < total:
             epoch += 1
-            for batch in loader.epoch(group_size=4, seed=self.config.train.seed + epoch):
-                jb = to_device(shard_batch_multiprocess(batch), self.device)
+            for batch in loader.epoch(group_size=4, seed=self.config.train.seed + epoch,
+                                      local_slice=local_slice):
+                jb = to_device(batch, self.device)
+                self._maybe_profile(step)
                 self.timer.start()
                 losses = train_step(self.state, jb)
                 step = self.state.step
-                n_frames = int(np.sum(batch["mel_lens"]))
+                # the local rows' frames, scaled to the global batch (approximate)
+                n_frames = int(np.sum(batch["mel_lens"])) * world
                 if step % cfg.step.log_step == 0:
                     losses = {k: float(v) for k, v in losses.items()}
                     self.timer.stop(n_frames)
@@ -187,6 +210,40 @@ class Trainer:
                     on_step(step, losses)
                 if step >= total:
                     break
+
+    def _maybe_profile(self, step: int) -> None:
+        """Start the trace before the step after `profile_steps[0]`; stop it
+        once `profile_steps[1]` steps are done."""
+        if self.profile_dir is None:
+            return
+        lo, hi = self.profile_steps
+        if self._profiler is None and step == lo:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts, record_shapes=False)
+            self._profiler.start()
+            self._profile_from = step
+        elif self._profiler is not None and step >= hi:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        """Close the trace (if one is open) and write it under `profile_dir`."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = pathlib.Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / (f"trace_p{process_index()}_steps{self._profile_from}-"
+                      f"{self.state.step}.json")
+        self._profiler.export_chrome_trace(str(path))
+        self._profiler = None
+        self.profile_trace = path
+        self.train_log.text(f"profiler trace written to {path}")
 
     # ------------------------------------------------------------------
     def evaluate(self, step: int | None = None, metrics: bool = False) -> dict:
@@ -260,9 +317,10 @@ class Trainer:
     def _synth_sample(self, step: int) -> None:
         """Synthesize one val sample (predicted durations): its mel to
         `<result>/Val/<step>_<name>_synthesis.npy` beside the ground truth's,
-        and with a vocoder the synthesized and reconstructed waveforms as
-        wavs and TensorBoard audio (reference utils/tools.py:180-241; the
-        reference's figure is not drawn)."""
+        the mel + energy figure of both to `<result>/Val/<step>_<name>.png`
+        (and TensorBoard), and with a vocoder the synthesized and
+        reconstructed waveforms as wavs and TensorBoard audio (reference
+        utils/tools.py:180-241)."""
         try:
             batch = next(self.val_ds.batches(group_size=1, shuffle=True, seed=step))
         except StopIteration:
@@ -277,6 +335,9 @@ class Trainer:
         val_dir = self.result_dir / "Val"
         np.save(val_dir / f"{step}_{name}_synthesis.npy", mels["synthesis"])
         np.save(val_dir / f"{step}_{name}_ground_truth.npy", mels["reconstruction"])
+        fig = self.sample_figure(step, batch, mels["synthesis"], mels["reconstruction"])
+        fig.save(val_dir / f"{step}_{name}.png")
+        self.train_log.image(step, "Synth/mel", np.asarray(fig))
         if self.vocoder is None:
             return
         from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
@@ -287,3 +348,28 @@ class Trainer:
                              .to(self.device))[0].cpu().numpy()
             self.train_log.audio(step, f"Synth/{tag}", wav, sr)
             write_wav(val_dir / f"{step}_{name}_{tag}.wav", np.clip(wav, -1, 1), sr)
+
+    def sample_figure(self, step: int, batch: dict, mel_pred: np.ndarray,
+                      mel_gt: np.ndarray):
+        """The reference's mel + energy figure of one sample (the JAX
+        trainer's `_synth_sample`): the target energy expanded by the target
+        durations on both panels, the character breaks, the energy axis at
+        the corpus's energy min and max, the rendered input strip on top."""
+        from visual_onoma_to_wave_tpu_torch.utils.plotting import expand_char_values, plot_mel
+
+        n_src = int(batch["src_lens"][0])
+        energies = char_breaks = energy_ylim = None
+        if "energies" in batch:
+            dur = np.asarray(batch["durations"][0][:n_src])
+            e = expand_char_values(np.asarray(batch["energies"][0][:n_src]), dur)
+            energies = [e[:mel_pred.shape[0]], e[:mel_gt.shape[0]]]
+            char_breaks = [np.insert(np.cumsum(dur), 0, 0)] * 2
+            es = self.metadata.energy_stats
+            energy_ylim = (es.min, es.max)
+        strip = None
+        if "image_cells" in batch:
+            cells = np.asarray(batch["image_cells"][0][:n_src])           # (C, H, W)
+            strip = (cells.transpose(1, 0, 2).reshape(cells.shape[1], -1) * 255).astype(np.uint8)
+        return plot_mel([(mel_pred, f"synthesized (step {step})"), (mel_gt, "ground truth")],
+                        energies=energies, char_breaks=char_breaks, energy_ylim=energy_ylim,
+                        input_image=strip)

@@ -30,6 +30,22 @@ def _param_names(model: torch.nn.Module) -> list[str]:
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
+def acoustic_path(ckpt_dir: str | pathlib.Path, step: int | None = None) -> pathlib.Path:
+    """`<ckpt_dir>/<step>/acoustic.npz` of a complete checkpoint, at `step`
+    (None or -1: the latest). Raises FileNotFoundError naming the directory
+    when there is no such step; creates nothing."""
+    d = pathlib.Path(ckpt_dir).absolute()
+    steps = (sorted(int(p.name) for p in d.iterdir()
+                    if p.name.isdigit() and (p / TRAIN_STATE).exists())
+             if d.is_dir() else [])
+    if step in (None, -1):
+        step = steps[-1] if steps else None
+    if step is None or step not in steps:
+        have = f"steps {steps}" if steps else "no checkpoint"
+        raise FileNotFoundError(f"no checkpoint at step {step} under {d} ({have})")
+    return d / str(step) / ACOUSTIC
+
+
 class CheckpointManager:
     def __init__(self, ckpt_dir: str | pathlib.Path, max_to_keep: int = 20):
         self.dir = pathlib.Path(ckpt_dir).absolute()

@@ -53,6 +53,11 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.add_figure(tag, fig, step)
 
+    def image(self, step: int, tag: str, img: np.ndarray) -> None:
+        """An (H, W, 3) uint8 image (the port draws its figures with PIL)."""
+        if self._tb is not None:
+            self._tb.add_image(tag, img, step, dataformats="HWC")
+
     def close(self) -> None:
         self._jsonl.close()
         self._txt.close()
@@ -75,6 +80,9 @@ class NullLogger:
         pass
 
     def figure(self, step, tag, fig) -> None:
+        pass
+
+    def image(self, step, tag, img) -> None:
         pass
 
     def close(self) -> None:

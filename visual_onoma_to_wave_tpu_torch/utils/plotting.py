@@ -5,9 +5,14 @@ visual_onoma_to_wave_tpu/utils/plotting.py, which draws with matplotlib).
 the bottom, coloured by viridis over the mel's own range (matplotlib's
 `imshow` default), its title above it. The figure has the reference
 figure's pixel size at 100 dpi: `FIG_WIDTH` wide, `PANEL_HEIGHT` per mel
-panel. `png_bytes` encodes it; the demo server sends it as the mel figure.
-Axes, ticks and labels are not drawn, nor the reference's energy contour,
-character breaks and input strip, which only the trainer's figure uses.
+panel, and `STRIP_HEIGHT` more on top for the visual-text input strip when
+one is given. As in the reference's mel + energy figure (the trainer's
+sample), a panel may carry its frame-level energy contour, in violet, on
+an axis spanning frames 0 to T - 1 across the width and `energy_ylim` (or
+the contour's own range) up the spectrogram's height, and dotted violet
+lines at its character breaks. `png_bytes` encodes the figure; the demo
+server sends its plain panels as the mel figure. Axes, ticks and labels
+are not drawn. `expand_char_values` repeats character values into frames.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import numpy as np
 
 FIG_WIDTH = 800       # 8 in at 100 dpi
 PANEL_HEIGHT = 300    # 3 in per mel panel
+STRIP_HEIGHT = 60     # 0.6 in: the input strip's share of the reference's figure
 TITLE_HEIGHT = 14
+ENERGY_RGB = (238, 130, 238)     # matplotlib's "violet"
 
 # matplotlib's viridis at 0, 1/32, ..., 1; linear in between
 _VIRIDIS = np.array([
@@ -61,19 +68,82 @@ def _spectrogram(mel: np.ndarray, width: int, height: int) -> np.ndarray:
     return img[rows][:, cols]
 
 
-def plot_mel(mels_and_titles):
+def frame_x(frame: float, n_frames: int, width: int = FIG_WIDTH) -> int:
+    """The pixel column of a frame on the energy axis (frames 0 .. T - 1 span the width)."""
+    return int(round(float(frame) * (width - 1) / max(n_frames - 1, 1)))
+
+
+def energy_y(value: float, ylim: tuple[float, float], top: int, height: int) -> int:
+    """The pixel row of an energy value: ylim[0] at the spectrogram's bottom
+    row, ylim[1] at its top row (clipped to the panel)."""
+    lo, hi = float(ylim[0]), float(ylim[1])
+    frac = (float(value) - lo) / (hi - lo) if hi > lo else 0.5
+    return top + int(round((1.0 - min(max(frac, 0.0), 1.0)) * (height - 1)))
+
+
+def _blend(img: np.ndarray, ys, x: int, rgb, alpha: float) -> None:
+    img[ys, x] = np.round(img[ys, x] * (1.0 - alpha) + np.asarray(rgb) * alpha).astype(np.uint8)
+
+
+def plot_mel(mels_and_titles, energies=None, char_breaks=None, energy_ylim=None,
+             input_image=None):
     """mels_and_titles: list of (mel (T, n_mels), title). Returns an RGB
-    `PIL.Image` of FIG_WIDTH x (PANEL_HEIGHT per panel)."""
+    `PIL.Image` of FIG_WIDTH x (PANEL_HEIGHT per panel, plus STRIP_HEIGHT
+    on top with `input_image`).
+
+    energies: optional per-panel frame-level energy contour (or None entries);
+    char_breaks: optional per-panel frame indices of character boundaries,
+        drawn where the panel has an energy contour (as the reference);
+    energy_ylim: (min, max) of the energy axis (the trainer passes the
+        corpus's energy min and max, so panels compare across steps);
+    input_image: optional (H, W) grayscale visual-text strip above the panels."""
     from PIL import Image, ImageDraw
 
-    fig = Image.new("RGB", (FIG_WIDTH, PANEL_HEIGHT * len(mels_and_titles)), "white")
+    extra = STRIP_HEIGHT if input_image is not None else 0
+    fig = Image.new("RGB", (FIG_WIDTH, extra + PANEL_HEIGHT * len(mels_and_titles)), "white")
+    if input_image is not None:
+        strip = np.asarray(input_image, np.float64)
+        lo, hi = float(strip.min()), float(strip.max())
+        gray = np.round((strip - lo) / (hi - lo) * 255.0) if hi > lo else np.zeros_like(strip)
+        rows = (np.arange(STRIP_HEIGHT) * strip.shape[0]) // STRIP_HEIGHT
+        cols = (np.arange(FIG_WIDTH) * strip.shape[1]) // FIG_WIDTH
+        fig.paste(Image.fromarray(gray.astype(np.uint8)[rows][:, cols]).convert("RGB"), (0, 0))
     draw = ImageDraw.Draw(fig)
     spec_h = PANEL_HEIGHT - TITLE_HEIGHT
     for i, (mel, title) in enumerate(mels_and_titles):
-        y0 = i * PANEL_HEIGHT
+        y0 = extra + i * PANEL_HEIGHT
         draw.text((4, y0 + 1), str(title), fill="black")
-        fig.paste(Image.fromarray(_spectrogram(mel, FIG_WIDTH, spec_h)), (0, y0 + TITLE_HEIGHT))
+        panel = _spectrogram(mel, FIG_WIDTH, spec_h)
+        energy = energies[i] if energies is not None else None
+        if energy is not None:
+            energy = np.asarray(energy, np.float64)
+            n_frames = max(int(np.asarray(mel).shape[0]), 1)
+            ylim = energy_ylim if energy_ylim is not None else (energy.min(), energy.max())
+            breaks = char_breaks[i] if char_breaks is not None else None
+            for b in (np.asarray(breaks) if breaks is not None else ()):
+                x = frame_x(b, n_frames)
+                if 0 <= x < FIG_WIDTH:
+                    _blend(panel, np.arange(0, spec_h, 4), x, ENERGY_RGB, 0.5)   # dotted
+            line = Image.fromarray(panel)
+            pts = [(frame_x(t, n_frames), energy_y(v, ylim, 0, spec_h))
+                   for t, v in enumerate(energy)]
+            if len(pts) > 1:
+                ImageDraw.Draw(line).line(pts, fill=ENERGY_RGB, width=1)
+            elif pts:
+                line.putpixel(pts[0], ENERGY_RGB)
+            panel = np.asarray(line)
+        fig.paste(Image.fromarray(panel), (0, y0 + TITLE_HEIGHT))
     return fig
+
+
+def expand_char_values(values: np.ndarray, durations: np.ndarray,
+                       max_len: int | None = None) -> np.ndarray:
+    """Character-level values -> frame-level contour, each value repeated
+    durations[i] times (the reference's `expand`)."""
+    out = np.repeat(np.asarray(values), np.asarray(durations).astype(int))
+    if max_len is not None:
+        out = out[:max_len]
+    return out
 
 
 def png_bytes(image) -> bytes:
