@@ -13,13 +13,15 @@ differ):
 
 - `calls`: every attention call of one bf16 forward, on that call's own q,
   k, v and mask: the kernel (B1, `csrc/flash_mha.cu`) against
-  `attention_core_reference` (P normalised in fp32, then rounded to bf16
-  for the product with V: JAX's bf16 chain), and against
-  `unnormalised_reference`, a plain emulation of the kernel's own rounding
-  (per 64-key tile, exp(s - running max) rounded to bf16 for the product
-  with V, the running sum over the unrounded values, the context times the
-  sum's reciprocal at the end). The kernel nearer its emulation than its
-  plain version names the rounding point as the cause;
+  `attention_core_reference` (`vs_plain`: P normalised in fp32, then rounded
+  to bf16 for the product with V, JAX's bf16 chain), against
+  `two_pass_reference` (`vs_emulation`: the kernel's own arithmetic, two
+  passes over 64-key tiles that round P where JAX does) and against
+  `unnormalised_reference` (`vs_one_pass`: the one-pass rounding B1 had
+  before: per 64-key tile, exp(s - running max) rounded to bf16 for the
+  product with V, the running sum over the unrounded values, the context
+  times the sum's reciprocal at the end). A kernel nearer one emulation than
+  the other names its rounding point;
 - `block`: the first decoder FFT block on its own input, through the kernel
   against through the plain core, and the plain bf16 block against the
   fp32 block (bf16's own effect on one block);
@@ -46,8 +48,8 @@ KEY_TILE = 64   # the kernel's keys a tile (BLOCK_N)
 
 
 def unnormalised_reference(q, k, v, key_pad_mask, n_head: int, tile: int = KEY_TILE):
-    """The kernel's bf16 arithmetic in plain PyTorch (module docstring):
-    (B, T, H*dk) in q's dtype."""
+    """B1's earlier one-pass bf16 rounding in plain PyTorch (module
+    docstring): (B, T, H*dk) in q's dtype."""
     import torch
 
     B, T, HD = q.shape
@@ -71,6 +73,39 @@ def unnormalised_reference(q, k, v, key_pad_mask, n_head: int, tile: int = KEY_T
         m = m_new
     inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
     return (o * inv).transpose(1, 2).reshape(B, T, HD).to(q.dtype)
+
+
+def two_pass_reference(q, k, v, key_pad_mask, n_head: int, tile: int = KEY_TILE):
+    """The kernel's bf16 arithmetic in plain PyTorch: pass 1 the rows' max m
+    and sum l online over the live tiles, pass 2 P = bf16(exp(s - m) / l)
+    and a fresh P V sum a tile, the output rounded once. (B, T, H*dk) in q's
+    dtype."""
+    import torch
+
+    B, T, HD = q.shape
+    dk = HD // n_head
+    qh, kh, vh = (x.reshape(B, T, n_head, dk).transpose(1, 2).float() for x in (q, k, v))
+    s = sum(qh[..., d0:d0 + tile] @ kh[..., d0:d0 + tile].transpose(-1, -2)
+            for d0 in range(0, dk, tile)) * (1.0 / dk ** 0.5)
+    if key_pad_mask is not None:
+        s = s.masked_fill(key_pad_mask[:, None, None, :], -torch.inf)
+    m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    lives = []
+    for j in range(0, T, tile):
+        st = s[..., j:j + tile]
+        live = (st > -torch.inf).any(-1, keepdim=True)
+        m_new = torch.where(live, torch.maximum(m, st.amax(-1, keepdim=True)), m)
+        l = torch.where(live, l * torch.exp(m - m_new)
+                        + torch.exp(st - m_new).sum(-1, keepdim=True), l)
+        m = m_new
+        lives.append(live)
+    inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+    o = torch.zeros(B, n_head, T, dk, device=q.device)
+    for j, live in zip(range(0, T, tile), lives):
+        p = (torch.exp(s[..., j:j + tile] - m) * inv).to(q.dtype).float()
+        o = o + torch.where(live, p @ vh[..., j:j + tile, :], torch.zeros_like(o))
+    return o.transpose(1, 2).reshape(B, T, HD).to(q.dtype)
 
 
 def compare(a, b) -> dict:
@@ -126,7 +161,9 @@ def one_seed(dev, seed: int) -> dict:
             per_call.append({"T": q.shape[1], "dtype": str(q.dtype)[len("torch."):],
                              "vs_plain": compare(out, attention_core_reference(
                                  q, k, v, mask, n_head)),
-                             "vs_emulation": compare(out, unnormalised_reference(
+                             "vs_emulation": compare(out, two_pass_reference(
+                                 q, k, v, mask, n_head)),
+                             "vs_one_pass": compare(out, unnormalised_reference(
                                  q, k, v, mask, n_head))})
         x, mask = block_in[0]
         kernel_block = first(x, mask)

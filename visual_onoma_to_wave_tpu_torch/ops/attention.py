@@ -8,9 +8,10 @@ flash_mha`. Per batch item and head:
     attn = softmax(logits); fully-masked query rows -> exactly 0
     ctx = attn V                           (attn re-cast to the input dtype)
 
-For bf16 the plain version rounds the normalised attn, as the TPU kernel
-does; the CUDA kernel rounds the unnormalised probabilities of its online
-softmax and divides by the fp32 sum at the end (see `csrc/flash_mha.cu`).
+In bf16 both the plain version and the CUDA kernel round the normalised
+attn, as the TPU kernel does: the kernel takes two passes over the keys,
+the first for each row's max and sum, the second for P = bf16(exp(s - m) *
+(1/sum)) and P V, and rounds the fp32 context once (see `csrc/flash_mha.cu`).
 
 Q, K, V and ctx are (B, T, H*dk) with heads packed on the feature axis -- the
 raw projection outputs -- and key_pad_mask is (B, T), True = padding.
@@ -34,9 +35,10 @@ not by device memory. The plain version instead writes the (B, H, T, T)
 fp32 logits to device memory (128 MB at B = 16, H = 2, T = 1000) and
 re-reads them through mask, softmax and the product with V; the kernel
 keeps every score on chip (online softmax over 64-key tiles, skipping the
-tiles whose keys are all padding) and runs both products on the tensor
-cores (`wgmma`; fp32 as 3xTF32: each operand split into a TF32 high part
-and its fp32 remainder, three products hi*lo + lo*hi + hi*hi, fp32 sums).
+tiles whose keys are all padding; bf16 in two passes) and runs both
+products on the tensor cores (`wgmma`; fp32 as 3xTF32: each operand split
+into a TF32 high part and its fp32 remainder, three products hi*lo + lo*hi +
+hi*hi, fp32 sums).
 See PERF.md for its time on the card beside the plain version's and SDPA's.
 
 The kernel is built at first use by `ops/cuda_build.py` (nvcc for sm_90a
