@@ -56,15 +56,21 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      (with the frame sums) ms at one 64-clip batch of the largest bucket,
      beside the bound at each operation's own rate (float64 for the FFT and
      each bin's power) and at the fp32 rate;
-  8. mrf: holds the fused MRF stage kernel against its plain version (the
+  8. mrf: ptxas's registers and spills of each one-pass instantiation;
+     holds the fused MRF stage kernel against its plain version (the
      cuDNN 18-conv chain, also the library yardstick) over fp32 / bf16, C 8 /
      16 / 32 / 64 / 128 / 256 / 512, T 20 (inside the 60-frame halo), one
-     frame either side of the kernel's time tile and on it, and 1000, B 1 /
-     4; times the kernel (fp32 and bf16, weights packed once) and the plain
-     version at the served stage shapes of iSTFTNet (C 512 x T 1000, 256 x
+     frame either side of the conv chain's time tile and on it (and at bf16
+     C <= 64, which takes the one-pass kernel, of its frame tile), and 1000,
+     B 1 / 4, the worst bf16 error printed per width, the one-pass output
+     beside the conv chain's on the same operands; times the kernel (fp32
+     and bf16, weights packed once), the plain version in fp32 and bf16, the
+     bf16 `ResBlock1` modules (`library_bf16`) and, at C <= 64, the bf16
+     conv chain, at the served stage shapes of iSTFTNet (C 512 x T 1000, 256 x
      8000, 128 x 64000) and of HiFi-GAN V1 (256 x 8000, 128 x 64000, 64 x
      128000, 32 x 256000), B 16, beside the fp32 CUDA-core, 3xTF32 and bf16
-     tensor-core bounds and the bytes the kernel's structure moves;
+     tensor-core bounds and the bytes and work each design's structure
+     moves and does;
   9. istftnet golden: phase 3 with the demo iSTFTNet-mel
      (`config_istftnet.json`, `vocoder_istftnet_mel.npz`) against
      `golden_istftnet.npz`, one MRF launch per call;
@@ -159,7 +165,8 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
   20. bf16: phase 4's acoustic model as `train.compute_dtype: bfloat16`
      builds it, with bf16 HiFi-GAN V1, iSTFTNet-mel and mel-Vocos
      (`get_vocoder(..., dtype=torch.bfloat16)`), the same weights, at phase
-     4's batch: B1 10, B2 4 / 1 and B4 8 launches a call, every kernel's
+     4's batch: B1 10, B2 4 (HiFi-GAN V1: 2 conv chain at C 256 / 128, 2
+     one-pass at C 64 / 32) / 1 and B4 8 launches a call, every kernel's
      operands bf16; each path against the same bf16 path with the plain
      versions on the card and against fp32 (the bounds above
      `BF16_VS_PLAIN_OF_SCALE`), the mel's reading beside plain bf16 against
@@ -188,7 +195,9 @@ checked by `tests/test_torch_preprocess_cuda.py`.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its main path, its error against the plain version, kernel,
 plain and library ms and the card's bound at the timed shape, and the bf16
-launches of phase 20 as `launches_bf16`; for the
+launches of phase 20 as `launches_bf16`; the MRF stage's one-pass kernel,
+`mrf_stage_onepass`, with its launches in phase 20's bf16 HiFi-GAN V1 and
+its numbers at C 32 x T 256000 beside the conv chain's; for the
 attention, ConvNeXt and MRF kernels the bound is that of the tensor cores,
 fp32 as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside
 it, and for attention the same numbers under the served mask; for the mel
@@ -331,11 +340,11 @@ def _wrappers() -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
     from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, mrf_stage_onepass
 
     return {"flash_mha": attention_core, "convnext_block": convnext_block,
             "convnext_trunk": convnext_trunk, "mel_frontend": mel_frontend,
-            "mrf_stage": mrf_stage_fused}
+            "mrf_stage": mrf_stage_fused, "mrf_stage_onepass": mrf_stage_onepass}
 
 
 def zero_launch_counts() -> None:
@@ -727,17 +736,30 @@ def convnext_blocks(gen) -> int:
     return len(getattr(gen, "blocks", ()))
 
 
-def mrf_stages(gen) -> int:
+def mrf_stages(gen) -> dict:
     """Fused MRF stage launches per vocoder call: one per ResBlock1 stage of
-    iSTFTNet and HiFi-GAN V1 / V2 (the generators that keep an `MRFStages`)."""
-    return len(gen.resblocks) // gen.num_kernels if getattr(gen, "_mrf", None) else 0
+    iSTFTNet and HiFi-GAN V1 / V2 (the generators that keep an `MRFStages`),
+    by the design `ops/mrf.py::mrf_route` gives the stage's width and the
+    generator's dtype: the conv chain ("mrf_stage") or the one-pass kernel
+    ("mrf_stage_onepass")."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_route
+
+    counts = {"mrf_stage": 0, "mrf_stage_onepass": 0}
+    stages = getattr(gen, "_mrf", None)
+    if stages is not None:
+        n = gen.num_kernels
+        for i in range(len(gen.resblocks) // n):
+            C = gen.resblocks[i * n].convs1[0].out_channels
+            route = mrf_route(C, gen.dtype, stages.kernel_sizes, stages.dilations)
+            counts["mrf_stage_onepass" if route == "onepass" else "mrf_stage"] += 1
+    return counts
 
 
 def per_call_launches(model, gen) -> dict:
     """Kernel launches of one fused acoustic + vocoder call."""
     return {"flash_mha": len(model.encoder.layer_stack) + len(model.decoder.layer_stack),
             "convnext_block": convnext_blocks(gen), "convnext_trunk": 0,
-            "mrf_stage": mrf_stages(gen)}
+            **mrf_stages(gen)}
 
 
 def phase_golden(dev, phase: str = "3 golden", config: str = "config.json",
@@ -1439,11 +1461,13 @@ MRF_SHAPES = {"istftnet_melrate": (512, 1000), "c8c8i_1 / hifigan_1": (256, 8000
 
 def mrf_parity_t(C: int) -> tuple[int, ...]:
     """T of the parity cases at width C: shorter than the stage's 60-frame
-    halo, around the kernel's time tile, and the served max_mel_len."""
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import tile_frames
+    halo, around the conv chain's time tile and, at C <= 64, around the
+    one-pass kernel's frame tile, and the served max_mel_len."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import (
+        ONEPASS_WIDTHS, onepass_tile_frames, tile_frames)
 
-    tile = tile_frames(C)
-    return tuple(sorted({20, tile - 1, tile, tile + 1, MAX_MEL}))
+    tiles = [tile_frames(C)] + ([onepass_tile_frames(C)] if C in ONEPASS_WIDTHS else [])
+    return tuple(sorted({20, MAX_MEL, *(t + i for t in tiles for i in (-1, 0, 1))}))
 
 
 def mrf_weights(C: int, gen, dev, dtype=torch.float32):
@@ -1462,11 +1486,12 @@ def mrf_cost(x: torch.Tensor, mats, bias) -> tuple[float, int]:
 
 
 def mrf_design_bytes(B_: int, C_: int, T_: int, dtype) -> dict:
-    """What the kernel's structure moves a stage (csrc/mrf.cu's header): device
-    memory, in fp32 planes of (B, T, C) (x^T written; per conv its input read
-    once per tile with the tile's halo, its output written, conv2's residual
-    read; the three y read and the output written by the average), and the
-    weight stream from L2 (every tile reads its conv's taps once)."""
+    """What the conv chain's structure moves a stage (csrc/mrf.cu's header):
+    device memory, in fp32 planes of (B, T, C) (x^T written; per conv its
+    input read once per tile with the tile's halo, its output written,
+    conv2's residual read; the three y read and the output written by the
+    average), and the weight stream from L2 (every tile reads its conv's taps
+    once)."""
     from visual_onoma_to_wave_tpu_torch.ops.mrf import tile_frames
 
     tile, plane = tile_frames(C_), B_ * T_ * C_ * 4
@@ -1485,14 +1510,100 @@ def mrf_design_bytes(B_: int, C_: int, T_: int, dtype) -> dict:
             "dram_ms_at_peak": dram / PEAK_BYTES_PER_S * 1e3}
 
 
+def mrf_onepass_design(B_: int, C_: int, T_: int) -> dict:
+    """What the one-pass kernel's structure moves and computes a stage
+    (csrc/mrf.cu): device memory x (bf16) read once and the output written
+    once, the weights once; from L2 the window of x three times a tile (once
+    per branch) and all 126 C^2 bf16 weights a tile; on the tensor cores the
+    64-row tiles each conv computes, halo included (the kernel's `ext`)."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import onepass_tile_frames
+
+    m_out = onepass_tile_frames(C_)
+    tiles = B_ * -(-T_ // m_out)
+    rows = 0            # rows x taps the tensor cores take a tile, all branches
+    for k in (3, 7, 11):
+        p, reach, ext = (k - 1) // 2, 0, [0] * 6
+        for i in (2, 1, 0):
+            ext[2 * i + 1] = reach
+            reach += p
+            ext[2 * i] = reach
+            reach += p * (1, 3, 5)[i]
+        for e in ext:
+            rows += 64 * (m_out // 64 + -(-2 * e // 64)) * k
+    ops = 2.0 * tiles * rows * C_ * C_
+    dram = 2 * 2 * B_ * T_ * C_ + 126 * C_ * C_ * 2
+    return {"tile_frames": m_out, "dram_bytes": dram,
+            "dram_ms_at_peak": dram / PEAK_BYTES_PER_S * 1e3,
+            "l2_x_bytes": 3 * tiles * (m_out + 128) * C_ * 2,
+            "l2_weight_bytes": tiles * 126 * C_ * C_ * 2,
+            "tensor_ops_with_halo": ops, "halo_factor": ops / (252.0 * C_ * C_ * B_ * T_),
+            "tensor_ms_at_peak": ops / PEAK_BF16_FLOPS * 1e3}
+
+
+def mrf_library_bf16(mats, bias, dev):
+    """The bf16 cuDNN chain `MRFStages` runs on `ResBlock1` modules in bf16
+    (JAX hifigan.py:36-67: every conv output rounded to bf16, the residual
+    sums in bf16), built from the packed stage weights: a callable on x."""
+    from visual_onoma_to_wave_tpu_torch.models.hifigan import ResBlock1
+
+    C = mats[0].shape[1]
+    blocks = []
+    with torch.no_grad():
+        for b, (a, k) in enumerate(zip(mats, (3, 7, 11))):
+            block = ResBlock1(C, k, (1, 3, 5), dtype=torch.bfloat16).to(dev).eval()
+            w = a.float().reshape(6, C, k, C).permute(0, 1, 3, 2)
+            for i, conv in enumerate(c for pair in zip(block.convs1, block.convs2) for c in pair):
+                conv.weight.copy_(w[i])
+                conv.bias.copy_(bias[6 * b + i, :, 0])
+            blocks.append(block)
+
+    def run(x):
+        x = x.to(torch.bfloat16)
+        return (blocks[0](x) + blocks[1](x) + blocks[2](x)) / 3
+
+    return run
+
+
+def mrf_ptxas_report() -> dict:
+    """Registers, stack and spills of each one-pass instantiation
+    (`mrf_onepass_kernel<C, TPW>`) in the built MRF library's ptxas.log."""
+    import re
+
+    from visual_onoma_to_wave_tpu_torch.ops.cuda_build import library_path
+
+    report, key = {}, None
+    for line in (library_path("mrf").parent / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"mrf_onepass_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            key = f"C{k.group(1)}" if k else None
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report.setdefault(key, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(key, {})["registers"] = int(m.group(1))
+    return report
+
+
 def phase_mrf(dev, card: str) -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.mrf import (
-        mrf_stage_fused, mrf_stage_fused_reference, pack_mrf_kernel_weights)
+        _mrf_stage_chain, mrf_route, mrf_stage_fused, mrf_stage_fused_reference,
+        mrf_stage_onepass, onepass_takes, pack_mrf_kernel_weights)
 
     phase = "8 mrf"
+    say(phase + " ptxas", card=card, onepass=mrf_ptxas_report())
     gen = torch.Generator(device=dev).manual_seed(8)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}    # of max |plain|
+    worst_by_width = {}                                  # bf16, of max |plain|
     worst_abs = 0.0                                      # fp32, absolute
+    onepass_vs_chain = 0.0                               # bf16 C <= 64, absolute
+    onepass_by_width = {}                                # bf16 C <= 64, of max |plain|
     cases = 0
     for C in MRF_WIDTHS:
         mats, bias = mrf_weights(C, gen, dev)
@@ -1513,10 +1624,34 @@ def phase_mrf(dev, card: str) -> dict:
                     worst[dtype] = max(worst[dtype], err / scale)
                     if dtype == torch.float32:
                         worst_abs = max(worst_abs, err)
+                    else:
+                        worst_by_width[C] = max(worst_by_width.get(C, 0.0), err / scale)
+                    if onepass_takes(C, dtype):
+                        # the bf16 design the route did not take, on the same
+                        # operands and under the same bound: the two sum in
+                        # the same grouping and order (csrc/mrf.cu)
+                        xb, pk, bf = (x.to(dtype).contiguous(), pack_mrf_kernel_weights(mats, dtype),
+                                      bias.float().contiguous())
+                        other = (_mrf_stage_chain(xb, pk, bf, (3, 7, 11), ((1, 3, 5),) * 3)
+                                 if mrf_route(C, dtype) == "onepass"
+                                 else mrf_stage_onepass(xb, pk, bf)).float()
+                        onepass = out.float() if mrf_route(C, dtype) == "onepass" else other
+                        oerr = (onepass - ref.float()).abs().max().item()
+                        if not bool(torch.isfinite(other).all()) or \
+                                oerr > MRF_OF_SCALE[dtype] * scale:
+                            raise AssertionError(f"{phase}: one-pass kernel != plain at B={Bc} "
+                                                 f"C={C} T={T}: {oerr:.3e} of max {scale:.3e}")
+                        onepass_by_width[C] = max(onepass_by_width.get(C, 0.0), oerr / scale)
+                        onepass_vs_chain = max(onepass_vs_chain,
+                                               (out.float() - other).abs().max().item())
                     cases += 1
     say(phase + " parity", card=card, cases=cases, widths=MRF_WIDTHS,
         T={C: mrf_parity_t(C) for C in MRF_WIDTHS}, batch=(1, 4), max_abs_err_fp32=worst_abs,
         max_err_of_max_abs={str(d).split(".")[-1]: v for d, v in worst.items()},
+        bf16_max_err_of_max_abs_by_width=worst_by_width,
+        onepass_max_err_of_max_abs_by_width=onepass_by_width,
+        routes_bf16={C: mrf_route(C, torch.bfloat16) for C in MRF_WIDTHS},
+        onepass_vs_chain_max_abs=onepass_vs_chain,
         bound_of_max_abs={str(d).split(".")[-1]: v for d, v in MRF_OF_SCALE.items()})
 
     shapes = {}
@@ -1526,16 +1661,39 @@ def phase_mrf(dev, card: str) -> dict:
             x = torch.randn(B, C, T, generator=gen, device=dev)
             # the weights packed once, as the served generators keep them
             packed = {d: pack_mrf_kernel_weights(mats, d) for d in (torch.float32, torch.bfloat16)}
+            library_bf16 = mrf_library_bf16(mats, bias, dev)
             runs = {"kernel": lambda: mrf_stage_fused(x, *mats, bias,
                                                       packed=packed[torch.float32]),
                     "plain": lambda: mrf_stage_fused_reference(x, *mats, bias),
                     "kernel_bf16": lambda: mrf_stage_fused(x, *mats, bias, dtype=torch.bfloat16,
-                                                           packed=packed[torch.bfloat16])}
+                                                           packed=packed[torch.bfloat16]),
+                    "plain_bf16": lambda: mrf_stage_fused_reference(x, *mats, bias,
+                                                                    dtype=torch.bfloat16),
+                    "library_bf16": lambda: library_bf16(x)}
+            # where the one-pass kernel is built, the other bf16 design on
+            # the same operands beside the routed one
+            onepass = mrf_route(C, torch.bfloat16) == "onepass"
+            other = ("chain_bf16" if onepass else "onepass_bf16") \
+                if onepass_takes(C, torch.bfloat16) else None
+            # (x rounded to bf16 inside each call, as `kernel_bf16` does)
+            bf = bias.float().contiguous()
+            if other == "chain_bf16":
+                runs[other] = lambda: _mrf_stage_chain(
+                    x.to(torch.bfloat16), packed[torch.bfloat16], bf, (3, 7, 11), ((1, 3, 5),) * 3)
+            elif other == "onepass_bf16":
+                runs[other] = lambda: mrf_stage_onepass(x.to(torch.bfloat16), packed[torch.bfloat16],
+                                                        bf)
             ref = runs["plain"]()
             abs_err = (runs["kernel"]() - ref).abs().max().item()
             err = abs_err / ref.abs().max().item()
-            bf16_err = ((runs["kernel_bf16"]().float() - ref).abs().max() / ref.abs().max()).item()
             del ref
+            ref16 = runs["plain_bf16"]().float()
+            got16 = runs["kernel_bf16"]().float()
+            bf16_abs = (got16 - ref16).abs().max().item()
+            bf16_err = bf16_abs / ref16.abs().max().item()
+            bf16_vs_chain = ((got16 - runs[other]().float()).abs().max().item()
+                             if other else None)
+            del ref16, got16
             if err > MRF_OF_SCALE[torch.float32] or bf16_err > MRF_OF_SCALE[torch.bfloat16]:
                 raise AssertionError(f"{phase}: kernel != plain at B={B} C={C} T={T}: fp32 "
                                      f"{err:.3e}, bf16 {bf16_err:.3e} of max |plain|")
@@ -1551,6 +1709,8 @@ def phase_mrf(dev, card: str) -> dict:
                       "tensor_cores_bf16": bound(flops, moved / 2, PEAK_BF16_FLOPS)}
             shapes[name] = {
                 "C": C, "T": T, "ms": ms, "ms_runs": times, "bounds": bounds,
+                "bf16_design": "onepass" if onepass else "chain",
+                "bf16_launches_a_stage": 1 if onepass else 8,
                 "kernel_tflops": flops / (ms["kernel"] * 1e9),
                 "plain_tflops": flops / (ms["plain"] * 1e9),
                 "kernel_share_of_cuda_core_bound":
@@ -1562,14 +1722,18 @@ def phase_mrf(dev, card: str) -> dict:
                 "kernel_bf16_share_of_bf16_bound":
                     bounds["tensor_cores_bf16"]["bound_ms"] / ms["kernel_bf16"],
                 "kernel_vs_library": ms["plain"] / ms["kernel"],
+                "kernel_bf16_vs_library_bf16": ms["library_bf16"] / ms["kernel_bf16"],
                 "err_of_max_abs": {"fp32": err, "bf16": bf16_err},
+                "bf16_max_abs_err": bf16_abs, "bf16_onepass_vs_chain_max_abs": bf16_vs_chain,
                 "design": {"fp32": mrf_design_bytes(B, C, T, torch.float32),
-                           "bf16": mrf_design_bytes(B, C, T, torch.bfloat16)}}
-            del x, packed
+                           "bf16": mrf_design_bytes(B, C, T, torch.bfloat16),
+                           **({"bf16_onepass": mrf_onepass_design(B, C, T)} if other else {})}}
+            del x, packed, library_bf16
             torch.cuda.empty_cache()
-    say(phase + " times", card=card, batch=B, dtype="fp32 (kernel_bf16: bf16)",
-        library="the plain version (cuDNN F.conv1d chain, TF32 off)", shapes=shapes)
-    melrate = shapes["istftnet_melrate"]
+    say(phase + " times", card=card, batch=B, dtype="fp32 (*_bf16: bf16)",
+        library="the plain version (cuDNN F.conv1d chain, TF32 off); library_bf16: the "
+                "ResBlock1 modules in bf16", shapes=shapes)
+    melrate, served = shapes["istftnet_melrate"], shapes["hifigan_4"]
     return {"max_abs_err": worst_abs, "ms": melrate["ms"]["kernel"],
             "plain_ms": melrate["ms"]["plain"],
             **melrate["bounds"]["tensor_cores_3xtf32"],
@@ -1577,7 +1741,17 @@ def phase_mrf(dev, card: str) -> dict:
             "library_ms": melrate["ms"]["plain"],
             "bf16": {"max_abs_err_of_max_abs": worst[torch.bfloat16],
                      "ms": melrate["ms"]["kernel_bf16"],
-                     **melrate["bounds"]["tensor_cores_bf16"]}}
+                     "library_bf16_ms": melrate["ms"]["library_bf16"],
+                     **melrate["bounds"]["tensor_cores_bf16"]},
+            "onepass": {"shape": {"C": served["C"], "T": served["T"], "B": B},
+                        "max_abs_err": served["bf16_max_abs_err"],
+                        "max_err_of_max_abs": {f"C{c}": v for c, v in onepass_by_width.items()},
+                        "ms": served["ms"]["kernel_bf16"], "plain_ms": served["ms"]["plain_bf16"],
+                        **served["bounds"]["tensor_cores_bf16"],
+                        "library_ms": served["ms"]["library_bf16"],
+                        "chain_ms": served["ms"]["chain_bf16"],
+                        "c64_not_routed": {"ms": shapes["hifigan_3"]["ms"]["onepass_bf16"],
+                                           "chain_ms": shapes["hifigan_3"]["ms"]["kernel_bf16"]}}}
 
 
 def phase_served(dev, card: str) -> dict:
@@ -1982,7 +2156,7 @@ def phase_chunked(dev, card: str, mel: torch.Tensor) -> dict:
         _, gen, _ = icassp_b16(dev, family)
         halo = generator_halo_frames(gen)
         n_windows = CHUNK_B * -(-mel.shape[1] // CHUNK_FRAMES)
-        want = {"mrf_stage": mrf_stages(gen), "convnext_block": convnext_blocks(gen)}
+        want = {**mrf_stages(gen), "convnext_block": convnext_blocks(gen)}
         zero_launch_counts()
         wav = vocoder_infer_chunked(gen, mel, chunk_frames=CHUNK_FRAMES)
         torch.cuda.synchronize()
@@ -2037,7 +2211,7 @@ def phase_chunked(dev, card: str, mel: torch.Tensor) -> dict:
         cut[i, :n] = postnet[i, :n]
     zero_launch_counts()
     wavs = synth.vocode(cut, lens)
-    expect_launches(phase + " vocode", launch_counts(), {"mrf_stage": mrf_stages(synth.vocoder)})
+    expect_launches(phase + " vocode", launch_counts(), mrf_stages(synth.vocoder))
     fused = out["wav"].cpu().numpy()
     halo = generator_halo_frames(synth.vocoder)
     errs = []
@@ -2207,7 +2381,7 @@ def phase_quality_gate(dev, card: str) -> dict:
             score = gate.make_scorer(gen, gt, logmel, str(dev))()
             vocoder_launches[tag] = launch_counts()
             expect_launches(f"{phase} {tag}", vocoder_launches[tag],
-                            {"mrf_stage": mrf_stages(gen) * len(gt),
+                            {**{k: n * len(gt) for k, n in mrf_stages(gen).items()},
                              "convnext_block": convnext_blocks(gen) * len(gt)})
             card_means["vocoders"][tag] = {"family": family, "clips": len(gt), **score}
             mel = torch.from_numpy(np.ascontiguousarray(gt[0][1].T))[None]
@@ -2448,7 +2622,7 @@ def vocoder_restore_and_serve(dev, vt, mel: torch.Tensor, work: pathlib.Path) ->
     del fresh
 
     gen = load_vocoder(Config(), str(work / str(step) / "generator.npz")).to(dev).eval()
-    want = {"mrf_stage": mrf_stages(gen)}
+    want = mrf_stages(gen)
     zero_launch_counts()
     with torch.inference_mode():
         wav = vocode(gen, mel)
@@ -2887,9 +3061,10 @@ def kernel_operand_dtypes():
     the launch counts they keep, are untouched."""
     import visual_onoma_to_wave_tpu_torch.models.layers as layers
     import visual_onoma_to_wave_tpu_torch.models.vocos as vocos
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages, mrf_route
 
-    seen = {"flash_mha": set(), "mrf_stage": set(), "convnext_block": set()}
+    seen = {"flash_mha": set(), "mrf_stage": set(), "mrf_stage_onepass": set(),
+            "convnext_block": set()}
     attention, block, stage = layers.attention_core, vocos.convnext_block, MRFStages.__call__
 
     def note(name, x):
@@ -2905,7 +3080,8 @@ def kernel_operand_dtypes():
 
     def stage_call(self, i, blocks, x, fused=True):
         if fused:
-            note("mrf_stage", x)
+            route = mrf_route(x.shape[1], x.dtype, self.kernel_sizes, self.dilations)
+            note("mrf_stage_onepass" if route == "onepass" else "mrf_stage", x)
         return stage(self, i, blocks, x, fused)
 
     layers.attention_core, vocos.convnext_block = attention_call, block_call
@@ -3449,7 +3625,11 @@ def main() -> int:
          "replaces": tpu + "pallas_mrf.py:164",
          "launches": melrate["launches"]["mrf_stage"],
          "launches_bf16": served16["iSTFTNet-mel"]["launches"]["mrf_stage"],
-         "launches_bf16_hifigan_v1": served16["HiFi-GAN"]["launches"]["mrf_stage"], **mrf},
+         "launches_bf16_hifigan_v1": served16["HiFi-GAN"]["launches"]["mrf_stage"],
+         **{k: v for k, v in mrf.items() if k != "onepass"}},
+        {"name": "mrf_stage_onepass", "route": "cuda", "source": source + "mrf.cu",
+         "replaces": tpu + "pallas_mrf.py:164",
+         "launches": served16["HiFi-GAN"]["launches"]["mrf_stage_onepass"], **mrf["onepass"]},
     ]}
     print(probe["smi"])
     print(json.dumps(record))

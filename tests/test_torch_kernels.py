@@ -46,8 +46,14 @@ from visual_onoma_to_wave_tpu_torch.ops.mel import (
     mel_frontend_reference,
 )
 from visual_onoma_to_wave_tpu_torch.ops.mrf import (
+    ONEPASS_KERNEL_WIDTHS,
+    _mrf_stage_chain,
+    mrf_route,
     mrf_stage_fused,
     mrf_stage_fused_reference,
+    mrf_stage_onepass,
+    onepass_tile_frames,
+    pack_mrf_kernel_weights,
     tile_frames,
 )
 from visual_onoma_to_wave_tpu_torch.ops.stft import char_stats_from_frame_sums
@@ -320,15 +326,35 @@ def test_mrf_kernel_matches_plain(cuda, C, T, dtype):
     mats, bias = chip_smoke.mrf_weights(C, g, cuda)
     for B in (1, 4):
         x = torch.randn(B, C, T, generator=g, device=cuda)
-        before = mrf_stage_fused.launches
+        before = chip_smoke.launch_counts()
         out = mrf_stage_fused(x, *mats, bias, dtype=dtype)
         torch.cuda.synchronize()
-        assert mrf_stage_fused.launches == before + 1
+        design = "mrf_stage_onepass" if mrf_route(C, dtype) == "onepass" else "mrf_stage"
+        assert chip_smoke.launch_counts() == {**before, design: before[design] + 1}
         ref = mrf_stage_fused_reference(x, *mats, bias, dtype=dtype)
         assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
         scale = ref.float().abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), rtol=0.0,
                                    atol=chip_smoke.MRF_OF_SCALE[dtype] * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [20, -1, 0, 1, 1000], ids=["20", "tile-1", "tile", "tile+1", "1000"])
+@pytest.mark.parametrize("C", ONEPASS_KERNEL_WIDTHS)
+def test_mrf_onepass_kernel_equals_the_conv_chain(cuda, C, T):
+    """The one-pass kernel sums in the conv chain's grouping and order: the
+    two designs give the same bits (T -1 / 0 / 1: frames around the one-pass
+    frame tile)."""
+    if T <= 1:
+        T += onepass_tile_frames(C)
+    g = torch.Generator(device=cuda).manual_seed(C + T)
+    mats, bias = chip_smoke.mrf_weights(C, g, cuda)
+    x = torch.randn(3, C, T, generator=g, device=cuda).to(torch.bfloat16)
+    packed = pack_mrf_kernel_weights(mats, torch.bfloat16)
+    bias = bias.float().contiguous()
+    out = mrf_stage_onepass(x, packed, bias)
+    chain = _mrf_stage_chain(x, packed, bias, (3, 7, 11), ((1, 3, 5),) * 3)
+    assert torch.equal(out, chain)
 
 
 @pytest.mark.gpu

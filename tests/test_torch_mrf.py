@@ -31,12 +31,14 @@ from visual_onoma_to_wave_tpu.ops import pallas_mrf
 from visual_onoma_to_wave_tpu_torch.bridge import hifigan_state_dict
 from visual_onoma_to_wave_tpu_torch.models.hifigan import ResBlock1
 from visual_onoma_to_wave_tpu_torch.ops import cuda_build
+from visual_onoma_to_wave_tpu_torch.ops import mrf as mrf_ops
 from visual_onoma_to_wave_tpu_torch.models import build_istftnet, get_vocoder
 from visual_onoma_to_wave_tpu_torch.ops.convnext import tf32_round
 from visual_onoma_to_wave_tpu_torch.ops.mrf import (
     HALO,
     kernel_tile,
     kernel_weights_numel,
+    mrf_route,
     mrf_stage_fused,
     pack_mrf_kernel_weights,
     pack_mrf_weights,
@@ -327,3 +329,7 @@ def test_a_cuda_call_without_a_compiler_raises_rather_than_running_plain():
         pytest.skip("a CUDA toolkit or card is here: the build can run")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build_libraries(("mrf",))
+    # the one-pass route (bf16 at C <= 64) loads the same library
+    assert mrf_route(32, torch.bfloat16) == "onepass"
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mrf_ops._load_library()

@@ -14,6 +14,16 @@
 // operand type, products accumulate in fp32, the residual streams stay fp32
 // and the output is rounded once (pallas_mrf.py:90-127).
 //
+// Two designs, chosen by ops/mrf.py::mrf_route:
+//   * bf16 at C 8, 16 and 32: one pass per frame tile, one launch a stage,
+//     every conv of the tile on chip (below, "one pass per frame tile";
+//     entry mrf_stage_onepass_fwd). It is built for C 64 too, where the conv
+//     chain runs faster. At C >= 128 the tile's windows and residual stream
+//     no longer fit in shared memory beside a weight ring (C 128 with 64
+//     output frames: 224 KB before any weight);
+//   * fp32 at every width and bf16 at C 64 and above: the conv chain (entry
+//     mrf_stage_fwd), 8 launches a stage through fp32 scratch, as follows.
+//
 // What bounds it. A stage does 6 * (3 + 7 + 11) * C^2 = 126 C^2 multiply-adds
 // per position. fp32 runs as 3xTF32 (three TF32 products a multiply-add), so
 // at 495 TFLOP/s the tensor-core bound is 6.4 ms at C 512 x T 1000 and C 32 x
@@ -72,7 +82,7 @@
 //   * bf16 at C 8 has 8 channels, half of wgmma's k16: the window's second
 //     group is staged as zeros and the packed weights carry zero columns.
 //
-// Structure. A stage is 8 launches on the caller's stream: x to a
+// Structure of the conv chain. A stage is 8 launches on the caller's stream: x to a
 // channels-last fp32 copy, then the 6 convs of the branches' chains (the
 // three branches' convs of one dilation side by side in one launch), then the
 // average back to (B, C, T). conv1 writes h_b = conv + bias; conv2 reads h_b
@@ -87,8 +97,8 @@
 // ms), 27.0-27.6 GB at C 128 x 64000, 64 x 128000 and 32 x 256000 (8.1-8.3
 // ms: above the 3xTF32 bound of 6.4 ms at C 32, 63% of the 12.8 at C 64).
 // The weight stream from L2, every tile reading its conv's taps once:
-// 33.8 GB fp32 at C 512 x T 1000, 8.3 GB at C 32 x 256000. Fusing conv1 into
-// conv2 per tile (h on chip) is the next lever at small C.
+// 33.8 GB fp32 at C 512 x T 1000, 8.3 GB at C 32 x 256000. At bf16 C <= 64
+// the one-pass design below replaces this structure.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -171,6 +181,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+// whether the barrier's phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 // one contiguous copy from device memory to shared memory, completing on `bar`
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -804,6 +826,407 @@ cudaError_t run_stage(const Stage& s, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- one pass per frame tile: bf16 at C <= 64 -------------------------------
+//
+// One launch a stage, one CTA per (item, frame tile) in a strided loop, all
+// 18 convs of the tile on chip. The window of a tile is W = M_OUT + 2 * 64
+// frames: the M_OUT output frames and 64 frames of halo on each side (the
+// stage reaches 60). Window row u is frame t0 - 64 + u; each conv cuts its
+// rows into 64-row tiles, the M of one wgmma, and its tile i belongs to
+// warpgroup i % 2. Per branch (in order 0, 1, 2, so that the average sums
+// (y_0 + y_1) + y_2 as the plain version does):
+//   * y = x, fp32 in shared memory ([C / 8][W][8]: a warp's accumulator rows
+//     read and write 256 contiguous bytes), and X = bf16(lrelu(x)), the
+//     first conv's A operand: the K-major no-swizzle window of the conv chain
+//     (each 8-channel group its own column of W + 2 * 32 rows, 16 bytes a
+//     row; a tap's shift is the descriptor's start moved 16 bytes a frame,
+//     the 32 margin rows take the widest reach, 25 frames);
+//   * conv c computes as few 64-row tiles as cover the rows that the convs
+//     after it need, centred on them (the needed range shrinks by each conv's
+//     reach, down to the output tiles at the branch's last conv; the tiles
+//     past the output's are 0, 1 or 2); its output, + bias, zeroed outside
+//     [0, T), goes to H = bf16(lrelu(h)) (conv1) or to y += (conv2, with X =
+//     bf16(lrelu(y)) for the next conv1). One barrier ends each conv;
+//   * the last conv2 adds y into the branch sum, fp32 in shared memory over
+//     the output frames ([C / 8][M_OUT][8], each element read and written by
+//     the thread that owns it); after branch 2 the output, sum / 3 rounded
+//     to bf16 once, goes from there to (B, C, T).
+// Weights: the conv chain's stream (`pack_mrf_kernel_weights`, bf16), one bulk copy
+// per group of up to GROUP_MAX taps of a 32-channel chunk, into a ring that
+// warp 0 keeps RING - 2 groups ahead of the consumers. The CTA is the two
+// consumer warpgroups alone: with a ninth warp one of the SM's four register
+// files would hold three warps, and ptxas caps every thread at 168 registers
+// (C 64 spilled 252 bytes at that cap). Each group is one fresh tensor-core
+// sum (K <= 128) per tile, added to the tile's fp32 accumulator on the CUDA
+// cores, chunk by chunk and group by group: the order and grouping of the chain's
+// bf16 design, so the two designs compute the same numbers. A warpgroup
+// issues the group's sums of all its tiles before it waits once.
+// What bounds it. Device memory sees x read three times (once from DRAM, then
+// from L2) and the output written; every tile reads all 126 C^2 weights from
+// L2; the tensor cores do 1.19x (C 32) to 1.58x (C 64) the stage's operations
+// for the recomputed halo, with A read from shared memory for every tap (at
+// C 32 a m64n32k16 reads 3 KB of A and B for 16 tensor-core cycles). None of
+// these binds it on an H100: the two warpgroups multiply, then both run their
+// epilogues and the next window's load, and meet at one barrier a conv, so
+// that work does not overlap the tensor cores (chip_smoke phase 8 prints the
+// design's bytes and operations beside the time). At C 64 the conv chain is
+// the faster design.
+
+constexpr int OP_THREADS = 256;                 // two warpgroups (8 warps: 255 registers a thread)
+constexpr int OP_HALO = 64;                     // window frames before the output frames
+constexpr int OP_MARGIN = 32;                   // rows a tap may read past the window
+
+template <int C, int TPW>
+struct OnePass {
+  using T = __nv_bfloat16;
+  using G = Geom<T, C, 1>;
+  static constexpr int KC = G::KC, KCP = G::KCP, KS = G::KS;
+  static constexpr int CHUNKS = C / KC;
+  static constexpr int GROUPS = CHUNKS * KCP / 8;      // 16-byte groups of a window row
+  static constexpr int NTILE = 2 * TPW;                // 64-row tiles of the window
+  static constexpr int W = 64 * NTILE;
+  static constexpr int M_OUT = W - 2 * OP_HALO;
+  static constexpr int WR = W + 2 * OP_MARGIN;         // rows of a window buffer
+  static constexpr int ACC = C / 2;                    // accumulators a thread per tile
+  static constexpr uint32_t A_LBO = WR * 16;
+  static constexpr uint32_t B_LBO = C * 16;
+  static constexpr int PLANE = G::PLANE;               // bytes of one tap of one chunk
+  static constexpr int SLOT = GROUP_MAX * PLANE;
+  static constexpr int WIN_BYTES = GROUPS * WR * 16;
+  static constexpr int Y_BYTES = C * W * 4;
+  static constexpr int SUM_BYTES = C * M_OUT * 4;       // the branch sum, [C / 8][M_OUT][8]
+  static constexpr int FIXED = 2 * WIN_BYTES + Y_BYTES + SUM_BYTES + 16 * STAGES_MAX;
+  static constexpr int RING_ROOM = (SMEM_MAX - FIXED) / SLOT;
+  static constexpr int RING = RING_ROOM < STAGES_MAX ? RING_ROOM : STAGES_MAX;
+  static constexpr int SMEM = RING * SLOT + FIXED;
+  static_assert(RING >= 2, "shared memory");
+  static_assert(2 * TPW * ACC <= 160, "registers");
+  static_assert(C * (W / 8) % OP_THREADS == 0, "the window's loads");
+};
+
+struct OnePassArgs {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* y;
+  const __nv_bfloat16* w[NBR];   // per branch: pack_mrf_kernel_weights, bf16
+  const float* bias;             // (NBR * 6, C)
+  int batch, T;
+  int k[NBR];
+  int d[NBR][NDIL];
+};
+
+// A branch's scalars, read from the kernel parameters at constant indices
+// (a parameter array indexed at run time is copied to the stack)
+struct Branch {
+  const uint8_t* w;
+  int k, p, d0, d1, d2;
+};
+__device__ __forceinline__ Branch branch_of(const OnePassArgs& a, int b) {
+  const int i = b == 0 ? 0 : b == 1 ? 1 : 2;
+  Branch r;
+  if (i == 0) {
+    r = {reinterpret_cast<const uint8_t*>(a.w[0]), a.k[0], 0, a.d[0][0], a.d[0][1], a.d[0][2]};
+  } else if (i == 1) {
+    r = {reinterpret_cast<const uint8_t*>(a.w[1]), a.k[1], 0, a.d[1][0], a.d[1][1], a.d[1][2]};
+  } else {
+    r = {reinterpret_cast<const uint8_t*>(a.w[2]), a.k[2], 0, a.d[2][0], a.d[2][1], a.d[2][2]};
+  }
+  r.p = (r.k - 1) / 2;
+  return r;
+}
+
+// The weight groups in the consumers' order: (item, branch, conv, chunk,
+// group of taps), one bulk copy each, issued by warp 0 ahead of
+// the consumers into the ring.
+template <int C, int TPW>
+struct Producer {
+  using P = OnePass<C, TPW>;
+  Ring ring;
+  uint32_t base;
+  int it, b, conv, c, j0, issued;
+  // issue groups [issued, want): waiting for a free slot while fewer than
+  // `need` are issued, else only while slots are free already. Run by a
+  // whole warp in step (every lane holds the same state; lane 0 copies), so
+  // that no lane waits on a barrier while another issues
+  __device__ __forceinline__ void issue(const OnePassArgs& a, int items, int need, int want,
+                                        int lane) {
+    while (issued < want && it < items) {
+      // lane 0's reading for the whole warp: the phase may complete between
+      // two lanes' tests
+      if (issued >= need &&
+          !__shfl_sync(0xffffffffu, mbar_test(ring.empty + 8 * ring.slot, ring.phase ^ 1), 0))
+        return;
+      const Branch br = branch_of(a, b);
+      const int jn = br.k - j0 < GROUP_MAX ? br.k - j0 : GROUP_MAX;
+      ring.wait_empty();
+      if (lane == 0) {
+        mbar_expect_tx(ring.full + 8 * ring.slot, jn * P::PLANE);
+        bulk_load(base + ring.slot * P::SLOT,
+                  br.w + ((size_t)(conv * P::CHUNKS + c) * br.k + j0) * P::PLANE, jn * P::PLANE,
+                  ring.full + 8 * ring.slot);
+      }
+      __syncwarp();
+      ring.advance();
+      ++issued;
+      if ((j0 += GROUP_MAX) < br.k) continue;
+      j0 = 0;
+      if (++c < P::CHUNKS) continue;
+      c = 0;
+      if (++conv < 2 * NDIL) continue;
+      conv = 0;
+      if (++b < NBR) continue;
+      b = 0;
+      it += gridDim.x;
+    }
+  }
+};
+
+template <int C, int TPW>
+__global__ void __launch_bounds__(OP_THREADS, 1) mrf_onepass_kernel(const OnePassArgs a) {
+  using P = OnePass<C, TPW>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* xwin = smem + P::RING * P::SLOT;            // conv1's A: bf16(lrelu(y))
+  uint8_t* hwin = xwin + P::WIN_BYTES;                 // conv2's A: bf16(lrelu(h))
+  float* ys = reinterpret_cast<float*>(hwin + P::WIN_BYTES);
+  float* sums = ys + P::Y_BYTES / 4;
+  const uint32_t bars = smem_addr(hwin + P::WIN_BYTES + P::Y_BYTES + P::SUM_BYTES);
+  const uint32_t wfull = bars, wempty = bars + 8 * STAGES_MAX;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  // the warpgroup, known to the compiler as uniform across the warp (wgmma
+  // under a branch it thinks divergent is serialized)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int r = 16 * (warp & 3) + (lane >> 2);   // accumulator rows r, r + 8
+  const int q = lane & 3;
+  const uint32_t xbase = smem_addr(xwin), hbase = smem_addr(hwin), wbase = smem_addr(smem);
+  const int tiles = (a.T + P::M_OUT - 1) / P::M_OUT;
+  const int items = a.batch * tiles;
+  if (tid == 0) {
+    for (int s = 0; s < P::RING; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, OP_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // both windows zero once: the margins and bf16 C 8's padding group are
+  // never written again
+  for (int i = tid; i < 2 * P::WIN_BYTES / 16; i += OP_THREADS)
+    reinterpret_cast<uint4*>(xwin)[i] = make_uint4(0, 0, 0, 0);
+  fence_async_shared();
+  __syncthreads();
+
+  Producer<C, TPW> prod{{wfull, wempty, P::RING, 0, 0}, wbase, (int)blockIdx.x, 0, 0, 0, 0, 0};
+  Ring wring{wfull, wempty, P::RING, 0, 0};
+  int group = 0;                                  // weight groups taken so far
+
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int n = it / tiles, t0 = (it % tiles) * P::M_OUT;
+    const int f_lo = t0 - OP_HALO;                  // frame of window row 0
+    const __nv_bfloat16* xn = a.x + (size_t)n * C * a.T;
+
+#pragma unroll 1
+    for (int b = 0; b < NBR; ++b) {
+      const Branch br = branch_of(a, b);
+      const int k = br.k, p = br.p;
+      // y = x and X = bf16(lrelu(x)) over the window, zero outside [0, T):
+      // each thread 8 frames of one channel at a time, every load first
+      constexpr int XITER = C * (P::W / 8) / OP_THREADS;
+      uint4 raw[XITER];
+#pragma unroll
+      for (int n8 = 0; n8 < XITER; ++n8) {
+        const int e = tid + n8 * OP_THREADS;
+        const int c = e % C, f0 = f_lo + (e / C) * 8;
+        const unsigned short* src =
+            reinterpret_cast<const unsigned short*>(xn) + (size_t)c * a.T + f0;
+        if (f0 >= 0 && f0 + 8 <= a.T && (a.T & 7) == 0) {
+          raw[n8] = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          uint32_t v[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] = f0 + i >= 0 && f0 + i < a.T ? __ldg(src + i) : 0u;
+          raw[n8] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                               v[6] | v[7] << 16);
+        }
+      }
+#pragma unroll
+      for (int n8 = 0; n8 < XITER; ++n8) {
+        const int e = tid + n8 * OP_THREADS;
+        const int c = e % C, u0 = (e / C) * 8;
+        const uint32_t words[4] = {raw[n8].x, raw[n8].y, raw[n8].z, raw[n8].w};
+        float* yrow = ys + ((size_t)(c >> 3) * P::W + u0) * 8 + (c & 7);
+        __nv_bfloat16* xrow = reinterpret_cast<__nv_bfloat16*>(
+            xwin + (c >> 3) * P::A_LBO + (OP_MARGIN + u0) * 16) + (c & 7);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // two bf16 frames a word: bf16 -> fp32 is a 16-bit shift
+          const float lo = __uint_as_float(words[i] << 16);
+          const float hi = __uint_as_float(words[i] & 0xffff0000u);
+          yrow[16 * i] = lo;
+          yrow[16 * i + 8] = hi;
+          xrow[16 * i] = __float2bfloat16(lrelu(lo));
+          xrow[16 * i + 8] = __float2bfloat16(lrelu(hi));
+        }
+      }
+      fence_async_shared();
+      __syncthreads();
+
+      // ext: the conv's one-sided reach past the output frames that the
+      // convs after it need (its output rows are [64 - ext, 64 + M_OUT + ext))
+      int ext = p * (3 + br.d1 + br.d2);
+#pragma unroll 1
+      for (int conv = 0; conv < 2 * NDIL; ++conv) {
+        const bool first = conv % 2 == 0, last = conv == 2 * NDIL - 1;
+        const int dil = !first ? 1 : conv == 0 ? br.d0 : conv == 2 ? br.d1 : br.d2;
+        // the conv's nt 64-row tiles from window row lo: as few as cover its
+        // rows, centred on them (0, 1 or 2 tiles past the output's)
+        const int c2 = (2 * ext + 63) >> 6;
+        const int nt = P::M_OUT / 64 + c2, lo = OP_HALO - 32 * c2;
+        const uint32_t in = first ? xbase : hbase;
+        float acc[TPW][P::ACC];
+#pragma unroll
+        for (int s = 0; s < TPW; ++s)
+#pragma unroll
+          for (int e = 0; e < P::ACC; ++e) acc[s][e] = 0.f;
+
+        const float* bias = a.bias + (size_t)(2 * NDIL * b + conv) * C;
+        float2 bv[C / 8];
+#pragma unroll
+        for (int g = 0; g < C / 8; ++g)
+          bv[g] = __ldg(reinterpret_cast<const float2*>(bias + 8 * g + 2 * q));
+#pragma unroll 1
+        for (int c = 0; c < P::CHUNKS; ++c)
+#pragma unroll 1
+          for (int j0 = 0; j0 < k; j0 += GROUP_MAX) {
+            const int jn = k - j0 < GROUP_MAX ? k - j0 : GROUP_MAX;
+            const bool final_group = c == P::CHUNKS - 1 && j0 + GROUP_MAX >= k;
+            // group `group` must be in flight; keep up to RING - 2 more
+            // ahead where their slots are free already
+            if (warp == 0) prod.issue(a, items, group + 1, group + P::RING - 1, lane);
+            wring.acquire();
+            const uint32_t wb = wbase + wring.slot * P::SLOT;
+            float t[TPW][P::ACC];
+            wg_fence();
+#pragma unroll
+            for (int s = 0; s < TPW; ++s) {
+              const int i = 2 * s + wg;
+              if (i >= nt) continue;
+              reg_fence(t[s]);
+#pragma unroll 1
+              for (int j = j0; j < j0 + jn; ++j) {
+                const uint32_t xa = in + (uint32_t)(OP_MARGIN + lo + 64 * i + (j - p) * dil) * 16 +
+                                    (uint32_t)(c * (P::KCP / 8)) * P::A_LBO;
+                const uint32_t wj = wb + (j - j0) * P::PLANE;
+#pragma unroll
+                for (int ks = 0; ks < P::KS; ++ks)
+                  Wgmma<C>::bf16(t[s], desc_of(xa + ks * 2 * P::A_LBO, P::A_LBO),
+                                 desc_of(wj + ks * 2 * P::B_LBO, P::B_LBO), j > j0 || ks > 0);
+              }
+            }
+            wg_commit();
+            wg_wait0();
+#pragma unroll
+            for (int s = 0; s < TPW; ++s) {
+              const int i = 2 * s + wg;
+              if (i >= nt) continue;
+              reg_fence(t[s]);
+#pragma unroll
+              for (int e = 0; e < P::ACC; ++e) acc[s][e] += t[s][e];
+              if (!final_group) continue;
+
+              // the tile's epilogue after the conv's last group: rows are
+              // window rows, columns output channels. Every load first (a
+              // store may alias a later load, so the compiler would keep them
+              // in program order)
+              float2 yo[C / 8][2], so[C / 8][2];
+#pragma unroll
+              for (int g = 0; g < C / 8; ++g) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  yo[g][h] = first ? make_float2(0.f, 0.f)
+                                   : *reinterpret_cast<const float2*>(
+                                         ys + ((size_t)g * P::W + lo + 64 * i + r + 8 * h) * 8 + 2 * q);
+                  so[g][h] = make_float2(0.f, 0.f);
+                  if (last && b > 0)
+                    so[g][h] = *reinterpret_cast<const float2*>(
+                        sums + ((size_t)g * P::M_OUT + 64 * i + r + 8 * h) * 8 + 2 * q);
+                }
+              }
+#pragma unroll
+              for (int g = 0; g < C / 8; ++g)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int u = lo + 64 * i + r + 8 * h, f = f_lo + u;
+                  const bool valid = f >= 0 && f < a.T;
+                  // the conv's output, + bias, zero outside [0, T)
+                  const float v0 = valid ? acc[s][4 * g + 2 * h] + bv[g].x : 0.f;
+                  const float v1 = valid ? acc[s][4 * g + 2 * h + 1] + bv[g].y : 0.f;
+                  const uint32_t at = g * P::A_LBO + (OP_MARGIN + u) * 16 + q * 4;
+                  if (first) {
+                    *reinterpret_cast<__nv_bfloat162*>(hwin + at) =
+                        __floats2bfloat162_rn(lrelu(v0), lrelu(v1));
+                    continue;
+                  }
+                  const float2 yn = make_float2(yo[g][h].x + v0, yo[g][h].y + v1);
+                  if (!last) {
+                    *reinterpret_cast<float2*>(ys + ((size_t)g * P::W + u) * 8 + 2 * q) = yn;
+                    *reinterpret_cast<__nv_bfloat162*>(xwin + at) =
+                        __floats2bfloat162_rn(lrelu(yn.x), lrelu(yn.y));
+                    continue;
+                  }
+                  // the branch's last conv computes the output tiles alone
+                  float2 sn = make_float2(so[g][h].x + yn.x, so[g][h].y + yn.y);
+                  if (b == 0) sn = yn;
+                  if (b == NBR - 1) sn = make_float2(sn.x / 3.f, sn.y / 3.f);
+                  *reinterpret_cast<float2*>(
+                      sums + ((size_t)g * P::M_OUT + 64 * i + r + 8 * h) * 8 + 2 * q) = sn;
+                }
+                        }
+            wring.release();
+            ++group;
+          }
+        if (!last) fence_async_shared();
+        __syncthreads();
+        ext -= first ? p : p * (conv == 1 ? br.d1 : br.d2);
+      }
+    }
+
+    // the output, rounded to bf16 once, from the branch sum to (B, C, T)
+    __nv_bfloat16* yn = a.y + (size_t)n * C * a.T;
+    for (int e = tid; e < C * (P::M_OUT / 8); e += OP_THREADS) {
+      const int c = e / (P::M_OUT / 8), m0 = (e % (P::M_OUT / 8)) * 8, f0 = t0 + m0;
+      if (f0 >= a.T) continue;
+      const float* src = sums + ((size_t)(c >> 3) * P::M_OUT + m0) * 8 + (c & 7);
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(src[16 * i], src[16 * i + 8]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+      if (f0 + 8 <= a.T && (a.T & 7) == 0) {
+        *reinterpret_cast<uint4*>(yn + (size_t)c * a.T + f0) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        for (int i = 0; i < 8 && f0 + i < a.T; ++i)
+          yn[(size_t)c * a.T + f0 + i] = __float2bfloat16(src[8 * i]);
+      }
+    }
+  }
+}
+
+template <int C, int TPW>
+cudaError_t run_onepass(const OnePassArgs& a, cudaStream_t stream) {
+  using P = OnePass<C, TPW>;
+  auto kernel = mrf_onepass_kernel<C, TPW>;
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int items = a.batch * ((a.T + P::M_OUT - 1) / P::M_OUT);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<items < sms ? items : sms, OP_THREADS, P::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16 (x, y and
@@ -829,4 +1252,42 @@ extern "C" int mrf_stage_fwd(const void* x, void* y, void* scratch, const void* 
   if (dtype == 0) return (int)run_stage<float>(s, st);
   if (dtype == 1) return (int)run_stage<__nv_bfloat16>(s, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the one-pass design (bf16 only): x, y (B, C, T)
+// bf16, `w0`..`w2` the branches' bf16 streams from
+// ops/mrf.py::pack_mrf_kernel_weights, biases (18 x C) fp32; no scratch. C in
+// {8, 16, 32, 64}, odd kernel sizes up to 11, dilations >= 1, the stage's
+// reach at most 64 frames and no conv's at most 32 (ops/mrf.py::mrf_route).
+// Returns a cudaError_t (0 = launched).
+extern "C" int mrf_stage_onepass_fwd(const void* x, void* y, const void* w0, const void* w1,
+                                     const void* w2, const void* bias, int batch, int C, int T,
+                                     int k0, int k1, int k2, int d00, int d01, int d02, int d10,
+                                     int d11, int d12, int d20, int d21, int d22, void* stream) {
+  const OnePassArgs a{static_cast<const __nv_bfloat16*>(x),
+                      static_cast<__nv_bfloat16*>(y),
+                      {static_cast<const __nv_bfloat16*>(w0), static_cast<const __nv_bfloat16*>(w1),
+                       static_cast<const __nv_bfloat16*>(w2)},
+                      static_cast<const float*>(bias),
+                      batch, T, {k0, k1, k2},
+                      {{d00, d01, d02}, {d10, d11, d12}, {d20, d21, d22}}};
+  if (batch <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < NBR; ++b) {
+    const int k = a.k[b], p = (k - 1) / 2;
+    if (k < 1 || k > KMAX || k % 2 == 0) return (int)cudaErrorInvalidValue;
+    int reach = 3 * p;
+    for (int i = 0; i < NDIL; ++i) {
+      if (a.d[b][i] < 1 || p * a.d[b][i] > OP_MARGIN) return (int)cudaErrorInvalidValue;
+      reach += p * a.d[b][i];
+    }
+    if (reach > OP_HALO) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 8: return (int)run_onepass<8, 8>(a, st);
+    case 16: return (int)run_onepass<16, 8>(a, st);
+    case 32: return (int)run_onepass<32, 4>(a, st);
+    case 64: return (int)run_onepass<64, 2>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

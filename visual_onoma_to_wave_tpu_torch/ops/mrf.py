@@ -29,19 +29,24 @@ graph instead, so an exported program holds each weight once.
 
 `mrf_stage_fused` calls the custom op `votw::mrf_stage_fused`
 (`torch.library`, registered when this module is imported): its CUDA
-implementation launches the kernel (`csrc/mrf.cu`, built at first use by
-`ops/cuda_build.py`), its CPU implementation is `mrf_stage_fused_reference`,
-and its fake implementation states the output's shape, so `torch.export`
-records the op by name. It never falls back: any other device, a
-CUDA tensor the kernel does not take (C outside 8/16/32/64/128/256/512,
-other than three branches of three dilations, an even kernel size or one
-above 11, a stage reaching further than `HALO` frames), a failed build, a
-refused launch or a call that would need a gradient raises. Any T is
-taken: the TPU kernel's t_tile % 128 and C-per-sublane rules are tiling
-rules of the TPU. `mrf_stage_fused.launches` counts the stages run on the
-card: one per call, which enqueues the kernel's 8 launches of one stage.
+implementation launches one of the two designs of `csrc/mrf.cu` (built at
+first use by `ops/cuda_build.py`), its CPU implementation is
+`mrf_stage_fused_reference`, and its fake implementation states the
+output's shape, so `torch.export` records the op by name. `mrf_route` picks
+the design: bf16 at C 8-32 takes the one-pass kernel (one launch a stage,
+every conv of a frame tile on chip, no scratch; `mrf_stage_onepass`), every
+other call the conv chain (8 launches a stage through 7 fp32 scratch
+planes). It never falls back: any other device, a CUDA tensor the kernel
+does not take (C outside 8/16/32/64/128/256/512, other than three branches
+of three dilations, an even kernel size or one above 11, a stage reaching
+further than `HALO` frames), a failed build, a refused launch or a call
+that would need a gradient raises. Any T is taken: the TPU kernel's t_tile
+% 128 and C-per-sublane rules are tiling rules of the TPU.
+`mrf_stage_fused.launches` counts the stages the conv chain ran on the card
+(one per call, which enqueues its 8 launches), `mrf_stage_onepass.launches`
+those of the one-pass kernel.
 
-What bounds the kernel on the card, and its design, is written in
+What bounds the kernels on the card, and their designs, is written in
 `csrc/mrf.cu`.
 """
 from __future__ import annotations
@@ -71,6 +76,15 @@ _MAX_K = 11
 _NT_MAX = 128
 _KC_MAX = {torch.float32: 16, torch.bfloat16: 32}
 _KSTEP = {torch.float32: 8, torch.bfloat16: 16}
+# the one-pass design: the widths it is built for, those `mrf_route` sends to
+# it (at C 64 the conv chain runs faster on an H100; chip_smoke phase 8 times
+# both there), output frames a tile (each window adds _ONEPASS_HALO frames on
+# both sides), and the reach it takes: of the stage, and of any one conv (the
+# margin rows around its windows)
+ONEPASS_KERNEL_WIDTHS = (8, 16, 32, 64)
+ONEPASS_WIDTHS = (8, 16, 32)
+_ONEPASS_TILE = {8: 896, 16: 896, 32: 384, 64: 128}
+_ONEPASS_HALO, _ONEPASS_REACH = 64, 32
 
 
 def stage_halo(kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> int:
@@ -111,6 +125,32 @@ def tile_frames(C: int) -> int:
     """Frames of one tile of `csrc/mrf.cu` at width C: 128 * MB, MB = 1 (C >=
     128), 2 (C 64), 4 (C <= 32), each consumer warpgroup 64 * MB frames."""
     return 128 * (1 if C >= 128 else 2 if C == 64 else 4)
+
+
+def onepass_tile_frames(C: int) -> int:
+    """Output frames of one tile of the one-pass kernel at width C (its
+    window is 64 frames more on each side, in 64-row wgmma tiles)."""
+    return _ONEPASS_TILE[C]
+
+
+def onepass_takes(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES,
+                  dilations=DILATIONS) -> bool:
+    """Whether the one-pass kernel is built for the stage: bf16 at C 8-64,
+    the stage reaching at most 64 frames and no conv further than 32 (every
+    HiFi-GAN / iSTFTNet stage: 60 and 25)."""
+    reach = max(((k - 1) // 2 * d for k, ds in zip(kernel_sizes, dilations) for d in ds),
+                default=0)
+    return dtype == torch.bfloat16 and C in ONEPASS_KERNEL_WIDTHS and \
+        reach <= _ONEPASS_REACH and stage_halo(kernel_sizes, dilations) <= _ONEPASS_HALO
+
+
+def mrf_route(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES,
+              dilations=DILATIONS) -> str:
+    """The design of `csrc/mrf.cu` a CUDA call takes: "onepass" where the
+    one-pass kernel takes the stage and C is 8, 16 or 32, else "chain"."""
+    if C in ONEPASS_WIDTHS and onepass_takes(C, dtype, kernel_sizes, dilations):
+        return "onepass"
+    return "chain"
 
 
 def pack_mrf_kernel_weights(mats, dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
@@ -224,9 +264,11 @@ def _checked(x, mats, biases, kernel_sizes, dilations, dtype, packed=None) -> No
 
 
 def _load_library() -> ctypes.CDLL:
-    # 7 pointers; batch, C, T, 3 kernel sizes, 9 dilations, dtype; stream
+    # chain: 7 pointers; batch, C, T, 3 kernel sizes, 9 dilations, dtype;
+    # stream. One pass: 6 pointers; the same ints but the dtype; stream
     return load_library("mrf", {
-        "mrf_stage_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]})
+        "mrf_stage_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+        "mrf_stage_onepass_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]})
 
 
 def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
@@ -283,24 +325,34 @@ def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
 
 @_mrf_stage_op.register_kernel("cuda")
 def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
-    """The kernel's launch (its 8 launches of one stage), with every check
-    it needs."""
+    """The stage on the card, by `mrf_route`: the one-pass kernel or the
+    conv chain, with every check they need."""
     dtype = dtype or x.dtype
     kernel_sizes, dilations = _nested(kernel_sizes, dilations)
     packed = packed or None
     _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype, packed)
     if packed is None:
         packed = pack_mrf_kernel_weights((w3, w7, w11), dtype)
-    B, C, T = x.shape
     xk = x.to(dtype).contiguous()
     bias = biases.float().contiguous()
-    out = torch.empty(B, C, T, dtype=dtype, device=x.device)
+    if mrf_route(x.shape[1], dtype, kernel_sizes, dilations) == "onepass":
+        return mrf_stage_onepass(xk, packed, bias, kernel_sizes, dilations)
+    return _mrf_stage_chain(xk, packed, bias, kernel_sizes, dilations)
+
+
+def _mrf_stage_chain(xk, packed, bias, kernel_sizes, dilations):
+    """The conv chain's 8 launches of one stage on checked operands: `xk`
+    (B, C, T) in the operand type, its `pack_mrf_kernel_weights` stream, the
+    biases fp32."""
+    B, C, T = xk.shape
+    dtype = xk.dtype
+    out = torch.empty(B, C, T, dtype=dtype, device=xk.device)
     # x channels-last, then per branch its residual stream y_b and its conv1
     # output h_b, all (B, T, C) fp32
-    scratch = torch.empty(7, B, T, C, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(7, B, T, C, dtype=torch.float32, device=xk.device)
     lib = _load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(xk.device):
+        stream = torch.cuda.current_stream(xk.device).cuda_stream
         err = lib.mrf_stage_fwd(
             xk.data_ptr(), out.data_ptr(), scratch.data_ptr(), *(p.data_ptr() for p in packed),
             bias.data_ptr(), B, C, T, *kernel_sizes, *(d for ds in dilations for d in ds),
@@ -308,6 +360,58 @@ def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, pack
     check_launch("mrf_stage", err)
     mrf_stage_fused.launches += 1
     return out
+
+
+def mrf_stage_onepass(x: torch.Tensor, packed: list[torch.Tensor], biases: torch.Tensor,
+                      kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> torch.Tensor:
+    """The one-pass kernel's launch: x (B, C, T) bf16 contiguous on the card,
+    `packed` its bf16 `pack_mrf_kernel_weights` stream, biases fp32 (18 *
+    C); returns (B, C, T) bf16. Raises on anything the kernel does not take
+    (`onepass_takes`). `mrf_stage_fused` reaches it through the custom op
+    where `mrf_route` sends the stage here; chip_smoke also times it at C 64
+    beside the conv chain."""
+    kernel_sizes = tuple(int(k) for k in kernel_sizes)
+    dilations = tuple(tuple(int(d) for d in ds) for ds in dilations)
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"mrf_stage_onepass takes contiguous bf16 (B, C, T); got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    B, C, T = x.shape
+    if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or \
+            len(dilations) != 3 or any(k % 2 == 0 or not 1 <= k <= _MAX_K for k in kernel_sizes) \
+            or any(d < 1 for ds in dilations for d in ds):
+        raise ValueError(f"mrf_stage_onepass takes three branches of three dilations >= 1 and "
+                         f"odd kernel sizes up to {_MAX_K}; got {kernel_sizes}, {dilations}")
+    if not onepass_takes(C, x.dtype, kernel_sizes, dilations):
+        raise ValueError(f"mrf_stage_onepass takes bf16 at C in {ONEPASS_KERNEL_WIDTHS} within a "
+                         f"stage reach of {_ONEPASS_HALO} frames and a conv reach of "
+                         f"{_ONEPASS_REACH}; got C {C}, kernel_sizes {kernel_sizes}, "
+                         f"dilations {dilations}")
+    if len(packed) != 3 or any(
+            p.dtype != x.dtype or p.numel() != kernel_weights_numel(C, k, x.dtype) or
+            p.device != x.device or not p.is_contiguous() for p, k in zip(packed, kernel_sizes)):
+        raise ValueError("mrf_stage_onepass: packed weights do not fit "
+                         "(pack_mrf_kernel_weights in bf16, three branches)")
+    if biases.dtype != torch.float32 or biases.numel() != 18 * C or \
+            biases.device != x.device or not biases.is_contiguous():
+        raise ValueError(f"mrf_stage_onepass: biases {tuple(biases.shape)} {biases.dtype} do "
+                         f"not fit (18, {C}, 1) fp32")
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage_onepass: unsupported device {x.device}")
+    if x.data_ptr() % 16:
+        x = x.clone()       # the kernel's 16-byte loads
+    out = torch.empty_like(x)
+    lib = _load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mrf_stage_onepass_fwd(
+            x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in packed), biases.data_ptr(),
+            B, C, T, *kernel_sizes, *(d for ds in dilations for d in ds), stream)
+    check_launch("mrf_stage_onepass", err)
+    mrf_stage_onepass.launches += 1
+    return out
+
+
+mrf_stage_onepass.launches = 0
 
 
 class MRFStages:
