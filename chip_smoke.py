@@ -56,21 +56,24 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      (with the frame sums) ms at one 64-clip batch of the largest bucket,
      beside the bound at each operation's own rate (float64 for the FFT and
      each bin's power) and at the fp32 rate;
-  8. mrf: ptxas's registers and spills of each one-pass instantiation;
-     holds the fused MRF stage kernel against its plain version (the
-     cuDNN 18-conv chain, also the library yardstick) over fp32 / bf16, C 8 /
-     16 / 32 / 64 / 128 / 256 / 512, T 20 (inside the 60-frame halo), one
-     frame either side of the conv chain's time tile and on it (and at bf16
-     C <= 64, which takes the one-pass kernel, of its frame tile), and 1000,
-     B 1 / 4, the worst bf16 error printed per width, the one-pass output
-     beside the conv chain's on the same operands; times the kernel (fp32
-     and bf16, weights packed once), the plain version in fp32 and bf16, the
-     bf16 `ResBlock1` modules (`library_bf16`) and, at C <= 64, the bf16
-     conv chain, at the served stage shapes of iSTFTNet (C 512 x T 1000, 256 x
-     8000, 128 x 64000) and of HiFi-GAN V1 (256 x 8000, 128 x 64000, 64 x
-     128000, 32 x 256000), B 16, beside the fp32 CUDA-core, 3xTF32 and bf16
-     tensor-core bounds and the bytes and work each design's structure
-     moves and does;
+  8. mrf: ptxas's registers and spills of each one-pass and unit-design
+     instantiation; holds the fused MRF stage kernel against its plain
+     version (the cuDNN 18-conv chain, also the library yardstick) over fp32
+     / bf16, C 8 / 16 / 32 / 64 / 128 / 256 / 512, T 20 (inside the 60-frame
+     halo), one frame either side of the conv chain's time tile and on it
+     (and of the one-pass kernel's frame tile at C <= 64 and the unit
+     design's at C 64-256), and 1000, B 1 / 4, each call counted on the
+     design `mrf_route` gives its shape; in bf16 every design built for the
+     width (the one-pass kernel at C <= 64, the unit design at C 64-256) on
+     the same operands under the same bound, the worst error printed per
+     width and the largest gap to the conv chain's output; times the kernel
+     (fp32 and bf16, weights packed once), the plain version in fp32 and
+     bf16, the bf16 `ResBlock1` modules (`library_bf16`) and every bf16
+     design built for the width, at the served stage shapes of iSTFTNet (C
+     512 x T 1000, 256 x 8000, 128 x 64000) and of HiFi-GAN V1 (256 x 8000,
+     128 x 64000, 64 x 128000, 32 x 256000), B 16, beside the fp32
+     CUDA-core, 3xTF32 and bf16 tensor-core bounds and the bytes and work
+     each design's structure moves and does;
   9. istftnet golden: phase 3 with the demo iSTFTNet-mel
      (`config_istftnet.json`, `vocoder_istftnet_mel.npz`) against
      `golden_istftnet.npz`, one MRF launch per call;
@@ -165,8 +168,9 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
   20. bf16: phase 4's acoustic model as `train.compute_dtype: bfloat16`
      builds it, with bf16 HiFi-GAN V1, iSTFTNet-mel and mel-Vocos
      (`get_vocoder(..., dtype=torch.bfloat16)`), the same weights, at phase
-     4's batch: B1 10, B2 4 (HiFi-GAN V1: 2 conv chain at C 256 / 128, 2
-     one-pass at C 64 / 32) / 1 and B4 8 launches a call, every kernel's
+     4's batch: B1 10, B2 4 (HiFi-GAN V1: the conv chain at C 256 / 128,
+     the unit design at C 64, the one-pass kernel at C 32, by `mrf_route`
+     on each stage's shape) / 1 and B4 8 launches a call, every kernel's
      operands bf16; each path against the same bf16 path with the plain
      versions on the card and against fp32 (the bounds above
      `BF16_VS_PLAIN_OF_SCALE`), the mel's reading beside plain bf16 against
@@ -196,8 +200,10 @@ The line before the last is the kernels' JSON record (each kernel's
 launches on its main path, its error against the plain version, kernel,
 plain and library ms and the card's bound at the timed shape, and the bf16
 launches of phase 20 as `launches_bf16`; the MRF stage's one-pass kernel,
-`mrf_stage_onepass`, with its launches in phase 20's bf16 HiFi-GAN V1 and
-its numbers at C 32 x T 256000 beside the conv chain's; for the
+`mrf_stage_onepass`, and its unit design, `mrf_stage_unit`, each with its
+launches in phase 20's bf16 HiFi-GAN V1 and its numbers at its served
+shape (C 32 x T 256000, C 64 x T 128000) beside the conv chain's, the unit
+design also at C 128 and 256 where the route keeps the chain; for the
 attention, ConvNeXt and MRF kernels the bound is that of the tensor cores,
 fp32 as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside
 it, and for attention the same numbers under the served mask; for the mel
@@ -340,11 +346,17 @@ def _wrappers() -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
     from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused, mrf_stage_onepass
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import (
+        mrf_stage_fused, mrf_stage_onepass, mrf_stage_unit)
 
     return {"flash_mha": attention_core, "convnext_block": convnext_block,
             "convnext_trunk": convnext_trunk, "mel_frontend": mel_frontend,
-            "mrf_stage": mrf_stage_fused, "mrf_stage_onepass": mrf_stage_onepass}
+            "mrf_stage": mrf_stage_fused, "mrf_stage_onepass": mrf_stage_onepass,
+            "mrf_stage_unit": mrf_stage_unit}
+
+
+# the record name of each design `ops/mrf.py::mrf_route` picks
+MRF_RECORD = {"chain": "mrf_stage", "onepass": "mrf_stage_onepass", "unit": "mrf_stage_unit"}
 
 
 def zero_launch_counts() -> None:
@@ -736,30 +748,38 @@ def convnext_blocks(gen) -> int:
     return len(getattr(gen, "blocks", ()))
 
 
-def mrf_stages(gen) -> dict:
+def mrf_stages(gen, mel: tuple[int, int] | None = None) -> dict:
     """Fused MRF stage launches per vocoder call: one per ResBlock1 stage of
     iSTFTNet and HiFi-GAN V1 / V2 (the generators that keep an `MRFStages`),
-    by the design `ops/mrf.py::mrf_route` gives the stage's width and the
-    generator's dtype: the conv chain ("mrf_stage") or the one-pass kernel
-    ("mrf_stage_onepass")."""
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_route
+    by the design `ops/mrf.py::mrf_route` gives the stage: the conv chain
+    ("mrf_stage"), the one-pass kernel ("mrf_stage_onepass") or the unit
+    design ("mrf_stage_unit"). `mel`: the (batch, frames) of the mel the
+    generator is fed, for the route's size rule (each stage's frames the
+    mel's times the upsampling before it; held against the card's SMs, or an
+    H100's without a card); without it the width decides alone."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import SMS, mrf_route, sm_count
 
-    counts = {"mrf_stage": 0, "mrf_stage_onepass": 0}
+    counts = {name: 0 for name in MRF_RECORD.values()}
     stages = getattr(gen, "_mrf", None)
     if stages is not None:
         n = gen.num_kernels
+        sms = sm_count(torch.device("cuda", 0)) if torch.cuda.is_available() else SMS
         for i in range(len(gen.resblocks) // n):
             C = gen.resblocks[i * n].convs1[0].out_channels
-            route = mrf_route(C, gen.dtype, stages.kernel_sizes, stages.dilations)
-            counts["mrf_stage_onepass" if route == "onepass" else "mrf_stage"] += 1
+            batch, frames = (None, None) if mel is None else \
+                (mel[0], mel[1] * int(np.prod(gen.upsample_rates[:i + 1], dtype=np.int64)))
+            route = mrf_route(C, gen.dtype, stages.kernel_sizes, stages.dilations, batch, frames,
+                              sms)
+            counts[MRF_RECORD[route]] += 1
     return counts
 
 
-def per_call_launches(model, gen) -> dict:
-    """Kernel launches of one fused acoustic + vocoder call."""
+def per_call_launches(model, gen, mel: tuple[int, int] | None = None) -> dict:
+    """Kernel launches of one fused acoustic + vocoder call (`mel`: the
+    (batch, frames) of the mel the vocoder is fed, see `mrf_stages`)."""
     return {"flash_mha": len(model.encoder.layer_stack) + len(model.decoder.layer_stack),
             "convnext_block": convnext_blocks(gen), "convnext_trunk": 0,
-            **mrf_stages(gen)}
+            **mrf_stages(gen, mel)}
 
 
 def phase_golden(dev, phase: str = "3 golden", config: str = "config.json",
@@ -1461,12 +1481,16 @@ MRF_SHAPES = {"istftnet_melrate": (512, 1000), "c8c8i_1 / hifigan_1": (256, 8000
 
 def mrf_parity_t(C: int) -> tuple[int, ...]:
     """T of the parity cases at width C: shorter than the stage's 60-frame
-    halo, around the conv chain's time tile and, at C <= 64, around the
-    one-pass kernel's frame tile, and the served max_mel_len."""
+    halo, around the conv chain's time tile and, where they are built,
+    around the one-pass kernel's and the unit design's frame tiles, and the
+    served max_mel_len."""
     from visual_onoma_to_wave_tpu_torch.ops.mrf import (
-        ONEPASS_WIDTHS, onepass_tile_frames, tile_frames)
+        ONEPASS_KERNEL_WIDTHS, UNIT_KERNEL_WIDTHS, onepass_tile_frames, tile_frames,
+        unit_tile_frames)
 
-    tiles = [tile_frames(C)] + ([onepass_tile_frames(C)] if C in ONEPASS_WIDTHS else [])
+    tiles = [tile_frames(C)] + \
+        ([onepass_tile_frames(C)] if C in ONEPASS_KERNEL_WIDTHS else []) + \
+        ([unit_tile_frames(C)] if C in UNIT_KERNEL_WIDTHS else [])
     return tuple(sorted({20, MAX_MEL, *(t + i for t in tiles for i in (-1, 0, 1))}))
 
 
@@ -1540,6 +1564,37 @@ def mrf_onepass_design(B_: int, C_: int, T_: int) -> dict:
             "tensor_ms_at_peak": ops / PEAK_BF16_FLOPS * 1e3}
 
 
+def mrf_unit_design(B_: int, C_: int, T_: int) -> dict:
+    """What the unit design's structure moves and computes a stage
+    (csrc/mrf.cu, "one launch per residual unit"): device memory, in fp32
+    planes of (B, T, C), x (bf16) read once, each unit's three residual
+    streams written and read by the next, the average's reads and the output;
+    from L2 each tile's X window (its frames and 64 more on each side, fp32)
+    and conv2's residual, and per pass all of a conv's taps for the pass's
+    channels; on the tensor cores the 64-row tiles each pass computes (a
+    warpgroup's idle tiles not counted)."""
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import unit_tile_frames
+
+    m = unit_tile_frames(C_)
+    n1, n2 = m // 64 + 1, m // 64
+    nt, mb, cols = (128, 1, False) if C_ == 128 else (64, 2, C_ == 256)
+    ns = min(C_, 128)
+    rows_a_pass = mb * (1 if cols else 2)                 # 64-row tiles a pass
+    tiles = B_ * -(-T_ // m)
+    plane = B_ * T_ * C_ * 4
+    dram = 0.5 * plane + 3 * 3 * plane + 2 * 3 * plane + 3 * plane + 0.5 * plane
+    passes = (C_ // ns) * (-(-n1 // rows_a_pass) + -(-n2 // rows_a_pass))
+    weights = 3 * tiles * sum(passes * (C_ // 32) * k * ns * 32 * 2 for k in (3, 7, 11))
+    rows = (n1 + n2) * 64                                 # rows both convs compute a tile
+    ops = 2.0 * 3 * tiles * rows * C_ * C_ * 21
+    return {"tile_frames": m, "dram_bytes": dram, "dram_planes": dram / plane,
+            "dram_ms_at_peak": dram / PEAK_BYTES_PER_S * 1e3,
+            "l2_window_bytes": 3 * 3 * tiles * (m + 128) * C_ * 4,
+            "l2_weight_bytes": weights, "passes_a_unit": passes, "wgmma_n": nt,
+            "tensor_ops_with_halo": ops, "halo_factor": ops / (252.0 * C_ * C_ * B_ * T_),
+            "tensor_ms_at_peak": ops / PEAK_BF16_FLOPS * 1e3}
+
+
 def mrf_library_bf16(mats, bias, dev):
     """The bf16 cuDNN chain `MRFStages` runs on `ResBlock1` modules in bf16
     (JAX hifigan.py:36-67: every conv output rounded to bf16, the residual
@@ -1566,44 +1621,52 @@ def mrf_library_bf16(mats, bias, dev):
 
 def mrf_ptxas_report() -> dict:
     """Registers, stack and spills of each one-pass instantiation
-    (`mrf_onepass_kernel<C, TPW>`) in the built MRF library's ptxas.log."""
+    (`mrf_onepass_kernel<C, TPW>`) and each unit-design instantiation
+    (`mrf_unit_kernel<C>`) in the built MRF library's ptxas.log."""
     import re
 
     from visual_onoma_to_wave_tpu_torch.ops.cuda_build import library_path
 
-    report, key = {}, None
+    report, key = {"onepass": {}, "unit": {}}, None
     for line in (library_path("mrf").parent / "ptxas.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"mrf_onepass_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            key = f"C{k.group(1)}" if k else None
+            k = re.search(r"mrf_(onepass|unit)_kernelILi(\d+)E", m.group(1))
+            key = (k.group(1), f"C{k.group(2)}") if k else None
             continue
         if key is None:
             continue
+        entry = report[key[0]].setdefault(key[1], {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            report.setdefault(key, {}).update(
-                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            report.setdefault(key, {})["registers"] = int(m.group(1))
+            entry["registers"] = int(m.group(1))
     return report
 
 
 def phase_mrf(dev, card: str) -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.mrf import (
-        _mrf_stage_chain, mrf_route, mrf_stage_fused, mrf_stage_fused_reference,
-        mrf_stage_onepass, onepass_takes, pack_mrf_kernel_weights)
+        UNIT_KERNEL_WIDTHS, _mrf_stage_chain, mrf_route, mrf_stage_fused,
+        mrf_stage_fused_reference, mrf_stage_onepass, mrf_stage_unit, onepass_takes,
+        pack_mrf_kernel_weights, sm_count, unit_takes)
 
     phase = "8 mrf"
-    say(phase + " ptxas", card=card, onepass=mrf_ptxas_report())
+    ptxas = mrf_ptxas_report()
+    say(phase + " ptxas", card=card, **ptxas)
+    sms = sm_count(dev)
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
     gen = torch.Generator(device=dev).manual_seed(8)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}    # of max |plain|
-    worst_by_width = {}                                  # bf16, of max |plain|
+    worst_by_width = {}                                  # bf16 routed, of max |plain|
     worst_abs = 0.0                                      # fp32, absolute
-    onepass_vs_chain = 0.0                               # bf16 C <= 64, absolute
-    onepass_by_width = {}                                # bf16 C <= 64, of max |plain|
+    # bf16, each tile design on every case it is built for: of max |plain|
+    # by width, and its largest absolute gap to the chain
+    design_err = {"onepass": {}, "unit": {}}
+    design_vs_chain = {"onepass": 0.0, "unit": 0.0}
     cases = 0
     for C in MRF_WIDTHS:
         mats, bias = mrf_weights(C, gen, dev)
@@ -1611,7 +1674,11 @@ def phase_mrf(dev, card: str) -> dict:
             for Bc in (1, 4):
                 x = torch.randn(Bc, C, T, generator=gen, device=dev)
                 for dtype in (torch.float32, torch.bfloat16):
+                    before = launch_counts()
                     out = mrf_stage_fused(x, *mats, bias, dtype=dtype)
+                    route = mrf_route(C, dtype, ks, ds, Bc, T, sms)
+                    expect_launches(f"{phase} route B={Bc} C={C} T={T} {dtype}", launch_counts(),
+                                    {k: n + (k == MRF_RECORD[route]) for k, n in before.items()})
                     ref = mrf_stage_fused_reference(x, *mats, bias, dtype=dtype)
                     torch.cuda.synchronize()
                     scale = ref.float().abs().max().item()
@@ -1624,34 +1691,39 @@ def phase_mrf(dev, card: str) -> dict:
                     worst[dtype] = max(worst[dtype], err / scale)
                     if dtype == torch.float32:
                         worst_abs = max(worst_abs, err)
-                    else:
-                        worst_by_width[C] = max(worst_by_width.get(C, 0.0), err / scale)
-                    if onepass_takes(C, dtype):
-                        # the bf16 design the route did not take, on the same
-                        # operands and under the same bound: the two sum in
-                        # the same grouping and order (csrc/mrf.cu)
-                        xb, pk, bf = (x.to(dtype).contiguous(), pack_mrf_kernel_weights(mats, dtype),
-                                      bias.float().contiguous())
-                        other = (_mrf_stage_chain(xb, pk, bf, (3, 7, 11), ((1, 3, 5),) * 3)
-                                 if mrf_route(C, dtype) == "onepass"
-                                 else mrf_stage_onepass(xb, pk, bf)).float()
-                        onepass = out.float() if mrf_route(C, dtype) == "onepass" else other
-                        oerr = (onepass - ref.float()).abs().max().item()
-                        if not bool(torch.isfinite(other).all()) or \
-                                oerr > MRF_OF_SCALE[dtype] * scale:
-                            raise AssertionError(f"{phase}: one-pass kernel != plain at B={Bc} "
-                                                 f"C={C} T={T}: {oerr:.3e} of max {scale:.3e}")
-                        onepass_by_width[C] = max(onepass_by_width.get(C, 0.0), oerr / scale)
-                        onepass_vs_chain = max(onepass_vs_chain,
-                                               (out.float() - other).abs().max().item())
+                        cases += 1
+                        continue
+                    worst_by_width[C] = max(worst_by_width.get(C, 0.0), err / scale)
+                    # every bf16 design built for the stage, on the same
+                    # operands and under the same bound; the tile designs sum
+                    # in the chain's grouping and order (csrc/mrf.cu)
+                    xb, pk, bf = (x.to(dtype).contiguous(), pack_mrf_kernel_weights(mats, dtype),
+                                  bias.float().contiguous())
+                    chain = _mrf_stage_chain(xb, pk, bf, ks, ds).float()
+                    for design, takes, run in (("onepass", onepass_takes, mrf_stage_onepass),
+                                               ("unit", unit_takes, mrf_stage_unit)):
+                        if not takes(C, dtype):
+                            continue
+                        got = run(xb, pk, bf).float()
+                        derr = (got - ref.float()).abs().max().item()
+                        if not bool(torch.isfinite(got).all()) or \
+                                derr > MRF_OF_SCALE[dtype] * scale:
+                            raise AssertionError(f"{phase}: {design} design != plain at B={Bc} "
+                                                 f"C={C} T={T}: {derr:.3e} of max {scale:.3e}")
+                        design_err[design][C] = max(design_err[design].get(C, 0.0),
+                                                    derr / scale)
+                        design_vs_chain[design] = max(design_vs_chain[design],
+                                                      (got - chain).abs().max().item())
                     cases += 1
     say(phase + " parity", card=card, cases=cases, widths=MRF_WIDTHS,
         T={C: mrf_parity_t(C) for C in MRF_WIDTHS}, batch=(1, 4), max_abs_err_fp32=worst_abs,
         max_err_of_max_abs={str(d).split(".")[-1]: v for d, v in worst.items()},
         bf16_max_err_of_max_abs_by_width=worst_by_width,
-        onepass_max_err_of_max_abs_by_width=onepass_by_width,
-        routes_bf16={C: mrf_route(C, torch.bfloat16) for C in MRF_WIDTHS},
-        onepass_vs_chain_max_abs=onepass_vs_chain,
+        onepass_max_err_of_max_abs_by_width=design_err["onepass"],
+        unit_max_err_of_max_abs_by_width=design_err["unit"],
+        routes_bf16_served_size={C: mrf_route(C, torch.bfloat16) for C in MRF_WIDTHS},
+        onepass_vs_chain_max_abs=design_vs_chain["onepass"],
+        unit_vs_chain_max_abs=design_vs_chain["unit"],
         bound_of_max_abs={str(d).split(".")[-1]: v for d, v in MRF_OF_SCALE.items()})
 
     shapes = {}
@@ -1662,6 +1734,7 @@ def phase_mrf(dev, card: str) -> dict:
             # the weights packed once, as the served generators keep them
             packed = {d: pack_mrf_kernel_weights(mats, d) for d in (torch.float32, torch.bfloat16)}
             library_bf16 = mrf_library_bf16(mats, bias, dev)
+            route = mrf_route(C, torch.bfloat16, ks, ds, B, T, sms)
             runs = {"kernel": lambda: mrf_stage_fused(x, *mats, bias,
                                                       packed=packed[torch.float32]),
                     "plain": lambda: mrf_stage_fused_reference(x, *mats, bias),
@@ -1670,19 +1743,17 @@ def phase_mrf(dev, card: str) -> dict:
                     "plain_bf16": lambda: mrf_stage_fused_reference(x, *mats, bias,
                                                                     dtype=torch.bfloat16),
                     "library_bf16": lambda: library_bf16(x)}
-            # where the one-pass kernel is built, the other bf16 design on
-            # the same operands beside the routed one
-            onepass = mrf_route(C, torch.bfloat16) == "onepass"
-            other = ("chain_bf16" if onepass else "onepass_bf16") \
-                if onepass_takes(C, torch.bfloat16) else None
-            # (x rounded to bf16 inside each call, as `kernel_bf16` does)
+            # each bf16 design the route did not take, where it is built, on
+            # the same operands (x rounded to bf16 inside each call, as
+            # `kernel_bf16` does)
             bf = bias.float().contiguous()
-            if other == "chain_bf16":
-                runs[other] = lambda: _mrf_stage_chain(
-                    x.to(torch.bfloat16), packed[torch.bfloat16], bf, (3, 7, 11), ((1, 3, 5),) * 3)
-            elif other == "onepass_bf16":
-                runs[other] = lambda: mrf_stage_onepass(x.to(torch.bfloat16), packed[torch.bfloat16],
-                                                        bf)
+            others = {"chain_bf16": (True, _mrf_stage_chain),
+                      "onepass_bf16": (onepass_takes(C, torch.bfloat16), mrf_stage_onepass),
+                      "unit_bf16": (unit_takes(C, torch.bfloat16), mrf_stage_unit)}
+            for other, (built, fn) in others.items():
+                if built and other != f"{route}_bf16":
+                    runs[other] = functools.partial(
+                        lambda fn: fn(x.to(torch.bfloat16), packed[torch.bfloat16], bf, ks, ds), fn)
             ref = runs["plain"]()
             abs_err = (runs["kernel"]() - ref).abs().max().item()
             err = abs_err / ref.abs().max().item()
@@ -1691,9 +1762,11 @@ def phase_mrf(dev, card: str) -> dict:
             got16 = runs["kernel_bf16"]().float()
             bf16_abs = (got16 - ref16).abs().max().item()
             bf16_err = bf16_abs / ref16.abs().max().item()
-            bf16_vs_chain = ((got16 - runs[other]().float()).abs().max().item()
-                             if other else None)
-            del ref16, got16
+            chain16 = got16 if route == "chain" else runs["chain_bf16"]().float()
+            vs_chain = {o: (runs[o]().float() - chain16).abs().max().item()
+                        for o in ("onepass_bf16", "unit_bf16") if o in runs}
+            vs_chain[f"{route}_bf16"] = (got16 - chain16).abs().max().item()
+            del ref16, got16, chain16
             if err > MRF_OF_SCALE[torch.float32] or bf16_err > MRF_OF_SCALE[torch.bfloat16]:
                 raise AssertionError(f"{phase}: kernel != plain at B={B} C={C} T={T}: fp32 "
                                      f"{err:.3e}, bf16 {bf16_err:.3e} of max |plain|")
@@ -1703,14 +1776,22 @@ def phase_mrf(dev, card: str) -> dict:
                 for n in order:
                     times[n].append(time_cuda(runs[n], 2, warmup=1))
             ms = {n: float(np.mean(t)) for n, t in times.items()}
+            # each bf16 design's own time under its name
+            ms[f"{route}_bf16"] = ms["kernel_bf16"]
             flops, moved = mrf_cost(x, mats, bias)
             bounds = {"fp32_cuda_cores": bound(flops, moved),
                       "tensor_cores_3xtf32": bound(3 * flops, moved, PEAK_TF32_FLOPS),
                       "tensor_cores_bf16": bound(flops, moved / 2, PEAK_BF16_FLOPS)}
+            design = {"fp32": mrf_design_bytes(B, C, T, torch.float32),
+                      "bf16": mrf_design_bytes(B, C, T, torch.bfloat16)}
+            if onepass_takes(C, torch.bfloat16):
+                design["bf16_onepass"] = mrf_onepass_design(B, C, T)
+            if unit_takes(C, torch.bfloat16):
+                design["bf16_unit"] = mrf_unit_design(B, C, T)
             shapes[name] = {
                 "C": C, "T": T, "ms": ms, "ms_runs": times, "bounds": bounds,
-                "bf16_design": "onepass" if onepass else "chain",
-                "bf16_launches_a_stage": 1 if onepass else 8,
+                "bf16_design": route,
+                "bf16_launches_a_stage": {"onepass": 1, "unit": 4, "chain": 8}[route],
                 "kernel_tflops": flops / (ms["kernel"] * 1e9),
                 "plain_tflops": flops / (ms["plain"] * 1e9),
                 "kernel_share_of_cuda_core_bound":
@@ -1724,16 +1805,15 @@ def phase_mrf(dev, card: str) -> dict:
                 "kernel_vs_library": ms["plain"] / ms["kernel"],
                 "kernel_bf16_vs_library_bf16": ms["library_bf16"] / ms["kernel_bf16"],
                 "err_of_max_abs": {"fp32": err, "bf16": bf16_err},
-                "bf16_max_abs_err": bf16_abs, "bf16_onepass_vs_chain_max_abs": bf16_vs_chain,
-                "design": {"fp32": mrf_design_bytes(B, C, T, torch.float32),
-                           "bf16": mrf_design_bytes(B, C, T, torch.bfloat16),
-                           **({"bf16_onepass": mrf_onepass_design(B, C, T)} if other else {})}}
+                "bf16_max_abs_err": bf16_abs, "bf16_designs_vs_chain_max_abs": vs_chain,
+                "design": design}
             del x, packed, library_bf16
             torch.cuda.empty_cache()
     say(phase + " times", card=card, batch=B, dtype="fp32 (*_bf16: bf16)",
         library="the plain version (cuDNN F.conv1d chain, TF32 off); library_bf16: the "
                 "ResBlock1 modules in bf16", shapes=shapes)
     melrate, served = shapes["istftnet_melrate"], shapes["hifigan_4"]
+    unit = shapes["hifigan_3"]
     return {"max_abs_err": worst_abs, "ms": melrate["ms"]["kernel"],
             "plain_ms": melrate["ms"]["plain"],
             **melrate["bounds"]["tensor_cores_3xtf32"],
@@ -1745,13 +1825,29 @@ def phase_mrf(dev, card: str) -> dict:
                      **melrate["bounds"]["tensor_cores_bf16"]},
             "onepass": {"shape": {"C": served["C"], "T": served["T"], "B": B},
                         "max_abs_err": served["bf16_max_abs_err"],
-                        "max_err_of_max_abs": {f"C{c}": v for c, v in onepass_by_width.items()},
-                        "ms": served["ms"]["kernel_bf16"], "plain_ms": served["ms"]["plain_bf16"],
+                        "max_err_of_max_abs": {f"C{c}": v
+                                               for c, v in design_err["onepass"].items()},
+                        "ms": served["ms"]["onepass_bf16"], "plain_ms": served["ms"]["plain_bf16"],
                         **served["bounds"]["tensor_cores_bf16"],
                         "library_ms": served["ms"]["library_bf16"],
                         "chain_ms": served["ms"]["chain_bf16"],
-                        "c64_not_routed": {"ms": shapes["hifigan_3"]["ms"]["onepass_bf16"],
-                                           "chain_ms": shapes["hifigan_3"]["ms"]["kernel_bf16"]}}}
+                        "ptxas": ptxas["onepass"],
+                        "c64_not_routed": {"ms": unit["ms"]["onepass_bf16"],
+                                           "chain_ms": unit["ms"]["chain_bf16"]}},
+            "unit": {"shape": {"C": unit["C"], "T": unit["T"], "B": B},
+                     "max_abs_err": (unit["bf16_max_abs_err"] if unit["bf16_design"] == "unit"
+                                     else None),
+                     "max_err_of_max_abs": {f"C{c}": v for c, v in design_err["unit"].items()},
+                     "vs_chain_max_abs": design_vs_chain["unit"],
+                     "ms": unit["ms"]["unit_bf16"], "plain_ms": unit["ms"]["plain_bf16"],
+                     **unit["bounds"]["tensor_cores_bf16"],
+                     "library_ms": unit["ms"]["library_bf16"],
+                     "chain_ms": unit["ms"]["chain_bf16"], "ptxas": ptxas["unit"],
+                     "by_width": {f"C{sh['C']}": {"ms": sh["ms"]["unit_bf16"],
+                                                   "chain_ms": sh["ms"]["chain_bf16"],
+                                                   "routed": sh["bf16_design"] == "unit",
+                                                   **sh["bounds"]["tensor_cores_bf16"]}
+                                  for sh in shapes.values() if sh["C"] in UNIT_KERNEL_WIDTHS}}}
 
 
 def phase_served(dev, card: str) -> dict:
@@ -3061,9 +3157,9 @@ def kernel_operand_dtypes():
     the launch counts they keep, are untouched."""
     import visual_onoma_to_wave_tpu_torch.models.layers as layers
     import visual_onoma_to_wave_tpu_torch.models.vocos as vocos
-    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages, mrf_route
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages, mrf_route, sm_count
 
-    seen = {"flash_mha": set(), "mrf_stage": set(), "mrf_stage_onepass": set(),
+    seen = {"flash_mha": set(), **{name: set() for name in MRF_RECORD.values()},
             "convnext_block": set()}
     attention, block, stage = layers.attention_core, vocos.convnext_block, MRFStages.__call__
 
@@ -3080,8 +3176,8 @@ def kernel_operand_dtypes():
 
     def stage_call(self, i, blocks, x, fused=True):
         if fused:
-            route = mrf_route(x.shape[1], x.dtype, self.kernel_sizes, self.dilations)
-            note("mrf_stage_onepass" if route == "onepass" else "mrf_stage", x)
+            note(MRF_RECORD[mrf_route(x.shape[1], x.dtype, self.kernel_sizes, self.dilations,
+                                      x.shape[0], x.shape[2], sm_count(x.device))], x)
         return stage(self, i, blocks, x, fused)
 
     layers.attention_core, vocos.convnext_block = attention_call, block_call
@@ -3125,12 +3221,12 @@ def bf16_served(dev, card: str, vocoder: str, fp32: dict) -> dict:
     model16, gen16, batch = icassp_bf16(dev, vocoder)
     model, gen, _ = icassp_b16(dev, vocoder)
     fused16 = make_fused_infer(model16, gen16)
-    per_call = per_call_launches(model16, gen16)
     zero_launch_counts()
     with kernel_operand_dtypes() as seen:
         out = fused16(batch)
         torch.cuda.synchronize()
     launches = launch_counts()
+    per_call = per_call_launches(model16, gen16, tuple(out["postnet_mel"].shape[:2]))
     expect_launches(phase, launches, per_call)
     dtypes = {k: sorted(v) for k, v in seen.items() if v}
     if any(v != ["bfloat16"] for v in dtypes.values()) or \
@@ -3280,7 +3376,7 @@ def bf16_export(dev, card: str, tmp: pathlib.Path) -> dict:
         want = fused(batch)
         zero_launch_counts()
         got = program()
-        per_call = per_call_launches(synth.model, synth.vocoder)
+        per_call = per_call_launches(synth.model, synth.vocoder, tuple(got[0].shape[:2]))
         expect_launches(phase, launch_counts(), per_call)
         err = {"mel": float((got[0] - want["postnet_mel"]).abs().max()),
                "wav": float((got[4] - want["wav"]).abs().max())}
@@ -3626,10 +3722,13 @@ def main() -> int:
          "launches": melrate["launches"]["mrf_stage"],
          "launches_bf16": served16["iSTFTNet-mel"]["launches"]["mrf_stage"],
          "launches_bf16_hifigan_v1": served16["HiFi-GAN"]["launches"]["mrf_stage"],
-         **{k: v for k, v in mrf.items() if k != "onepass"}},
+         **{k: v for k, v in mrf.items() if k not in ("onepass", "unit")}},
         {"name": "mrf_stage_onepass", "route": "cuda", "source": source + "mrf.cu",
          "replaces": tpu + "pallas_mrf.py:164",
          "launches": served16["HiFi-GAN"]["launches"]["mrf_stage_onepass"], **mrf["onepass"]},
+        {"name": "mrf_stage_unit", "route": "cuda", "source": source + "mrf.cu",
+         "replaces": tpu + "pallas_mrf.py:164",
+         "launches": served16["HiFi-GAN"]["launches"]["mrf_stage_unit"], **mrf["unit"]},
     ]}
     print(probe["smi"])
     print(json.dumps(record))

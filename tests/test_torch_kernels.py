@@ -47,14 +47,18 @@ from visual_onoma_to_wave_tpu_torch.ops.mel import (
 )
 from visual_onoma_to_wave_tpu_torch.ops.mrf import (
     ONEPASS_KERNEL_WIDTHS,
+    UNIT_KERNEL_WIDTHS,
     _mrf_stage_chain,
     mrf_route,
     mrf_stage_fused,
     mrf_stage_fused_reference,
     mrf_stage_onepass,
+    mrf_stage_unit,
     onepass_tile_frames,
     pack_mrf_kernel_weights,
+    sm_count,
     tile_frames,
+    unit_tile_frames,
 )
 from visual_onoma_to_wave_tpu_torch.ops.stft import char_stats_from_frame_sums
 
@@ -329,13 +333,33 @@ def test_mrf_kernel_matches_plain(cuda, C, T, dtype):
         before = chip_smoke.launch_counts()
         out = mrf_stage_fused(x, *mats, bias, dtype=dtype)
         torch.cuda.synchronize()
-        design = "mrf_stage_onepass" if mrf_route(C, dtype) == "onepass" else "mrf_stage"
+        design = chip_smoke.MRF_RECORD[mrf_route(C, dtype, batch=B, frames=T,
+                                                 sms=sm_count(x.device))]
         assert chip_smoke.launch_counts() == {**before, design: before[design] + 1}
         ref = mrf_stage_fused_reference(x, *mats, bias, dtype=dtype)
         assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
         scale = ref.float().abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), rtol=0.0,
                                    atol=chip_smoke.MRF_OF_SCALE[dtype] * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [20, -1, 0, 1, 1000], ids=["20", "tile-1", "tile", "tile+1", "1000"])
+@pytest.mark.parametrize("C", UNIT_KERNEL_WIDTHS)
+def test_mrf_unit_design_equals_the_conv_chain(cuda, C, T):
+    """The unit design sums in the conv chain's grouping and order: the two
+    designs give the same bits (T -1 / 0 / 1: frames around the unit
+    design's frame tile)."""
+    if T <= 1:
+        T += unit_tile_frames(C)
+    g = torch.Generator(device=cuda).manual_seed(C + T)
+    mats, bias = chip_smoke.mrf_weights(C, g, cuda)
+    x = torch.randn(3, C, T, generator=g, device=cuda).to(torch.bfloat16)
+    packed = pack_mrf_kernel_weights(mats, torch.bfloat16)
+    bias = bias.float().contiguous()
+    out = mrf_stage_unit(x, packed, bias)
+    chain = _mrf_stage_chain(x, packed, bias, (3, 7, 11), ((1, 3, 5),) * 3)
+    assert torch.equal(out, chain)
 
 
 @pytest.mark.gpu

@@ -210,9 +210,10 @@ def test_tiles_meet_without_a_seam(C):
 @pytest.mark.parametrize("C", (8, 16, 32, 64, 128, 256, 512))
 def test_the_route_sends_bf16_at_c_up_to_32_to_the_one_pass_kernel(C):
     """bf16 at C 8-32 takes the one-pass kernel; at C 64 it is built but the
-    conv chain runs faster, so the route keeps the chain there, as at C >=
-    128 and for fp32 at every width."""
-    want = "onepass" if C <= 32 else "chain"
+    conv chain runs faster, and the unit design faster still, so the route
+    sends C 64 there; C >= 128 keeps the chain, as fp32 does at every width
+    (the width alone: a stage of the served size)."""
+    want = "onepass" if C <= 32 else "unit" if C == 64 else "chain"
     assert mrf_route(C, torch.bfloat16) == want
     assert mrf_route(C, torch.float32) == "chain"
     assert mrf_route(C, torch.bfloat16, KS, DS) == mrf_route(C, torch.bfloat16)

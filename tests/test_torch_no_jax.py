@@ -328,15 +328,19 @@ main(["train-vocoder", str(work / "wavs"), str(work / "voc"), "--steps", "1", "-
       "1", "--segment-size", "2048", "--bf16", "--device", "cpu"])
 assert (work / "voc" / "1" / "generator.npz").exists()
 shutil.rmtree(work)     # a full-state checkpoint of the full-width GAN
-# bf16 HiFi-GAN V1: its stages at C 256 / 128 / 64 take the conv chain, at C
-# 32 the one-pass kernel
-for vocoder, mrf, onepass, blocks in (("HiFi-GAN", 3, 1, 0), ("iSTFTNet-mel", 1, 0, 0),
-                                      ("Vocos", 0, 0, 8)):
+# bf16 HiFi-GAN V1: its stages at C 256 / 128 take the conv chain, at C 64
+# the unit design, at C 32 the one-pass kernel, at the served mel length and
+# without one; a mel of 8 frames is too short for either tile design
+for vocoder, mrf, onepass, unit, blocks in (("HiFi-GAN", 2, 1, 1, 0), ("iSTFTNet-mel", 1, 0, 0, 0),
+                                            ("Vocos", 0, 0, 0, 8)):
     model16, gen16, _ = chip_smoke.icassp_bf16("cpu", vocoder)
     assert model16.dtype == gen16.dtype == torch.bfloat16
-    assert chip_smoke.per_call_launches(model16, gen16) == {
-        "flash_mha": 10, "convnext_block": blocks, "convnext_trunk": 0, "mrf_stage": mrf,
-        "mrf_stage_onepass": onepass}
+    want = {"flash_mha": 10, "convnext_block": blocks, "convnext_trunk": 0, "mrf_stage": mrf,
+            "mrf_stage_onepass": onepass, "mrf_stage_unit": unit}
+    assert chip_smoke.per_call_launches(model16, gen16) == want
+    assert chip_smoke.per_call_launches(model16, gen16, (16, 1000)) == want
+    short = chip_smoke.per_call_launches(model16, gen16, (1, 8))
+    assert short["mrf_stage"] == mrf + onepass + unit and short["mrf_stage_unit"] == 0
 """
 
 
@@ -411,8 +415,10 @@ assert chip_smoke.convnext_blocks(gen) == 0 and type(gen).__name__ == "BigVGANGe
 assert [launches[v]["mrf_stage"] for v in launches] == [4, 1, 2, 0, 0, 0], launches
 assert [launches[v]["convnext_block"] for v in launches] == [0, 0, 0, 0, 8, 0], launches
 assert set(chip_smoke.launch_counts()) == {"flash_mha", "convnext_block", "convnext_trunk",
-                                           "mel_frontend", "mrf_stage", "mrf_stage_onepass"}
+                                           "mel_frontend", "mrf_stage", "mrf_stage_onepass",
+                                           "mrf_stage_unit"}
 assert [launches[v]["mrf_stage_onepass"] for v in launches] == [0] * 6, launches
+assert [launches[v]["mrf_stage_unit"] for v in launches] == [0] * 6, launches
 from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused
 g = torch.Generator().manual_seed(0)
 mats, bias = chip_smoke.mrf_weights(32, g, "cpu")

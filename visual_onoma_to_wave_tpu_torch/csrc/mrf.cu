@@ -14,15 +14,22 @@
 // operand type, products accumulate in fp32, the residual streams stay fp32
 // and the output is rounded once (pallas_mrf.py:90-127).
 //
-// Two designs, chosen by ops/mrf.py::mrf_route:
+// Three designs, chosen by ops/mrf.py::mrf_route from the width, the type
+// and the stage's size (in bf16 a tile design takes a stage only with
+// enough of its work items per SM, ops/mrf.py::MIN_ITEMS_PER_SM):
 //   * bf16 at C 8, 16 and 32: one pass per frame tile, one launch a stage,
 //     every conv of the tile on chip (below, "one pass per frame tile";
 //     entry mrf_stage_onepass_fwd). It is built for C 64 too, where the conv
 //     chain runs faster. At C >= 128 the tile's windows and residual stream
 //     no longer fit in shared memory beside a weight ring (C 128 with 64
 //     output frames: 224 KB before any weight);
-//   * fp32 at every width and bf16 at C 64 and above: the conv chain (entry
-//     mrf_stage_fwd), 8 launches a stage through fp32 scratch, as follows.
+//   * bf16 at C 64: one launch per residual unit, h in shared memory (below,
+//     "one launch per residual unit"; entry mrf_stage_unit_fwd), 4 launches
+//     a stage. It is built for C 128 and 256 too, where the conv chain runs
+//     faster;
+//   * fp32 at every width and bf16 at C 128 and above (and every stage too
+//     small for a tile design): the conv chain (entry mrf_stage_fwd), 8
+//     launches a stage through fp32 scratch, as follows.
 //
 // What bounds it. A stage does 6 * (3 + 7 + 11) * C^2 = 126 C^2 multiply-adds
 // per position. fp32 runs as 3xTF32 (three TF32 products a multiply-add), so
@@ -97,8 +104,9 @@
 // ms), 27.0-27.6 GB at C 128 x 64000, 64 x 128000 and 32 x 256000 (8.1-8.3
 // ms: above the 3xTF32 bound of 6.4 ms at C 32, 63% of the 12.8 at C 64).
 // The weight stream from L2, every tile reading its conv's taps once:
-// 33.8 GB fp32 at C 512 x T 1000, 8.3 GB at C 32 x 256000. At bf16 C <= 64
-// the one-pass design below replaces this structure.
+// 33.8 GB fp32 at C 512 x T 1000, 8.3 GB at C 32 x 256000. At bf16 C <= 32
+// the one-pass design and at C 64 the unit design below replace this
+// structure.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -1227,6 +1235,501 @@ cudaError_t run_onepass(const OnePassArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- one launch per residual unit: bf16 at C 64, 128 and 256 ---------------
+//
+// A stage is 4 launches: one per dilation (the residual unit conv1 ->
+// leaky ReLU -> conv2 + residual of each branch, the three branches' units
+// side by side, as the chain's launches are), then the average. A CTA of
+// the chain's shape (two consumer warpgroups, a producer warpgroup: one
+// thread streams the weights, three warps stage windows) walks (item, frame
+// tile, branch) work items, the branch fastest, in a strided loop. Per item,
+// frames [t0, t0 + M):
+//   * the stagers write X = bf16(lrelu(y)) over frames [t0 - 64, t0 + M +
+//     64), zero outside [0, T), all C channels, in the chain's K-major
+//     no-swizzle layout (one column of WX rows a group of 8 channels). y is
+//     x itself at the first unit (read (B, C, T) bf16: the chain's copy to
+//     channels-last is folded in here), else the previous unit's fp32
+//     residual stream (B, T, C). One X buffer: the next item's X is staged
+//     while the consumers run this item's conv2;
+//   * conv1 computes rows [t0 - 32, t0 + M + 32) (N1 = M / 64 + 1 wgmma
+//     tiles: conv2's reach of at most 32 frames, rounded up to the tile)
+//     and writes H = bf16(lrelu(conv + bias)), zero outside [0, T), into
+//     shared memory, in the same layout as X: h never reaches device memory;
+//   * conv2 computes the M output rows from H and writes y = res + (conv +
+//     bias), fp32 (B, T, C), res read from the input stream (or x); the
+//     streams ping-pong between two sets of three planes, as a tile reads
+//     its neighbours' frames;
+//   * the average kernel of the chain sums ((y_0 + y_1) + y_2) / 3 and
+//     rounds it to bf16 once, back to (B, C, T).
+// A pass is one sweep of a conv's weights: per 32-channel chunk and group
+// of up to GROUP_MAX taps one fresh tensor-core sum, added to the fp32
+// accumulator on the CUDA cores, as the chain sums (so the two designs give
+// the same bits; summed in the tensor cores' accumulator over a whole conv
+// instead, 1.5-5.5% of the outputs differed from the chain's in a variant on
+// an H100, each by one bf16 ulp). A consumer thread holds 64
+// accumulators and 64 of the fresh sum: two 64 x 64 tiles (C 64: the two
+// warpgroups take different rows of the 64 channels, a pass 256 rows; C 256:
+// the two 64-channel halves of one packed 128-channel plane, a pass 128 rows
+// x 128 channels) or one 64 x 128 tile (C 128: different rows, a pass 128
+// rows). The weights are the chain's bf16 stream (pack_mrf_kernel_weights),
+// one tap of a chunk of one packed plane a ring stage.
+// The count, per width (M output frames a tile; B 16 at the served T;
+// chip_smoke.py::mrf_unit_design prints it):
+//   C 64  (T 128000): M 192, conv1 256 rows (4 tiles) in 1 pass, conv2 192
+//     rows in 1 (one warpgroup's second tile idle): 1.17x the stage's tensor
+//     work, the recomputed halo; shared memory X 40 KB + H 32 KB + a 64 KB
+//     ring; the weights from L2 11.0 GB a stage (the chain 8.3);
+//   C 128 (T 64000):  M 192, m64n128, conv1 2 passes, conv2 2 (the second
+//     one warpgroup's): 1.17x; X 80 KB + H 64 KB + an 80 KB ring; 44.1 GB of
+//     weights (the chain 33.0);
+//   C 256 (T 8000):   M 64, conv1 128 rows, conv2 64, each in 2 passes (one
+//     a plane): 1.5x; X 96 KB + H 64 KB + a 64 KB ring: a larger tile does
+//     not fit beside both windows; 33.0 GB of weights (the chain 16.6).
+// Device memory a stage, in fp32 planes of (B, T, C): x read (bf16, 0.5;
+// the three branches of a tile run side by side, so once from DRAM), each
+// unit's three streams written (3) and read by the next (3), the average's
+// reads (3) and the output (0.5): 19 planes against the chain's 51-52, 9.96
+// GB at C 128 and C 64 (3.0 ms at 3.35 TB/s), 2.49 GB at C 256. Each tile's
+// window re-reads its 128 halo frames from L2 (7.9 GB at C 64 and 128).
+// What bounds it on an H100: neither DRAM nor the tensor cores. A
+// clock64-stamped copy found the consumers 2-6% of their cycles waiting on
+// the tensor cores, 7-15% on weight stages and, until the epilogue loaded
+// its residual a few column groups at a time, 21-46% in spilling
+// epilogues; m64n64 products read as many bytes of shared memory as they
+// multiply (A and B 4 KB a 32-cycle product), and at C 128 the weight stream
+// is 1.33x the chain's. Registers: setmaxnreg 200 a consumer thread (ptxas
+// reports the launch's 168, but a variant without setmaxnreg spilled up to
+// 1.1 KB and ran twice as long), 104 a producer thread (88 spilled the
+// stagers); the conv loop is unrolled (its constants out of registers).
+
+constexpr int UNIT_MARGIN = 32;     // X rows past conv1's on each side: a conv's reach, at most
+
+// Tile per width: M output frames, NT channels a warpgroup's wgmma (N), MB
+// 64-row tiles a warpgroup holds, NS channels a pass (one packed plane, a
+// ring stage a tap); the warpgroups take different row tiles of the pass's
+// channels, or (COLS) the same row tiles of different NT-channel halves.
+template <int C>
+struct Unit {
+  static constexpr int M = C == 256 ? 64 : 192;
+  static constexpr int N1 = M / 64 + 1;             // conv1's 64-row tiles, from frame t0 - 32
+  static constexpr int N2 = M / 64;                 // conv2's: the output frames
+  static constexpr int R1 = 64 * N1;
+  static constexpr int WX = R1 + 2 * UNIT_MARGIN;   // X rows, from frame t0 - 64
+  static constexpr int NT = C == 128 ? 128 : 64;
+  static constexpr int MB = C == 128 ? 1 : 2;
+  static constexpr bool COLS = C == 256;
+  static constexpr int NS = C < 128 ? C : 128;      // = kernel_tile's NT: one plane of the stream
+  static constexpr int RT = COLS ? MB : 2 * MB;     // row tiles a pass
+  static constexpr int KC = 32, CHUNKS = C / KC, BLOCKS = C / NS;
+  static constexpr uint32_t X_LBO = WX * 16, H_LBO = R1 * 16, B_LBO = NS * 16;
+  static constexpr int X_BYTES = C / 8 * WX * 16, H_BYTES = C / 8 * R1 * 16;
+  static constexpr int STAGE = NS * KC * 2;         // one tap of a chunk, the pass's channels
+  static constexpr int ACC = NT / 2;                // accumulators a thread per tile
+  static constexpr int EB = NT == 128 ? 4 : 8;      // 8-channel groups a residual batch
+  static constexpr int FIXED = X_BYTES + H_BYTES + 16 * STAGES_MAX + 32;
+  static constexpr int ROOM = (SMEM_MAX - FIXED) / STAGE;
+  static constexpr int RING0 = ROOM < RING_BYTES / STAGE ? ROOM : RING_BYTES / STAGE;
+  static constexpr int RING = RING0 < STAGES_MAX ? RING0 : STAGES_MAX;
+  static constexpr int SMEM = RING * STAGE + FIXED;
+  static_assert(RING >= 2 * GROUP_MAX, "shared memory");
+  static_assert(MB * ACC <= 64, "registers");
+  static_assert(NT * (COLS ? 2 : 1) == NS, "a pass's channels");
+  static_assert((WX * (C / 8)) % 8 == 0 && WX % 16 == 0, "the stagers' walk");
+};
+
+struct UnitArgs {
+  const __nv_bfloat16* x;        // (B, C, T): the first unit's input and residual, else null
+  const float* yin[NBR];         // per slot (B, T, C) fp32: a later unit's input and residual
+  float* yout[NBR];              // per slot (B, T, C) fp32
+  const __nv_bfloat16* w[NBR];   // per slot: this unit's conv1 stream, conv2's after it
+  const float* bias[NBR];        // per slot: conv1's biases (C), conv2's after them
+  int k[NBR], d[NBR];
+  int batch, T;
+};
+
+// a slot's scalars, read from the kernel parameters at constant indices
+struct UnitSlot {
+  const float* yin;
+  float* yout;
+  const uint8_t* w;
+  const float* bias;
+  int k, d;
+};
+__device__ __forceinline__ UnitSlot unit_slot(const UnitArgs& a, int s) {
+  if (s == 0)
+    return {a.yin[0], a.yout[0], reinterpret_cast<const uint8_t*>(a.w[0]), a.bias[0], a.k[0],
+            a.d[0]};
+  if (s == 1)
+    return {a.yin[1], a.yout[1], reinterpret_cast<const uint8_t*>(a.w[1]), a.bias[1], a.k[1],
+            a.d[1]};
+  return {a.yin[2], a.yout[2], reinterpret_cast<const uint8_t*>(a.w[2]), a.bias[2], a.k[2],
+          a.d[2]};
+}
+
+// X over WX rows from frame f_lo, from the fp32 stream y (B, T, C): a
+// thread takes 8 channels of a frame (two float4), 8 consecutive threads
+// 8 consecutive frames of one group (128 contiguous bytes of X)
+template <int C>
+__device__ __forceinline__ void unit_stage_cl(const float* y, uint8_t* X, int n, int f_lo,
+                                              int seq, int sid) {
+  using U = Unit<C>;
+  constexpr int G = C / 8, TOTAL = U::WX * G, BATCH = 8;
+  const size_t item = (size_t)n * seq;
+  for (int e0 = sid; e0 < TOTAL; e0 += BATCH * STAGERS) {
+    float4 v[BATCH][2];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = e0 + i * STAGERS;
+      const int u = e / (8 * G) * 8 + e % 8, g = e / 8 % G, f = f_lo + u;
+      const bool ok = e < TOTAL && f >= 0 && f < seq;
+      const float4* src =
+          reinterpret_cast<const float4*>(y + (item + (size_t)(ok ? f : 0)) * C + 8 * g);
+      v[i][0] = ok ? __ldg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i][1] = ok ? __ldg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = e0 + i * STAGERS;
+      if (e >= TOTAL) break;
+      const int u = e / (8 * G) * 8 + e % 8, g = e / 8 % G;
+      const float4 a = v[i][0], b = v[i][1];
+      __nv_bfloat162 p[4] = {__floats2bfloat162_rn(lrelu(a.x), lrelu(a.y)),
+                             __floats2bfloat162_rn(lrelu(a.z), lrelu(a.w)),
+                             __floats2bfloat162_rn(lrelu(b.x), lrelu(b.y)),
+                             __floats2bfloat162_rn(lrelu(b.z), lrelu(b.w))};
+      *reinterpret_cast<uint4*>(X + g * U::X_LBO + u * 16) = *reinterpret_cast<uint4*>(p);
+    }
+  }
+}
+
+// X over WX rows from frame f_lo, from x (B, C, T) bf16: a thread takes 16
+// frames of one channel (two 16-byte loads), consecutive threads
+// consecutive channels
+template <int C>
+__device__ __forceinline__ void unit_stage_cf(const __nv_bfloat16* x, uint8_t* X, int n,
+                                              int f_lo, int seq, int sid) {
+  using U = Unit<C>;
+  constexpr int TOTAL = C * (U::WX / 16), BATCH = 4;
+  const unsigned short* xn = reinterpret_cast<const unsigned short*>(x) + (size_t)n * C * seq;
+  const bool vec = (seq & 7) == 0;
+  for (int e0 = sid; e0 < TOTAL; e0 += BATCH * STAGERS) {
+    uint4 raw[BATCH][2];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = e0 + i * STAGERS;
+      const int c = e % C, f0 = f_lo + e / C * 16;
+      const size_t row = (size_t)c * seq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int fh = f0 + 8 * h;
+        if (e < TOTAL && vec && fh >= 0 && fh + 8 <= seq) {
+          raw[i][h] = __ldg(reinterpret_cast<const uint4*>(xn + row + fh));
+        } else {
+          uint32_t v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = e < TOTAL && fh + j >= 0 && fh + j < seq ? __ldg(xn + row + fh + j) : 0u;
+          raw[i][h] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                                 v[6] | v[7] << 16);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = e0 + i * STAGERS;
+      if (e >= TOTAL) break;
+      const int c = e % C, u0 = e / C * 16;
+      __nv_bfloat16* xrow =
+          reinterpret_cast<__nv_bfloat16*>(X + (c >> 3) * U::X_LBO + u0 * 16) + (c & 7);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t words[4] = {raw[i][h].x, raw[i][h].y, raw[i][h].z, raw[i][h].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // two bf16 frames a word: bf16 -> fp32 is a 16-bit shift
+          xrow[(8 * h + 2 * j) * 8] = __float2bfloat16(lrelu(__uint_as_float(words[j] << 16)));
+          xrow[(8 * h + 2 * j + 1) * 8] =
+              __float2bfloat16(lrelu(__uint_as_float(words[j] & 0xffff0000u)));
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1) mrf_unit_kernel(const UnitArgs a) {
+  using U = Unit<C>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* xwin = smem + U::RING * U::STAGE;
+  uint8_t* hwin = xwin + U::X_BYTES;
+  const uint32_t bars = smem_addr(hwin + U::H_BYTES);
+  const uint32_t wfull = bars, wempty = bars + 8 * STAGES_MAX;
+  const uint32_t xfull = bars + 16 * STAGES_MAX, xempty = xfull + 8;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < U::RING; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, CONSUMERS / 32);
+    }
+    mbar_init(xfull, STAGERS);
+    mbar_init(xempty, CONSUMERS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles = (a.T + U::M - 1) / U::M;
+  const int items = NBR * a.batch * tiles;
+
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+    const int ptid = threadIdx.x - CONSUMERS;
+    if (ptid < 32) {
+      // warp 0: one thread streams every weight stage, in the consumers' order
+      if (ptid == 0) {
+        Ring ring{wfull, wempty, U::RING, 0, 0};
+        const uint32_t base = smem_addr(smem);
+        for (int i = blockIdx.x; i < items; i += gridDim.x) {
+          const UnitSlot sl = unit_slot(a, i % NBR);
+          for (int conv = 0; conv < 2; ++conv) {
+            const uint8_t* wc = sl.w + (size_t)conv * sl.k * C * C * 2;
+            const int passes = ((conv == 0 ? U::N1 : U::N2) + U::RT - 1) / U::RT;
+            for (int cb = 0; cb < U::BLOCKS; ++cb)
+              for (int rp = 0; rp < passes; ++rp)
+                for (int c = 0; c < U::CHUNKS; ++c)
+                  for (int j = 0; j < sl.k; ++j) {
+                    ring.wait_empty();
+                    const uint32_t bar = wfull + 8 * ring.slot;
+                    mbar_expect_tx(bar, U::STAGE);
+                    bulk_load(base + ring.slot * U::STAGE,
+                              wc + (size_t)((cb * U::CHUNKS + c) * sl.k + j) * U::STAGE, U::STAGE,
+                              bar);
+                    ring.advance();
+                  }
+          }
+        }
+      }
+    } else {
+      // warps 1-3: stage each item's X
+      const int sid = ptid - 32;
+      Ring ring{xfull, xempty, 1, 0, 0};
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const int r = i / NBR, n = r / tiles, t0 = r % tiles * U::M;
+        ring.wait_empty();
+        if (a.x != nullptr)
+          unit_stage_cf<C>(a.x, xwin, n, t0 - 64, a.T, sid);
+        else
+          unit_stage_cl<C>(unit_slot(a, i % NBR).yin, xwin, n, t0 - 64, a.T, sid);
+        fence_async_shared();
+        mbar_arrive(xfull);
+        ring.advance();
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  // warp and warpgroup, known to the compiler as uniform across the warp
+  // (wgmma under a branch it thinks divergent is serialized)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int r = 16 * (warp & 3) + (lane >> 2);   // accumulator rows r, r + 8
+  const int q = lane & 3;
+  // the warpgroup's first row tile in a pass, and its first channel in the pass's block
+  const int rw = U::COLS ? 0 : U::MB * wg;
+  const int cw = U::COLS ? U::NT * wg : 0;
+  Ring wring{wfull, wempty, U::RING, 0, 0};      // the stages taken
+  Ring wfree = wring;                            // the stages handed back
+  Ring xring{xfull, xempty, 1, 0, 0};
+  const uint32_t wbase = smem_addr(smem), xbase = smem_addr(xwin), hbase = smem_addr(hwin);
+
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const int rr = i / NBR, n = rr / tiles, t0 = rr % tiles * U::M;
+    const UnitSlot sl = unit_slot(a, i % NBR);
+    const int k = sl.k, p = (k - 1) / 2;
+    xring.acquire();
+#pragma unroll
+    for (int conv = 0; conv < 2; ++conv) {   // unrolled: each conv's constants
+      const bool first = conv == 0;
+      const int nt = first ? U::N1 : U::N2;
+      const int passes = (nt + U::RT - 1) / U::RT;
+      const int dil = first ? sl.d : 1;
+      // conv1 reads X (row u of its tiles at X row u + 32), conv2 H (row m at H row m + 32)
+      const uint32_t abase = first ? xbase : hbase;
+      const uint32_t alb = first ? U::X_LBO : U::H_LBO;
+      const float* bias = sl.bias + conv * C;
+#pragma unroll 1
+      for (int pass = 0; pass < U::BLOCKS * passes; ++pass) {
+        const int cb = pass / passes * U::NS + cw;        // the warpgroup's first channel
+        const int rt = pass % passes * U::RT + rw;        // and its first row tile
+        float acc[U::MB][U::ACC];
+#pragma unroll
+        for (int mb = 0; mb < U::MB; ++mb)
+#pragma unroll
+          for (int e = 0; e < U::ACC; ++e) acc[mb][e] = 0.f;
+#pragma unroll 1
+        for (int c = 0; c < U::CHUNKS; ++c)
+#pragma unroll 1
+          for (int j0 = 0; j0 < k; j0 += GROUP_MAX) {
+            const int jn = k - j0 < GROUP_MAX ? k - j0 : GROUP_MAX;
+            float t[U::MB][U::ACC];
+#pragma unroll
+            for (int mb = 0; mb < U::MB; ++mb) reg_fence(t[mb]);
+            wg_fence();
+#pragma unroll 1
+            for (int j = j0; j < j0 + jn; ++j) {
+              wring.acquire();
+              const uint32_t wb = wbase + wring.slot * U::STAGE + cw % U::NS * 16;
+              wring.advance();
+#pragma unroll
+              for (int mb = 0; mb < U::MB; ++mb) {
+                if (rt + mb >= nt) continue;
+                const uint32_t xa = abase + (uint32_t)(4 * c) * alb +
+                                    (uint32_t)(64 * (rt + mb) + 32 + (j - p) * dil) * 16;
+#pragma unroll
+                for (int ks = 0; ks < 2; ++ks)
+                  Wgmma<U::NT>::bf16(t[mb], desc_of(xa + ks * 2 * alb, alb),
+                                     desc_of(wb + ks * 2 * U::B_LBO, U::B_LBO), j > j0 || ks > 0);
+              }
+            }
+            wg_commit();
+            wg_wait0();
+#pragma unroll
+            for (int mb = 0; mb < U::MB; ++mb) reg_fence(t[mb]);
+            for (int jj = 0; jj < jn; ++jj) wfree.release();
+#pragma unroll
+            for (int mb = 0; mb < U::MB; ++mb) {
+              if (rt + mb >= nt) continue;
+#pragma unroll
+              for (int e = 0; e < U::ACC; ++e) acc[mb][e] += t[mb][e];
+            }
+          }
+
+        // epilogue: rows are frames, columns output channels, 8 columns
+        // (jn) at a time, two rows (h) each
+        if (first) {
+          // H = bf16(lrelu(conv + bias)), zero outside [0, T)
+#pragma unroll
+          for (int mb = 0; mb < U::MB; ++mb) {
+            if (rt + mb >= nt) continue;
+#pragma unroll
+            for (int jn = 0; jn < U::NT / 8; ++jn) {
+              const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + cb + 8 * jn + 2 * q));
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int u = 64 * (rt + mb) + r + 8 * h, f = t0 - 32 + u;
+                const bool valid = f >= 0 && f < a.T;
+                const float v0 = valid ? acc[mb][4 * jn + 2 * h] + bv.x : 0.f;
+                const float v1 = valid ? acc[mb][4 * jn + 2 * h + 1] + bv.y : 0.f;
+                *reinterpret_cast<__nv_bfloat162*>(hwin + (cb / 8 + jn) * U::H_LBO + u * 16 +
+                                                   q * 4) =
+                    __floats2bfloat162_rn(lrelu(v0), lrelu(v1));
+              }
+            }
+          }
+          continue;
+        }
+        // y = res + (conv + bias), fp32 (B, T, C), EB x 8 columns at a
+        // time: the loads first (the compiler keeps a load after a store it
+        // might alias)
+        const size_t item = (size_t)n * a.T;
+#pragma unroll
+        for (int mb = 0; mb < U::MB; ++mb) {
+          if (rt + mb >= nt) continue;
+#pragma unroll
+          for (int j8 = 0; j8 < U::NT / 8; j8 += U::EB) {
+            float2 rv[U::EB][2];
+#pragma unroll
+            for (int jn = 0; jn < U::EB; ++jn)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int f = t0 + 64 * (rt + mb) + r + 8 * h, co = cb + 8 * (j8 + jn) + 2 * q;
+                rv[jn][h] = make_float2(0.f, 0.f);
+                if (f >= a.T) continue;
+                if (a.x != nullptr) {
+                  const __nv_bfloat16* xs = a.x + ((size_t)n * C + co) * a.T + f;
+                  rv[jn][h] = make_float2(__bfloat162float(xs[0]), __bfloat162float(xs[a.T]));
+                } else {
+                  rv[jn][h] =
+                      __ldg(reinterpret_cast<const float2*>(sl.yin + (item + f) * C + co));
+                }
+              }
+#pragma unroll
+            for (int jn = 0; jn < U::EB; ++jn) {
+              const int co = cb + 8 * (j8 + jn) + 2 * q;
+              const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + co));
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int f = t0 + 64 * (rt + mb) + r + 8 * h;
+                if (f >= a.T) continue;
+                const float2 v = make_float2(acc[mb][4 * (j8 + jn) + 2 * h] + bv.x,
+                                             acc[mb][4 * (j8 + jn) + 2 * h + 1] + bv.y);
+                *reinterpret_cast<float2*>(sl.yout + (item + f) * C + co) =
+                    make_float2(rv[jn][h].x + v.x, rv[jn][h].y + v.y);
+              }
+            }
+          }
+        }
+      }
+      if (first) {
+        xring.release();        // every warp's products on X are done: restage it
+        fence_async_shared();   // H's stores, to conv2's products
+        consumers_sync();
+      }
+    }
+    consumers_sync();           // conv2 done with H before the next item's conv1 writes it
+  }
+}
+
+template <int C>
+cudaError_t run_units(const Stage& s, int sms, cudaStream_t stream) {
+  using U = Unit<C>;
+  auto kernel = mrf_unit_kernel<C>;
+  const size_t plane = (size_t)s.batch * s.T * C;
+  // the residual streams: unit di writes set di % 2, reads the other
+  float* y[2][NBR];
+  for (int set = 0; set < 2; ++set)
+    for (int b = 0; b < NBR; ++b) y[set][b] = s.scratch + (set * NBR + b) * plane;
+  int order[NBR] = {0, 1, 2};   // branches by falling k, as the chain's slots
+  for (int i = 0; i < NBR; ++i)
+    for (int j = i + 1; j < NBR; ++j)
+      if (s.k[order[j]] > s.k[order[i]]) {
+        const int o = order[i];
+        order[i] = order[j];
+        order[j] = o;
+      }
+  const int items = NBR * s.batch * ((s.T + U::M - 1) / U::M);
+  // a grid of a multiple of 3 would give every CTA one branch only
+  const int grid = items < sms ? items : sms % NBR == 0 ? sms - 1 : sms;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, U::SMEM);
+  if (err != cudaSuccess) return err;
+  for (int di = 0; di < NDIL; ++di) {
+    UnitArgs a{};
+    a.x = di == 0 ? static_cast<const __nv_bfloat16*>(s.x) : nullptr;
+    a.batch = s.batch;
+    a.T = s.T;
+    for (int slot = 0; slot < NBR; ++slot) {
+      const int b = order[slot], k = s.k[b];
+      a.yin[slot] = di == 0 ? nullptr : y[(di + 1) % 2][b];
+      a.yout[slot] = y[di % 2][b];
+      a.w[slot] = static_cast<const __nv_bfloat16*>(s.w[b]) + (size_t)2 * di * k * C * C;
+      a.bias[slot] = s.bias + (size_t)(2 * NDIL * b + 2 * di) * C;
+      a.k[slot] = k;
+      a.d[slot] = s.d[b][di];
+    }
+    kernel<<<grid, THREADS, U::SMEM, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const dim3 tgrid((s.T + 31) / 32, (C + 31) / 32, s.batch), tblock(32, 8);
+  mrf_average_channels_first<__nv_bfloat16><<<tgrid, tblock, 0, stream>>>(
+      y[(NDIL - 1) % 2][0], y[(NDIL - 1) % 2][1], y[(NDIL - 1) % 2][2],
+      static_cast<__nv_bfloat16*>(s.y), C, s.T);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16 (x, y and
@@ -1288,6 +1791,40 @@ extern "C" int mrf_stage_onepass_fwd(const void* x, void* y, const void* w0, con
     case 16: return (int)run_onepass<16, 8>(a, st);
     case 32: return (int)run_onepass<32, 4>(a, st);
     case 64: return (int)run_onepass<64, 2>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Plain C entry point of the unit design (bf16 only): x, y (B, C, T) bf16,
+// scratch (6 x B x T x C) fp32, `w0`..`w2` the branches' bf16 streams from
+// ops/mrf.py::pack_mrf_kernel_weights, biases (18 x C) fp32. C in {64, 128,
+// 256}, odd kernel sizes up to 11, dilations >= 1, no conv reaching further
+// than 32 frames (ops/mrf.py::unit_takes). Returns a cudaError_t (0 =
+// launched).
+extern "C" int mrf_stage_unit_fwd(const void* x, void* y, void* scratch, const void* w0,
+                                  const void* w1, const void* w2, const void* bias, int batch,
+                                  int C, int T, int k0, int k1, int k2, int d00, int d01, int d02,
+                                  int d10, int d11, int d12, int d20, int d21, int d22,
+                                  void* stream) {
+  const Stage s{x, y, static_cast<float*>(scratch), {w0, w1, w2}, static_cast<const float*>(bias),
+                batch, C, T, {k0, k1, k2}, {{d00, d01, d02}, {d10, d11, d12}, {d20, d21, d22}}};
+  if (batch <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < NBR; ++b) {
+    const int k = s.k[b], p = (k - 1) / 2;
+    if (k < 1 || k > KMAX || k % 2 == 0) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < NDIL; ++i)
+      if (s.d[b][i] < 1 || p * s.d[b][i] > UNIT_MARGIN) return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 64: return (int)run_units<64>(s, sms, st);
+    case 128: return (int)run_units<128>(s, sms, st);
+    case 256: return (int)run_units<256>(s, sms, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,22 +29,28 @@ graph instead, so an exported program holds each weight once.
 
 `mrf_stage_fused` calls the custom op `votw::mrf_stage_fused`
 (`torch.library`, registered when this module is imported): its CUDA
-implementation launches one of the two designs of `csrc/mrf.cu` (built at
+implementation launches one of the three designs of `csrc/mrf.cu` (built at
 first use by `ops/cuda_build.py`), its CPU implementation is
 `mrf_stage_fused_reference`, and its fake implementation states the
 output's shape, so `torch.export` records the op by name. `mrf_route` picks
-the design: bf16 at C 8-32 takes the one-pass kernel (one launch a stage,
-every conv of a frame tile on chip, no scratch; `mrf_stage_onepass`), every
-other call the conv chain (8 launches a stage through 7 fp32 scratch
-planes). It never falls back: any other device, a CUDA tensor the kernel
-does not take (C outside 8/16/32/64/128/256/512, other than three branches
-of three dilations, an even kernel size or one above 11, a stage reaching
-further than `HALO` frames), a failed build, a refused launch or a call
-that would need a gradient raises. Any T is taken: the TPU kernel's t_tile
-% 128 and C-per-sublane rules are tiling rules of the TPU.
-`mrf_stage_fused.launches` counts the stages the conv chain ran on the card
-(one per call, which enqueues its 8 launches), `mrf_stage_onepass.launches`
-those of the one-pass kernel.
+the design from the width, the type and the input's size: in bf16 the
+one-pass kernel at C 8-32 (one launch a stage, every conv of a frame tile
+on chip, no scratch; `mrf_stage_onepass`) and the unit design at the widths
+of `UNIT_WIDTHS` (one launch per residual unit with h in shared memory, then
+the average: 4 launches a stage through 6 fp32 planes of residual stream;
+`mrf_stage_unit`), each only where the stage gives it enough frame tiles
+for the card's SMs; every other call the conv chain (8 launches a stage
+through 7 fp32 scratch planes). It never falls back: any other device, a
+CUDA tensor the kernel does not take (C outside 8/16/32/64/128/256/512,
+other than three branches of three dilations, an even kernel size or one
+above 11, a stage reaching further than `HALO` frames), a failed build, a
+refused launch or a call that would need a gradient raises. Any T is taken:
+the TPU kernel's t_tile % 128 and C-per-sublane rules are tiling rules of
+the TPU. `mrf_stage_fused.launches` counts the stages the conv chain ran on
+the card (one per call, which enqueues its 8 launches),
+`mrf_stage_onepass.launches` those of the one-pass kernel and
+`mrf_stage_unit.launches` those of the unit design (one per stage, which
+enqueues its 4 launches).
 
 What bounds the kernels on the card, and their designs, is written in
 `csrc/mrf.cu`.
@@ -52,6 +58,7 @@ What bounds the kernels on the card, and their designs, is written in
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -85,6 +92,25 @@ ONEPASS_KERNEL_WIDTHS = (8, 16, 32, 64)
 ONEPASS_WIDTHS = (8, 16, 32)
 _ONEPASS_TILE = {8: 896, 16: 896, 32: 384, 64: 128}
 _ONEPASS_HALO, _ONEPASS_REACH = 64, 32
+# the unit design (one launch per residual unit): the widths it is built
+# for, those `mrf_route` sends to it (at C 128 and 256 the conv chain runs
+# faster on an H100; chip_smoke phase 8 times both at each), output frames a
+# tile, and the reach of a conv it takes (the margin rows around conv1's
+# window)
+UNIT_KERNEL_WIDTHS = (64, 128, 256)
+UNIT_WIDTHS = (64,)
+_UNIT_TILE = {64: 192, 128: 192, 256: 64}
+_UNIT_REACH = 32
+# The route's size rule: a design that puts a whole frame tile in one CTA
+# takes a stage only when the stage has at least this many of its work
+# items (`design_items`) per SM of the card; below that the chain's 8
+# launches of smaller items run faster. Read from
+# tools/mrf_onepass_widths_torch.py on an H100 (B 1 and 2 at short T, B 16
+# at the served T): the one-pass kernel beats the chain from 1 item per SM
+# at C 8-32 and loses at 0.5 (C 8, 16) or ties (C 32); the unit design at C
+# 64 from 8 items per SM and loses at 2 (B 16 at the served T gives it 242).
+MIN_ITEMS_PER_SM = {"onepass": 1.0, "unit": 8.0}
+SMS = 132           # an H100 SXM's SMs: the count the route assumes without a card
 
 
 def stage_halo(kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> int:
@@ -144,12 +170,51 @@ def onepass_takes(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES,
         reach <= _ONEPASS_REACH and stage_halo(kernel_sizes, dilations) <= _ONEPASS_HALO
 
 
-def mrf_route(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES,
-              dilations=DILATIONS) -> str:
-    """The design of `csrc/mrf.cu` a CUDA call takes: "onepass" where the
-    one-pass kernel takes the stage and C is 8, 16 or 32, else "chain"."""
-    if C in ONEPASS_WIDTHS and onepass_takes(C, dtype, kernel_sizes, dilations):
+def unit_tile_frames(C: int) -> int:
+    """Output frames of one tile of the unit design at width C (conv1
+    computes 64 frames more, 32 on each side; its window 64 more on each
+    side of those output frames)."""
+    return _UNIT_TILE[C]
+
+
+def unit_takes(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES,
+               dilations=DILATIONS) -> bool:
+    """Whether the unit design is built for the stage: bf16 at C 64-256,
+    three branches of three dilations, no conv reaching further than 32
+    frames (every HiFi-GAN / iSTFTNet stage: 25)."""
+    reach = max(((k - 1) // 2 * d for k, ds in zip(kernel_sizes, dilations) for d in ds),
+                default=0)
+    return dtype == torch.bfloat16 and C in UNIT_KERNEL_WIDTHS and len(kernel_sizes) == 3 \
+        and len(dilations) == 3 and all(len(ds) == 3 for ds in dilations) and \
+        reach <= _UNIT_REACH
+
+
+def design_items(design: str, C: int, batch: int, frames: int) -> int:
+    """Work items (one CTA's unit of work) of a stage of `batch` x `frames`
+    in a design: the one-pass kernel's frame tiles (each all three
+    branches), the unit design's frame tiles of each branch."""
+    if design == "onepass":
+        return batch * -(-frames // _ONEPASS_TILE[C])
+    return 3 * batch * -(-frames // _UNIT_TILE[C])
+
+
+def mrf_route(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
+              batch: int | None = None, frames: int | None = None, sms: int = SMS) -> str:
+    """The design of `csrc/mrf.cu` a CUDA call on x (batch, C, frames) takes:
+    "onepass" where the one-pass kernel takes the stage and C is 8, 16 or 32,
+    "unit" where the unit design takes it and C is in `UNIT_WIDTHS`, each
+    only with at least `MIN_ITEMS_PER_SM` of its work items per SM (`sms`,
+    the card's count); else "chain". Without `batch` and `frames` the width
+    decides alone (a stage as large as the served ones)."""
+    def enough(design: str) -> bool:
+        return batch is None or frames is None or \
+            design_items(design, C, batch, frames) >= MIN_ITEMS_PER_SM[design] * sms
+
+    if C in ONEPASS_WIDTHS and onepass_takes(C, dtype, kernel_sizes, dilations) and \
+            enough("onepass"):
         return "onepass"
+    if C in UNIT_WIDTHS and unit_takes(C, dtype, kernel_sizes, dilations) and enough("unit"):
+        return "unit"
     return "chain"
 
 
@@ -265,10 +330,18 @@ def _checked(x, mats, biases, kernel_sizes, dilations, dtype, packed=None) -> No
 
 def _load_library() -> ctypes.CDLL:
     # chain: 7 pointers; batch, C, T, 3 kernel sizes, 9 dilations, dtype;
-    # stream. One pass: 6 pointers; the same ints but the dtype; stream
+    # stream. One pass: 6 pointers; the same ints but the dtype; stream.
+    # Unit: 7 pointers; the one pass's ints; stream
     return load_library("mrf", {
         "mrf_stage_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
-        "mrf_stage_onepass_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]})
+        "mrf_stage_onepass_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
+        "mrf_stage_unit_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]})
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, which `mrf_route` holds tile counts against."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
@@ -325,8 +398,8 @@ def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
 
 @_mrf_stage_op.register_kernel("cuda")
 def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
-    """The stage on the card, by `mrf_route`: the one-pass kernel or the
-    conv chain, with every check they need."""
+    """The stage on the card, by `mrf_route` on x's shape: the one-pass
+    kernel, the unit design or the conv chain, with every check they need."""
     dtype = dtype or x.dtype
     kernel_sizes, dilations = _nested(kernel_sizes, dilations)
     packed = packed or None
@@ -335,8 +408,12 @@ def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, pack
         packed = pack_mrf_kernel_weights((w3, w7, w11), dtype)
     xk = x.to(dtype).contiguous()
     bias = biases.float().contiguous()
-    if mrf_route(x.shape[1], dtype, kernel_sizes, dilations) == "onepass":
+    B, C, T = x.shape
+    route = mrf_route(C, dtype, kernel_sizes, dilations, B, T, sm_count(x.device))
+    if route == "onepass":
         return mrf_stage_onepass(xk, packed, bias, kernel_sizes, dilations)
+    if route == "unit":
+        return mrf_stage_unit(xk, packed, bias, kernel_sizes, dilations)
     return _mrf_stage_chain(xk, packed, bias, kernel_sizes, dilations)
 
 
@@ -362,6 +439,38 @@ def _mrf_stage_chain(xk, packed, bias, kernel_sizes, dilations):
     return out
 
 
+def _bf16_design_operands(name: str, x: torch.Tensor, packed, biases, kernel_sizes,
+                          dilations, takes: bool, what: str):
+    """Raise on anything a bf16 design (`name`) does not take; returns x,
+    copied where its data does not start on 16 bytes (the kernels' 16-byte
+    loads). `takes`: whether the design is built for the stage, `what` says
+    what it is built for."""
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"{name} takes contiguous bf16 (B, C, T); got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    C = x.shape[1]
+    if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or \
+            len(dilations) != 3 or any(k % 2 == 0 or not 1 <= k <= _MAX_K for k in kernel_sizes) \
+            or any(d < 1 for ds in dilations for d in ds):
+        raise ValueError(f"{name} takes three branches of three dilations >= 1 and "
+                         f"odd kernel sizes up to {_MAX_K}; got {kernel_sizes}, {dilations}")
+    if not takes:
+        raise ValueError(f"{name} takes {what}; got C {C}, kernel_sizes {kernel_sizes}, "
+                         f"dilations {dilations}")
+    if len(packed) != 3 or any(
+            p.dtype != x.dtype or p.numel() != kernel_weights_numel(C, k, x.dtype) or
+            p.device != x.device or not p.is_contiguous() for p, k in zip(packed, kernel_sizes)):
+        raise ValueError(f"{name}: packed weights do not fit "
+                         "(pack_mrf_kernel_weights in bf16, three branches)")
+    if biases.dtype != torch.float32 or biases.numel() != 18 * C or \
+            biases.device != x.device or not biases.is_contiguous():
+        raise ValueError(f"{name}: biases {tuple(biases.shape)} {biases.dtype} do "
+                         f"not fit (18, {C}, 1) fp32")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def mrf_stage_onepass(x: torch.Tensor, packed: list[torch.Tensor], biases: torch.Tensor,
                       kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> torch.Tensor:
     """The one-pass kernel's launch: x (B, C, T) bf16 contiguous on the card,
@@ -372,33 +481,12 @@ def mrf_stage_onepass(x: torch.Tensor, packed: list[torch.Tensor], biases: torch
     beside the conv chain."""
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in ds) for ds in dilations)
-    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"mrf_stage_onepass takes contiguous bf16 (B, C, T); got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    takes = x.dim() == 3 and onepass_takes(x.shape[1], x.dtype, kernel_sizes, dilations)
+    x = _bf16_design_operands(
+        "mrf_stage_onepass", x, packed, biases, kernel_sizes, dilations, takes,
+        f"bf16 at C in {ONEPASS_KERNEL_WIDTHS} within a stage reach of {_ONEPASS_HALO} frames "
+        f"and a conv reach of {_ONEPASS_REACH}")
     B, C, T = x.shape
-    if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or \
-            len(dilations) != 3 or any(k % 2 == 0 or not 1 <= k <= _MAX_K for k in kernel_sizes) \
-            or any(d < 1 for ds in dilations for d in ds):
-        raise ValueError(f"mrf_stage_onepass takes three branches of three dilations >= 1 and "
-                         f"odd kernel sizes up to {_MAX_K}; got {kernel_sizes}, {dilations}")
-    if not onepass_takes(C, x.dtype, kernel_sizes, dilations):
-        raise ValueError(f"mrf_stage_onepass takes bf16 at C in {ONEPASS_KERNEL_WIDTHS} within a "
-                         f"stage reach of {_ONEPASS_HALO} frames and a conv reach of "
-                         f"{_ONEPASS_REACH}; got C {C}, kernel_sizes {kernel_sizes}, "
-                         f"dilations {dilations}")
-    if len(packed) != 3 or any(
-            p.dtype != x.dtype or p.numel() != kernel_weights_numel(C, k, x.dtype) or
-            p.device != x.device or not p.is_contiguous() for p, k in zip(packed, kernel_sizes)):
-        raise ValueError("mrf_stage_onepass: packed weights do not fit "
-                         "(pack_mrf_kernel_weights in bf16, three branches)")
-    if biases.dtype != torch.float32 or biases.numel() != 18 * C or \
-            biases.device != x.device or not biases.is_contiguous():
-        raise ValueError(f"mrf_stage_onepass: biases {tuple(biases.shape)} {biases.dtype} do "
-                         f"not fit (18, {C}, 1) fp32")
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_stage_onepass: unsupported device {x.device}")
-    if x.data_ptr() % 16:
-        x = x.clone()       # the kernel's 16-byte loads
     out = torch.empty_like(x)
     lib = _load_library()
     with torch.cuda.device(x.device):
@@ -412,6 +500,41 @@ def mrf_stage_onepass(x: torch.Tensor, packed: list[torch.Tensor], biases: torch
 
 
 mrf_stage_onepass.launches = 0
+
+
+def mrf_stage_unit(x: torch.Tensor, packed: list[torch.Tensor], biases: torch.Tensor,
+                   kernel_sizes=KERNEL_SIZES, dilations=DILATIONS) -> torch.Tensor:
+    """The unit design's launches (one per dilation, then the average): x
+    (B, C, T) bf16 contiguous on the card, `packed` its bf16
+    `pack_mrf_kernel_weights` stream, biases fp32 (18 * C); returns (B, C,
+    T) bf16. Raises on anything the design does not take (`unit_takes`).
+    `mrf_stage_fused` reaches it through the custom op where `mrf_route`
+    sends the stage here; chip_smoke times it beside the conv chain at every
+    width it is built for."""
+    kernel_sizes = tuple(int(k) for k in kernel_sizes)
+    dilations = tuple(tuple(int(d) for d in ds) for ds in dilations)
+    takes = x.dim() == 3 and unit_takes(x.shape[1], x.dtype, kernel_sizes, dilations)
+    x = _bf16_design_operands(
+        "mrf_stage_unit", x, packed, biases, kernel_sizes, dilations, takes,
+        f"bf16 at C in {UNIT_KERNEL_WIDTHS} within a conv reach of {_UNIT_REACH} frames")
+    B, C, T = x.shape
+    out = torch.empty_like(x)
+    # each branch's residual stream, twice (a unit reads one set, writes the
+    # other), (B, T, C) fp32
+    scratch = torch.empty(6, B, T, C, dtype=torch.float32, device=x.device)
+    lib = _load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mrf_stage_unit_fwd(
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), *(p.data_ptr() for p in packed),
+            biases.data_ptr(), B, C, T, *kernel_sizes, *(d for ds in dilations for d in ds),
+            stream)
+    check_launch("mrf_stage_unit", err)
+    mrf_stage_unit.launches += 1
+    return out
+
+
+mrf_stage_unit.launches = 0
 
 
 class MRFStages:
