@@ -226,6 +226,59 @@ def test_reset_stats(server):
     assert "latency_ms_p50" not in s
 
 
+def test_served_requests_carry_their_ids_in_spans(server):
+    """Under a profiler session each request's `serve.queue_wait` and
+    `serve.request` spans carry its id, the same in both; each group has its
+    `serve.collect` and `serve.encode` spans, and its synthesis its
+    `synth.batch` with the group's rows counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from visual_onoma_to_wave_tpu_torch import tracing
+
+    n, codes = 4, []
+
+    def one(i):
+        codes.append(_request(server, "POST", "/v1/synthesize",
+                              {"text": "パンパ"[:1 + i % 3], "audiotype": "drum"})[0])
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and codes == [200] * n
+    spans = tracing.spans()
+    waits = [s for s in spans if s.name == "serve.queue_wait"]
+    done = [s for s in spans if s.name == "serve.request"]
+    assert len({s.req for s in waits}) == n and len(done) == n
+    assert sorted(s.req for s in waits) == sorted(s.req for s in done)
+    for w in waits:
+        d = next(s for s in done if s.req == w.req)
+        assert d.start == w.start <= w.end <= d.end
+    names = {s.name for s in spans}
+    assert {"serve.collect", "serve.encode", "synth.batch"} <= names
+    assert sum(s.counts.get("synth.rows", 0) for s in spans if s.counts) == n
+
+
+def test_stats_report_synthesis_counts(server):
+    """/v1/stats's "synth": the recorder's cumulative counts, which a
+    request moves by its own row, characters, frames and copies."""
+    keys = {"rows", "rows_padded", "chars", "chars_padded", "frames", "frames_vocoded",
+            "h2d_bytes", "d2h_bytes"}
+    before = _request(server, "GET", "/v1/stats")[1]["synth"]
+    status, r = _request(server, "POST", "/v1/synthesize", {"text": "パン", "audiotype": "drum"})
+    assert status == 200
+    after = _request(server, "GET", "/v1/stats")[1]["synth"]
+    assert set(before) == set(after) == keys
+    d = {k: after[k] - before[k] for k in keys}
+    assert d["rows"] == d["rows_padded"] == 1 and d["frames"] == r["mel_frames"]
+    assert d["chars"] == 2 and d["chars_padded"] == 4      # padded to the 4-character bucket
+    assert d["frames_vocoded"] >= d["frames"] and d["d2h_bytes"] > 0 and d["h2d_bytes"] > 0
+    server.reset_stats()     # the server's counters only; the recorder's are per process
+    assert _request(server, "GET", "/v1/stats")[1]["synth"] == after
+
+
 def test_distinct_controls_share_a_batch(server):
     """Controls are per-item traced inputs: requests with different
     d_control coalesce into ONE device batch (no grouping, no starvation)

@@ -14,11 +14,12 @@ prints, one JSON object per line:
   * `acoustic_ab`: the acoustic forward with the attention kernel against
     the same forward with the plain PyTorch attention, alternated
     (kernel, plain, plain, kernel, ...) 6 runs each, CUDA events;
-  * `profile`: torch.profiler over 3 fused calls after 2 warm-ups:
-    wall ms per call, device time per kernel class (conv, elementwise,
-    attention, convnext, gemm, other), device time inside the `acoustic` and
-    `vocoder` ranges, and the device idle share (1 - union of the kernel
-    and copy intervals / their span).
+  * `profile`: torch.profiler over 3 calls of the port's fused step
+    (`synthesis.make_fused_infer`) after 2 warm-ups: wall ms per call,
+    device time per kernel class (conv, elementwise, attention, convnext,
+    gemm, other), device time inside the program's own `synth.acoustic` and
+    `synth.vocoder` ranges (its spans, `tracing.py`), and the device idle
+    share (1 - union of the kernel and copy intervals / their span).
 
 With `--train` it profiles the acoustic train step instead (`training/
 train_state.train_step`: forward with dropout, loss, backward, clip, Adam),
@@ -52,7 +53,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -62,6 +63,9 @@ import chip_smoke  # noqa: E402
 from visual_onoma_to_wave_tpu_torch.models import layers  # noqa: E402
 from visual_onoma_to_wave_tpu_torch.ops import attention  # noqa: E402
 from visual_onoma_to_wave_tpu_torch.precision import pin_fp32  # noqa: E402
+from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer  # noqa: E402
+
+RANGES = ("synth.acoustic", "synth.vocoder")    # the program's spans in make_fused_infer
 
 
 def kernel_class(name: str) -> str:
@@ -216,16 +220,14 @@ def main() -> int:
         return 0
     print(json.dumps({"card": smi, "vocoder": args.vocoder}), flush=True)
     model, gen, batch = chip_smoke.icassp_b16(dev, args.vocoder)
+    step = make_fused_infer(model, gen)
 
     def acoustic():
         return model(batch["audiotypes"], batch["texts"], batch["src_lens"],
                      image_cells=batch["image_cells"])
 
     def fused():
-        with record_function("acoustic"):
-            mel = acoustic()["postnet_mel"]
-        with record_function("vocoder"):
-            return gen(mel)
+        return step(batch)["wav"]
 
     cores = {"kernel": attention.attention_core, "plain": attention.attention_core_reference}
     runs = {"kernel": [], "plain": []}
@@ -260,7 +262,7 @@ def main() -> int:
     trace = json.loads(trace_path.read_text())
     classes, total = class_table(trace, CALLS)
     ranges = {e.key: getattr(e, "device_time_total", 0) / 1e3 / CALLS
-              for e in events if e.key in ("acoustic", "vocoder")}
+              for e in events if e.key in RANGES}
     print(json.dumps({"profile": {
         "calls": CALLS, "wall_ms_per_call": wall_ms,
         "kernel_ms_per_call": total, "classes_per_call": classes,

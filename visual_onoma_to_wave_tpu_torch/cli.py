@@ -15,6 +15,7 @@ serving as subcommands.
         --text パンパン --audiotype drum --out out.wav
     python -m visual_onoma_to_wave_tpu_torch.cli synthesize-batch <config> <rows> <out_dir> \
         --acoustic acoustic.npz --vocoder vocoder.npz [--batch-size 16] [--device cpu]
+        [--profile-dir DIR]
     python -m visual_onoma_to_wave_tpu_torch.cli serve <config> --acoustic ... [--vocoder ...]
     python -m visual_onoma_to_wave_tpu_torch.cli serve --exported <artifact_dir> [--device cpu]
     python -m visual_onoma_to_wave_tpu_torch.cli export <config> --acoustic ... --vocoder ...
@@ -100,9 +101,16 @@ def cmd_synthesize_batch(args) -> int:
     after the row, in batches of --batch-size rows sorted by text length
     through the fused acoustic + vocoder call. Per-row controls are scaled
     by the global --d-control / --e-control; rows predicted 0 frames are
-    skipped and counted."""
+    skipped and counted. With --profile-dir the batches run under
+    torch.profiler: its Chrome trace goes to trace.json there, and the host
+    time a call by the program's spans (`tracing.breakdown`) is printed as
+    one JSON line."""
+    import contextlib
     import time
 
+    from torch.profiler import ProfilerActivity, profile
+
+    from visual_onoma_to_wave_tpu_torch import tracing
     from visual_onoma_to_wave_tpu_torch.config import load_config
     from visual_onoma_to_wave_tpu_torch.data.audio_io import write_wav
 
@@ -118,22 +126,31 @@ def cmd_synthesize_batch(args) -> int:
     order = sorted(range(len(rows)), key=lambda i: len(rows[i]["text"]))
     sr = cfg.audio.sampling_rate
     written, skipped, audio_sec = 0, 0, 0.0
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if synth.device.type == "cuda" else [])
     t0 = time.perf_counter()
-    for c0 in range(0, len(order), args.batch_size):
-        chunk = [rows[i] for i in order[c0:c0 + args.batch_size]]
-        results = synth.synthesize_batch(
-            [r["text"] for r in chunk], [r["audiotype"] for r in chunk],
-            e_control=[r["e"] * args.e_control for r in chunk],
-            d_control=[r["d"] * args.d_control for r in chunk], return_mel=False)
-        for r, res in zip(chunk, results):
-            if res.wav is None or res.mel_len == 0:
-                skipped += 1
-                continue
-            name = "".join(ch if ch.isalnum() or ch in "-_." else "_" for ch in r["name"]) or "row"
-            write_wav(out_dir / f"{name}.wav", res.wav, sr)
-            written += 1
-            audio_sec += res.wav.shape[0] / sr
+    with profile(activities=activities) if args.profile_dir else contextlib.nullcontext() as prof:
+        for c0 in range(0, len(order), args.batch_size):
+            chunk = [rows[i] for i in order[c0:c0 + args.batch_size]]
+            results = synth.synthesize_batch(
+                [r["text"] for r in chunk], [r["audiotype"] for r in chunk],
+                e_control=[r["e"] * args.e_control for r in chunk],
+                d_control=[r["d"] * args.d_control for r in chunk], return_mel=False)
+            for r, res in zip(chunk, results):
+                if res.wav is None or res.mel_len == 0:
+                    skipped += 1
+                    continue
+                name = "".join(ch if ch.isalnum() or ch in "-_." else "_"
+                               for ch in r["name"]) or "row"
+                write_wav(out_dir / f"{name}.wav", res.wav, sr)
+                written += 1
+                audio_sec += res.wav.shape[0] / sr
     wall = time.perf_counter() - t0
+    if prof is not None:
+        prof_dir = pathlib.Path(args.profile_dir)
+        prof_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(prof_dir / "trace.json"))
+        print(json.dumps({"host_breakdown": tracing.breakdown()}))
     print(f"wrote {written} wavs ({audio_sec:.1f}s audio) to {out_dir} "
           f"in {wall:.1f}s ({audio_sec / max(wall, 1e-9):.1f}x realtime, "
           f"includes first-compile)"
@@ -426,6 +443,9 @@ def main(argv=None):
                    help="global multiplier on per-row e_control")
     s.add_argument("--d-control", type=float, default=1.0,
                    help="global multiplier on per-row d_control")
+    s.add_argument("--profile-dir", default=None,
+                   help="run under torch.profiler, write its trace.json here and print the "
+                        "host time a call by the program's spans")
     s.set_defaults(fn=cmd_synthesize_batch)
 
     s = sub.add_parser("export", help="the fused serving step as a torch.export artifact")

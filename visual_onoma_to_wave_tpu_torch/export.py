@@ -46,7 +46,9 @@ from torch import nn
 
 # registers the custom ops the programs call
 import visual_onoma_to_wave_tpu_torch.ops  # noqa: F401
-from visual_onoma_to_wave_tpu_torch.synthesis import Synthesizer, resolve_device, vocode
+from visual_onoma_to_wave_tpu_torch import tracing
+from visual_onoma_to_wave_tpu_torch.synthesis import (Synthesizer, resolve_device, to_device,
+                                                      to_host, vocode)
 
 MANIFEST = "manifest.json"
 FORMAT_VERSION = 1
@@ -277,14 +279,13 @@ class ExportedSynthesizer(Synthesizer):
                      **({"image_cells": pad(batch["image_cells"], bb, cc, value=1.0)}
                         if "image_cells" in batch else {})}
             e_ctl, d_ctl = pad(e_ctl, bb, value=1.0), pad(d_ctl, bb, value=1.0)
-        dev = self.device
-        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+        t = to_device({**batch, "e_control": e_ctl, "d_control": d_ctl}, self.device)
         kwargs = {"image_cells": t["image_cells"]} if "image_cells" in t else {}
-        with self._lock, torch.inference_mode():
-            outs = self._program(t["audiotypes"], t["texts"], t["src_lens"],
-                                 torch.from_numpy(e_ctl).to(dev),
-                                 torch.from_numpy(d_ctl).to(dev), **kwargs)
-            return {k: v.cpu().numpy() for k, v in zip(_OUT_KEYS, outs)}
+        with self._locked(), torch.inference_mode():
+            with tracing.span("synth.fused"):
+                outs = self._program(t["audiotypes"], t["texts"], t["src_lens"],
+                                     t["e_control"], t["d_control"], **kwargs)
+            return to_host(dict(zip(_OUT_KEYS, outs)))
 
     def vocode(self, mels, mel_lens):
         raise RuntimeError("ExportedSynthesizer serves the fused text->waveform program only; "

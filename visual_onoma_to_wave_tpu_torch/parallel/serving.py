@@ -17,7 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from visual_onoma_to_wave_tpu_torch.synthesis import make_fused_infer, resolve_device
+from visual_onoma_to_wave_tpu_torch.synthesis import (make_fused_infer, resolve_device, to_device,
+                                                      to_host)
 
 # the outputs a served batch reads (`Synthesizer.synthesize_batch`)
 SERVED_OUTPUTS = ("postnet_mel", "mel_lens", "duration_rounded", "energy_pred", "wav")
@@ -78,13 +79,13 @@ def make_sharded_fused(model, gen, devices: Sequence[str | torch.device]):
         outs = []
         for i, (dev, _, fused) in enumerate(replicas):    # each enqueues on its own device
             sl = slice(i * rows, (i + 1) * rows)
-            part = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[sl])).to(dev)
-                    for k, v in batch.items() if v is not None}
-            outs.append(fused(part, e_control=torch.from_numpy(e[sl]).to(dev),
-                              d_control=torch.from_numpy(dc[sl]).to(dev)))
-        return {k: (None if outs[0][k] is None
-                    else np.concatenate([o[k].cpu().numpy() for o in outs]))
-                for k in SERVED_OUTPUTS if k in outs[0]}
+            part = to_device({**{k: np.asarray(v)[sl] for k, v in batch.items() if v is not None},
+                              "e_control": e[sl], "d_control": dc[sl]}, dev)
+            e_part, d_part = part.pop("e_control"), part.pop("d_control")
+            outs.append(fused(part, e_control=e_part, d_control=d_part))
+        hosts = [to_host({k: o[k] for k in SERVED_OUTPUTS if k in o}) for o in outs]
+        return {k: None if hosts[0][k] is None else np.concatenate([h[k] for h in hosts])
+                for k in hosts[0]}
 
     return run
 

@@ -20,12 +20,20 @@ call (one fused acoustic + vocoder step on the card per batch):
     fast with 503 (circuit breaker);
   * /v1/batch admission is all or nothing, and keeps a reserve of queue
     slots for /v1/synthesize singles;
-  * failure details are logged server-side only.
+  * failure details are logged server-side only;
+  * under a `torch.profiler` session the recorder (`tracing.py`) keeps each
+    request's `serve.queue_wait` (enqueue to being taken into a group) and
+    `serve.request` (enqueue to its answer), under the request's id, and
+    each group's `serve.collect` (the batching window) and `serve.encode`
+    (wav and base64 of its answers).
 
 Endpoints:
     GET  /healthz          -> {"ok": true}
     GET  /v1/meta          -> audiotypes, sampling rate, limits
-    GET  /v1/stats         -> request/batch counters, mean batch size, latency quantiles (ms)
+    GET  /v1/stats         -> request/batch counters, mean batch size, latency quantiles (ms),
+                              and "synth": the process's cumulative synthesis counts
+                              (rows, rows_padded, chars, chars_padded, frames,
+                              frames_vocoded, h2d_bytes, d2h_bytes)
     POST /v1/synthesize    -> {"text", "audiotype", "width_rates"?, "e_control"?, "d_control"?}
          returns {"wav_b64"?, "sample_rate", "mel_frames", "durations", "seconds"}
     POST /v1/batch         -> {"items": [<as /v1/synthesize>, ...]} -> {"items": [...]}
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import itertools
 import json
 import logging
 import queue
@@ -43,6 +52,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from visual_onoma_to_wave_tpu_torch import tracing
+
 _log = logging.getLogger("visual_onoma_to_wave_tpu_torch.serve")
 
 MAX_TEXT_LEN = 64
@@ -50,6 +61,9 @@ LATENCY_WINDOW = 1000            # latency samples kept for the stats quantiles
 MAX_BODY_BYTES = 1 << 20         # request-body cap
 WIDTH_RATE_RANGE = (0.05, 8.0)   # glyph-stretch bounds
 CONTROL_RANGE = (0.05, 20.0)     # e/d control bounds
+# the recorder's cumulative counts that /v1/stats reports under "synth"
+SYNTH_COUNTS = ("rows", "rows_padded", "chars", "chars_padded", "frames", "frames_vocoded",
+                "h2d_bytes", "d2h_bytes")
 
 
 def _in_range(v, lo: float, hi: float) -> bool:
@@ -64,10 +78,14 @@ def _in_range(v, lo: float, hi: float) -> bool:
     return lo <= f <= hi
 
 
+_request_ids = itertools.count()
+
+
 class _Pending:
-    __slots__ = ("req", "event", "result", "error", "error_code", "t0", "deadline")
+    __slots__ = ("req", "event", "result", "error", "error_code", "t0", "deadline", "id")
 
     def __init__(self, req: dict, timeout_s: float):
+        self.id = next(_request_ids)
         self.req = req
         self.event = threading.Event()
         self.result = None
@@ -75,6 +93,11 @@ class _Pending:
         self.error_code = 500
         self.t0 = time.perf_counter()
         self.deadline = self.t0 + timeout_s
+
+    def finish(self) -> None:
+        """Wake the request's handler; enqueue to here is span `serve.request`."""
+        tracing.record("serve.request", int(self.t0 * 1e9), time.perf_counter_ns(), req=self.id)
+        self.event.set()
 
 
 class BatchingServer:
@@ -214,7 +237,7 @@ class BatchingServer:
                 return
             p.error = "server is shutting down"
             p.error_code = 503
-            p.event.set()
+            p.finish()
 
     # ------------------------------------------------------------ requests
     def meta(self) -> dict:
@@ -248,6 +271,8 @@ class BatchingServer:
                                 if s["batches"] else 0.0)
         # read-only: pruning the list belongs to the worker thread
         s["breaker_open"] = any(t.is_alive() for t in self._stuck_calls)
+        counts = tracing.counters()
+        s["synth"] = {k: counts.get("synth." + k, 0) for k in SYNTH_COUNTS}
         return s
 
     def _validate(self, req) -> str | None:
@@ -371,23 +396,31 @@ class BatchingServer:
             first = self._q.get(timeout=0.1) if block else self._q.get_nowait()
         except queue.Empty:
             return []
+        self._taken(first)
         group = [first]
         window_end = time.perf_counter() + self.window_s
-        while len(group) < self.max_batch:
-            left = window_end - time.perf_counter()
-            if left <= 0:
-                break
-            try:
-                group.append(self._q.get(timeout=left))
-            except queue.Empty:
-                break
+        with tracing.span("serve.collect"):
+            while len(group) < self.max_batch:
+                left = window_end - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    group.append(self._taken(self._q.get(timeout=left)))
+                except queue.Empty:
+                    break
         now = time.perf_counter()
         for p in group:     # expired while queued: 504 with no device work
             if p.deadline < now:
                 p.error = "request deadline exceeded"
                 p.error_code = 504
-                p.event.set()
+                p.finish()
         return [p for p in group if not p.event.is_set()]
+
+    @staticmethod
+    def _taken(p: _Pending) -> _Pending:
+        """`p`, its wait in the queue spanned as `serve.queue_wait`."""
+        tracing.record("serve.queue_wait", int(p.t0 * 1e9), time.perf_counter_ns(), req=p.id)
+        return p
 
     def _work_loop(self) -> None:
         """The one worker; it must never die. Up to pipeline_depth device
@@ -420,7 +453,7 @@ class BatchingServer:
                 for p in group:
                     if not p.event.is_set():
                         p.error = p.error or "synthesis failed"
-                        p.event.set()
+                        p.finish()
         while inflight:
             self._retire_safe(inflight.popleft())
 
@@ -432,7 +465,7 @@ class BatchingServer:
             for p in f.live:
                 if not p.event.is_set():
                     p.error = p.error or "synthesis failed"
-                    p.event.set()
+                    p.finish()
 
     class _Flight:
         __slots__ = ("live", "outcome", "thread", "sig", "deadline", "record_stats")
@@ -522,14 +555,15 @@ class BatchingServer:
                 e_control=[float(p.req.get("e_control", 1.0)) for p in live],
                 d_control=[float(p.req.get("d_control", 1.0)) for p in live],
                 return_mel=False)
-            outcome["results"] = [{
-                "sample_rate": sr,
-                "mel_frames": int(r.mel_len),
-                "durations": [int(d) for d in r.durations],
-                "seconds": float(r.mel_len * hop / sr),
-                "wav_b64": (base64.b64encode(wav_bytes(np.asarray(r.wav), sr)).decode()
-                            if r.wav is not None else None),
-            } for r in results]
+            with tracing.span("serve.encode"):
+                outcome["results"] = [{
+                    "sample_rate": sr,
+                    "mel_frames": int(r.mel_len),
+                    "durations": [int(d) for d in r.durations],
+                    "seconds": float(r.mel_len * hop / sr),
+                    "wav_b64": (base64.b64encode(wav_bytes(np.asarray(r.wav), sr)).decode()
+                                if r.wav is not None else None),
+                } for r in results]
         except Exception as e:
             outcome["exc"] = e
 
@@ -539,4 +573,4 @@ class BatchingServer:
                 self.stats["batches"] += 1
                 self.stats["batched_requests"] += len(group)
         for p in group:
-            p.event.set()
+            p.finish()

@@ -30,6 +30,7 @@ return the waveform in fp32 whatever the dtypes.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -37,6 +38,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from visual_onoma_to_wave_tpu_torch import tracing
 from visual_onoma_to_wave_tpu_torch.bridge import load_npz, vocoder_state_dict, vtts_state_dict
 from visual_onoma_to_wave_tpu_torch.models.vocoder import generate, get_vocoder, vocoder_infer
 from visual_onoma_to_wave_tpu_torch.models.vtts import VTTS
@@ -62,10 +64,13 @@ def make_fused_infer(model: VTTS, gen):
 
     @torch.inference_mode()
     def fused(batch: dict, e_control=1.0, d_control=1.0) -> dict:
-        out = model(batch["audiotypes"], batch["texts"], batch["src_lens"],
-                    image_cells=batch.get("image_cells"),
-                    e_control=e_control, d_control=d_control)
-        return {**out, "wav": vocode(gen, out["postnet_mel"])}
+        with tracing.span("synth.acoustic"):
+            out = model(batch["audiotypes"], batch["texts"], batch["src_lens"],
+                        image_cells=batch.get("image_cells"),
+                        e_control=e_control, d_control=d_control)
+        with tracing.span("synth.vocoder"):
+            wav = vocode(gen, out["postnet_mel"])
+        return {**out, "wav": wav}
 
     return fused
 
@@ -83,6 +88,23 @@ def vocode(gen, mel: torch.Tensor) -> torch.Tensor:
     """(B, T, n_mels) natural-log mels -> (B, samples) waveforms through
     `models.vocoder.generate` (which feeds a MelGAN mel / ln 10)."""
     return generate(gen, mel)
+
+
+def to_device(arrays: dict, device: torch.device) -> dict:
+    """numpy `arrays` copied to `device` as tensors, spanned as `synth.h2d`
+    and counted (`synth.h2d_bytes`, the arrays' nbytes)."""
+    with tracing.span("synth.h2d"):
+        tracing.count("synth.h2d_bytes", sum(a.nbytes for a in arrays.values()))
+        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device) for k, a in arrays.items()}
+
+
+def to_host(out: dict) -> dict:
+    """`out` with every tensor copied to a numpy array, spanned as
+    `synth.d2h` and counted (`synth.d2h_bytes`, the arrays' nbytes)."""
+    with tracing.span("synth.d2h"):
+        copied = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
+        tracing.count("synth.d2h_bytes", sum(v.nbytes for v in copied.values()))
+    return {**out, **copied}
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -243,20 +265,29 @@ class Synthesizer:
         n_max = max(len(t) for t in texts)
         return b_pad, -(-n_max // self.text_bucket) * self.text_bucket
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """`self._lock` held, the wait for it spanned as `synth.lock_wait`."""
+        with tracing.span("synth.lock_wait"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     def _run(self, batch: dict, e_ctl: np.ndarray, d_ctl: np.ndarray) -> dict:
-        dev = self.device
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        e_ctl, d_ctl = torch.from_numpy(e_ctl).to(dev), torch.from_numpy(d_ctl).to(dev)
-        with self._lock:
-            if self._fused is not None:
-                out = self._fused(batch, e_control=e_ctl, d_control=d_ctl)
-            else:
-                with torch.inference_mode():
-                    out = self.model(batch["audiotypes"], batch["texts"], batch["src_lens"],
-                                     image_cells=batch.get("image_cells"),
-                                     e_control=e_ctl, d_control=d_ctl)
-            return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-                    for k, v in out.items()}
+        batch = to_device({**batch, "e_control": e_ctl, "d_control": d_ctl}, self.device)
+        e_ctl, d_ctl = batch.pop("e_control"), batch.pop("d_control")
+        with self._locked():
+            with tracing.span("synth.fused"):
+                if self._fused is not None:
+                    out = self._fused(batch, e_control=e_ctl, d_control=d_ctl)
+                else:
+                    with torch.inference_mode():
+                        out = self.model(batch["audiotypes"], batch["texts"], batch["src_lens"],
+                                         image_cells=batch.get("image_cells"),
+                                         e_control=e_ctl, d_control=d_ctl)
+            return to_host(out)
 
     # ------------------------------------------------------------ synthesis
     def vocode(self, mels: np.ndarray, mel_lens: Sequence[int]) -> list[np.ndarray]:
@@ -306,60 +337,78 @@ class Synthesizer:
 
     def _synthesize_batch(self, texts, audiotypes, width_rates, e_control, d_control,
                           return_mel: bool, sharded: bool) -> list[SynthesisResult]:
-        if len(texts) != len(audiotypes):
-            raise ValueError(f"{len(texts)} texts but {len(audiotypes)} audiotypes")
-        texts = [self._clean_text(t) for t in texts]
-        bsz = len(texts)
-        width_rates = [None] * bsz if width_rates is None else width_rates
-        self._check_controls(e_control, d_control)
-        for wr in width_rates:
-            if wr is not None:
-                self._check_controls(1.0, 1.0, wr)
-        b_pad, C = self._signature(texts, len(self.devices) if sharded else 1)
+        call = tracing.new_call()
+        with tracing.span("synth.batch", call=call):
+            if len(texts) != len(audiotypes):
+                raise ValueError(f"{len(texts)} texts but {len(audiotypes)} audiotypes")
+            texts = [self._clean_text(t) for t in texts]
+            bsz = len(texts)
+            width_rates = [None] * bsz if width_rates is None else width_rates
+            self._check_controls(e_control, d_control)
+            for wr in width_rates:
+                if wr is not None:
+                    self._check_controls(1.0, 1.0, wr)
+            b_pad, C = self._signature(texts, len(self.devices) if sharded else 1)
 
-        ids = np.zeros((b_pad,), np.int32)
-        text_ids = np.zeros((b_pad, C), np.int32)
-        src_lens = np.ones((b_pad,), np.int32)
-        cells = np.ones((b_pad, C, self.metadata.image_height, self.cell_width), np.float32)
-        images = []
-        for i, (text, at) in enumerate(zip(texts, audiotypes)):
-            ids[i] = self._audiotype_id(at)
-            n = len(text)
-            src_lens[i] = n
-            text_ids[i, :n] = self._encode(text)
+            with tracing.span("synth.pad"):
+                ids = np.zeros((b_pad,), np.int32)
+                text_ids = np.zeros((b_pad, C), np.int32)
+                src_lens = np.ones((b_pad,), np.int32)
+                cells = np.ones((b_pad, C, self.metadata.image_height, self.cell_width),
+                                np.float32)
+
+                def column(v) -> np.ndarray:
+                    col = np.ones((b_pad,), np.float32)
+                    col[:bsz] = np.asarray(v, np.float32)
+                    return col
+
+                e_col, d_col = column(e_control), column(d_control)
+
+            with tracing.span("synth.render"):
+                images = []
+                for i, (text, at) in enumerate(zip(texts, audiotypes)):
+                    with tracing.span("synth.render_one", req=(call, i), ranged=False):
+                        ids[i] = self._audiotype_id(at)
+                        n = len(text)
+                        src_lens[i] = n
+                        text_ids[i, :n] = self._encode(text)
+                        if self.use_image:
+                            c = self._render_cells(text, width_rates[i] or [1.0] * n)
+                            cells[i, :n] = c
+                            images.append((c.transpose(1, 0, 2).reshape(c.shape[1], -1) * 255
+                                           ).astype(np.uint8))
+                        else:
+                            images.append(None)
+            batch = {"audiotypes": ids, "texts": text_ids, "src_lens": src_lens}
             if self.use_image:
-                c = self._render_cells(text, width_rates[i] or [1.0] * n)
-                cells[i, :n] = c
-                images.append((c.transpose(1, 0, 2).reshape(c.shape[1], -1) * 255
-                               ).astype(np.uint8))
+                batch["image_cells"] = cells
+            tracing.count("synth.rows", bsz)
+            tracing.count("synth.rows_padded", b_pad)
+            tracing.count("synth.chars", sum(len(t) for t in texts))
+            tracing.count("synth.chars_padded", b_pad * C)
+
+            if sharded:
+                with self._locked(), tracing.span("synth.fused"):
+                    out = self._sharded(batch, e_control=e_col, d_control=d_col)
             else:
-                images.append(None)
-        batch = {"audiotypes": ids, "texts": text_ids, "src_lens": src_lens}
-        if self.use_image:
-            batch["image_cells"] = cells
+                out = self._run(batch, e_col, d_col)
 
-        def column(c) -> np.ndarray:
-            col = np.ones((b_pad,), np.float32)
-            col[:bsz] = np.asarray(c, np.float32)
-            return col
-
-        if sharded:
-            with self._lock:
-                out = self._sharded(batch, e_control=column(e_control),
-                                    d_control=column(d_control))
-        else:
-            out = self._run(batch, column(e_control), column(d_control))
-        mel_lens = out["mel_lens"][:bsz].astype(int)
-        durs = out["duration_rounded"][:bsz].astype(np.int32)
-        energies = out["energy_pred"][:bsz] if out["energy_pred"] is not None else None
-        hop = self.config.audio.stft.hop_length
-        results = []
-        for i, text in enumerate(texts):
-            n, ml = len(text), max(int(mel_lens[i]), 1)
-            results.append(SynthesisResult(
-                wav=out["wav"][i, :ml * hop] if "wav" in out else None,
-                mel=out["postnet_mel"][i, :ml] if return_mel else None,
-                durations=durs[i, :n],
-                energy=energies[i, :n] if energies is not None else None,
-                image=images[i], mel_len=ml))
-        return results
+            with tracing.span("synth.slice"):
+                mel_lens = out["mel_lens"][:bsz].astype(int)
+                durs = out["duration_rounded"][:bsz].astype(np.int32)
+                energies = out["energy_pred"][:bsz] if out["energy_pred"] is not None else None
+                hop = self.config.audio.stft.hop_length
+                results = []
+                for i, text in enumerate(texts):
+                    n, ml = len(text), max(int(mel_lens[i]), 1)
+                    results.append(SynthesisResult(
+                        wav=out["wav"][i, :ml * hop] if "wav" in out else None,
+                        mel=out["postnet_mel"][i, :ml] if return_mel else None,
+                        durations=durs[i, :n],
+                        energy=energies[i, :n] if energies is not None else None,
+                        image=images[i], mel_len=ml))
+                tracing.count("synth.frames", sum(r.mel_len for r in results))
+                if "wav" in out:   # every row vocoded, at the mel buffer's length
+                    rows_v, frames_v = out["postnet_mel"].shape[:2]
+                    tracing.count("synth.frames_vocoded", rows_v * frames_v)
+            return results
