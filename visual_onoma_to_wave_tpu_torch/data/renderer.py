@@ -6,6 +6,11 @@ visual_onoma_to_wave_tpu/data/renderer.py).
 * per-character widths by fair integer allocation, (W + i) // n;
 * each glyph drawn on a fontsize square, resized to its width, pasted in turn.
 
+The drawn cell is memoised on every argument that decides its pixels, and
+serving's resized cell too (`draw_with_width_rates` composes its strip from
+them in numpy): a request redraws no glyph it or an earlier one has drawn at
+that width, and the strip is byte-equal to pasting each cell in turn.
+
 When the configured font file cannot be loaded, PIL's default font stands
 in (the geometry depends only on the width allocation). A character the
 active font has no glyph for is drawn as a deterministic stroke pattern
@@ -15,6 +20,7 @@ font; `glyph_source_for_chars` reports which of the two a corpus got.
 from __future__ import annotations
 
 import pathlib
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -90,8 +96,11 @@ def _draw_procedural_glyph(draw: "ImageDraw.ImageDraw", ch: str, fontsize: int, 
     draw.ellipse([cx - r, cy - r, cx + r, cy + r], outline=fg, width=max(1, s // 12))
 
 
+@lru_cache(maxsize=2048)
 def _draw_char_cell(bg, fg, font_path: str, fontsize: int, ch: str):
-    """A fontsize-square RGB cell with ch's glyph (font or procedural)."""
+    """A fontsize-square RGB cell with ch's glyph (font or procedural).
+    Memoised, so every caller shares one image: callers resize it or paste
+    from it and never draw on it."""
     cell = Image.new("RGB", (fontsize, fontsize), bg)
     d = ImageDraw.Draw(cell)
     if _has_glyph(font_path, fontsize, ch):
@@ -99,6 +108,36 @@ def _draw_char_cell(bg, fg, font_path: str, fontsize: int, ch: str):
     else:
         _draw_procedural_glyph(d, ch, fontsize, fg)
     return cell
+
+
+_built = threading.local()
+
+
+@lru_cache(maxsize=16384)
+def _sized_cell(bg, fg, font_path: str, fontsize: int, ch: str, w: int,
+                grayscale: bool) -> np.ndarray:
+    """ch's cell resized to width w, as (fontsize, w) uint8 (grayscale) or
+    (fontsize, w, 3) RGB pixels, read-only: every caller shares the array.
+    The RGB cell is resized first and converted after, as the canvas was:
+    PIL's conversion to L is per pixel."""
+    _built.n = getattr(_built, "n", 0) + 1
+    cell = _draw_char_cell(bg, fg, font_path, fontsize, ch).resize((w, fontsize))
+    px = np.array(cell.convert("L") if grayscale else cell, np.uint8)
+    px.setflags(write=False)
+    return px
+
+
+def sized_cells_built() -> int:
+    """How many resized cells this thread has built: the misses of
+    `draw_with_width_rates`' cell cache (its lookups less these are hits)."""
+    return getattr(_built, "n", 0)
+
+
+@lru_cache(maxsize=64)
+def _background_pixel(bg, grayscale: bool) -> np.ndarray:
+    """The canvas's background as one pixel in the strip's mode."""
+    im = Image.new("RGB", (1, 1), bg)
+    return np.array(im.convert("L") if grayscale else im, np.uint8)[0, 0]
 
 
 def allocate_character_widths(text_len: int, canvas_width: int) -> np.ndarray:
@@ -157,17 +196,19 @@ class VisualTextRenderer:
                               grayscale: bool = True) -> np.ndarray:
         """Serving's rendering: a len(text) * cell_width canvas, glyph i
         resized to fontsize * width_rates[i] wide and centred in its cell.
-        Returns (fontsize, len(text) * cell_width) uint8 (or RGB)."""
-        canvas = Image.new("RGB", (cell_width * len(text), self.fontsize), self.bg)
+        Returns (fontsize, len(text) * cell_width) uint8 (or RGB), a new
+        array composed from the memoised resized cells."""
+        width = cell_width * len(text)
+        bg = _background_pixel(self.bg, grayscale)
+        canvas = np.full((self.fontsize, width) + bg.shape, bg, np.uint8)
         for i, (ch, rate) in enumerate(zip(text, width_rates)):
-            cell = _draw_char_cell(self.bg, self.fg, self.font_path, self.fontsize, ch)
             w = max(1, int(round(self.fontsize * rate)))
-            cell = cell.resize((w, self.fontsize))
+            cell = _sized_cell(self.bg, self.fg, self.font_path, self.fontsize, ch, w, grayscale)
             off = i * cell_width + (cell_width - w) // 2 + (cell_width - w) % 2
-            canvas.paste(cell, (off, 0))
-        if grayscale:
-            return np.asarray(canvas.convert("L"), dtype=np.uint8)
-        return np.asarray(canvas, dtype=np.uint8)
+            lo, hi = max(off, 0), min(off + w, width)   # clipped at the edges, as PIL pastes
+            if lo < hi:
+                canvas[:, lo:hi] = cell[:, lo - off:hi - off]
+        return canvas
 
 
 def compute_visualtext_info(wav_lens: np.ndarray, text_lens: np.ndarray,

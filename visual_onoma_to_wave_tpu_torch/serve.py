@@ -33,7 +33,8 @@ Endpoints:
     GET  /v1/stats         -> request/batch counters, mean batch size, latency quantiles (ms),
                               and "synth": the process's cumulative synthesis counts
                               (rows, rows_padded, chars, chars_padded, frames,
-                              frames_vocoded, h2d_bytes, d2h_bytes)
+                              frames_vocoded, h2d_bytes, d2h_bytes, glyph_hits,
+                              glyph_misses)
     POST /v1/synthesize    -> {"text", "audiotype", "width_rates"?, "e_control"?, "d_control"?}
          returns {"wav_b64"?, "sample_rate", "mel_frames", "durations", "seconds"}
     POST /v1/batch         -> {"items": [<as /v1/synthesize>, ...]} -> {"items": [...]}
@@ -63,7 +64,7 @@ WIDTH_RATE_RANGE = (0.05, 8.0)   # glyph-stretch bounds
 CONTROL_RANGE = (0.05, 20.0)     # e/d control bounds
 # the recorder's cumulative counts that /v1/stats reports under "synth"
 SYNTH_COUNTS = ("rows", "rows_padded", "chars", "chars_padded", "frames", "frames_vocoded",
-                "h2d_bytes", "d2h_bytes")
+                "h2d_bytes", "d2h_bytes", "glyph_hits", "glyph_misses")
 
 
 def _in_range(v, lo: float, hi: float) -> bool:

@@ -225,13 +225,27 @@ class Synthesizer:
             raise KeyError(f"character {e.args[0]!r} not in the training vocabulary "
                            f"(use_image=False synthesizes from token ids)") from e
 
-    def _render_cells(self, text: str, width_rates: Sequence[float]) -> np.ndarray:
-        """(n_chars, H, cell_width) float32 cells in [0, 1]."""
+    def _render_cells(self, text: str, width_rates: Sequence[float],
+                      out: Optional[np.ndarray] = None) -> np.ndarray:
+        """(n_chars, H, cell_width) float32 cells in [0, 1]. With `out` (the
+        request's rows of the batch's cells) the cells are written there and
+        the (H, n_chars * cell_width) uint8 strip they came from is returned:
+        the request's image. Counts the renderer's cell lookups as
+        `synth.glyph_hits` and `synth.glyph_misses` (cells it had to build)."""
+        from visual_onoma_to_wave_tpu_torch.data.renderer import sized_cells_built
+
+        built = sized_cells_built()
         strip = self.renderer.draw_with_width_rates(
             text, list(width_rates), cell_width=self.cell_width, grayscale=True)
+        misses = sized_cells_built() - built
+        tracing.count("synth.glyph_hits", min(len(text), len(width_rates)) - misses)
+        tracing.count("synth.glyph_misses", misses)
         H = strip.shape[0]
-        return (strip.reshape(H, len(text), self.cell_width).transpose(1, 0, 2)
-                .astype(np.float32) / 255.0)
+        cells = strip.reshape(H, len(text), self.cell_width).transpose(1, 0, 2)
+        if out is None:
+            return cells.astype(np.float32) / 255.0
+        np.divide(cells, 255, out=out, dtype=np.float32)
+        return strip
 
     def _audiotype_id(self, audiotype: str | int) -> int:
         if isinstance(audiotype, str):
@@ -373,10 +387,8 @@ class Synthesizer:
                         src_lens[i] = n
                         text_ids[i, :n] = self._encode(text)
                         if self.use_image:
-                            c = self._render_cells(text, width_rates[i] or [1.0] * n)
-                            cells[i, :n] = c
-                            images.append((c.transpose(1, 0, 2).reshape(c.shape[1], -1) * 255
-                                           ).astype(np.uint8))
+                            images.append(self._render_cells(
+                                text, width_rates[i] or [1.0] * n, out=cells[i, :n]))
                         else:
                             images.append(None)
             batch = {"audiotypes": ids, "texts": text_ids, "src_lens": src_lens}
