@@ -101,14 +101,25 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      `Trainer(restore_step=-1)` restores the parameters bit for bit and takes
      one more step, and `Synthesizer.from_checkpoint` serves
      `<ckpt>/200/acoustic.npz` with finite mels through the attention kernel;
-  14. bigvgan full width: phase 4 with BigVGAN base (random weights N(0,
-     0.01), log-alpha / log-beta 0; no hand-written kernel: convs, AA FIRs
-     and snake run as PyTorch ops), beside phase 4's HiFi-GAN numbers; the
-     same weights without anti-aliasing (the AA's share of the vocoder ms);
-     the AA FIRs' device time from a `torch.profiler` pass; the card against the
+  14. bigvgan full width: phase 4 with BigVGAN base in fp32 (random weights
+     N(0, 0.01), log-alpha / log-beta 0; its stages through the AMP kind of
+     the MRF op, `act_post` through the AMP kernel), beside phase 4's
+     HiFi-GAN numbers; the AA's share of the module path's vocoder ms
+     (against the same weights without anti-aliasing) and its FIRs' device
+     time from a `torch.profiler` pass, beside the fused ms; the card against the
      same module on the CPU at B 2 x T 64; then the large preset (1536
      channels, rates 4, 4, 2, 2, 2, 2) at B16, checked against the CPU at B
      1 x T 16;
+  14b. bigvgan-large bf16 amp: the benchmark cell's shape (B 64 x 1000
+     frames) at the cell's weight scales: at each of the six stage shapes
+     (C 768 ... 24) one site of the AMP kernel (`amp_act`) against
+     `amp_act_reference` on the same operand (each element within one bf16
+     step) and the stage through `MRFStages` (`votw::mrf_stage_fused` of
+     kind "snakebeta_aa", 21 site launches) against `amp_stage_reference`
+     (1e-2 relative RMS), kernel / plain / bf16-module ms beside the bound;
+     the bf16 generator's launches (6 stages, 127 sites) and its waveform
+     against the fp32 and bf16 modules at B 8, and at B 64 fused against
+     the bf16 modules;
   15. chunked and vocode: `vocoder_infer_chunked` (chunk 256 frames) on
      phase 4's first 4 mels (T 1000) through HiFi-GAN V1, iSTFTNet-mel,
      Vocos and BigVGAN base at published widths, one forward over every
@@ -203,7 +214,10 @@ launches of phase 20 as `launches_bf16`; the MRF stage's one-pass kernel,
 `mrf_stage_onepass`, and its unit design, `mrf_stage_unit`, each with its
 launches in phase 20's bf16 HiFi-GAN V1 and its numbers at its served
 shape (C 32 x T 256000, C 64 x T 128000) beside the conv chain's, the unit
-design also at C 128 and 256 where the route keeps the chain; for the
+design also at C 128 and 256 where the route keeps the chain; the AMP site
+kernel, `amp_act`, and the AMP stage, `mrf_stage_amp`, with their launches
+a BigVGAN-large call and phase 14b's numbers at C 24 x T 256000 and by
+stage; for the
 attention, ConvNeXt and MRF kernels the bound is that of the tensor cores,
 fp32 as 3xTF32, with the fp32 CUDA-core bound and the bf16 numbers beside
 it, and for attention the same numbers under the served mask; for the mel
@@ -346,17 +360,20 @@ def _wrappers() -> dict:
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
     from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
+    from visual_onoma_to_wave_tpu_torch.ops.amp import amp_act
     from visual_onoma_to_wave_tpu_torch.ops.mrf import (
-        mrf_stage_fused, mrf_stage_onepass, mrf_stage_unit)
+        mrf_stage_amp, mrf_stage_fused, mrf_stage_onepass, mrf_stage_unit)
 
     return {"flash_mha": attention_core, "convnext_block": convnext_block,
             "convnext_trunk": convnext_trunk, "mel_frontend": mel_frontend,
             "mrf_stage": mrf_stage_fused, "mrf_stage_onepass": mrf_stage_onepass,
-            "mrf_stage_unit": mrf_stage_unit}
+            "mrf_stage_unit": mrf_stage_unit, "mrf_stage_amp": mrf_stage_amp,
+            "amp_act": amp_act}
 
 
 # the record name of each design `ops/mrf.py::mrf_route` picks
-MRF_RECORD = {"chain": "mrf_stage", "onepass": "mrf_stage_onepass", "unit": "mrf_stage_unit"}
+MRF_RECORD = {"chain": "mrf_stage", "onepass": "mrf_stage_onepass", "unit": "mrf_stage_unit",
+              "amp": "mrf_stage_amp"}
 
 
 def zero_launch_counts() -> None:
@@ -750,8 +767,10 @@ def convnext_blocks(gen) -> int:
 
 def mrf_stages(gen, mel: tuple[int, int] | None = None) -> dict:
     """Fused MRF stage launches per vocoder call: one per ResBlock1 stage of
-    iSTFTNet and HiFi-GAN V1 / V2 (the generators that keep an `MRFStages`),
-    by the design `ops/mrf.py::mrf_route` gives the stage: the conv chain
+    iSTFTNet and HiFi-GAN V1 / V2 and per AMP stage of BigVGAN (the
+    generators that keep an `MRFStages`; BigVGAN's also its site kernel's
+    launches, "amp_act"), by the design `ops/mrf.py::mrf_route` gives the
+    stage: the AMP stage ("mrf_stage_amp"), the conv chain
     ("mrf_stage"), the one-pass kernel ("mrf_stage_onepass") or the unit
     design ("mrf_stage_unit"). `mel`: the (batch, frames) of the mel the
     generator is fed, for the route's size rule (each stage's frames the
@@ -759,8 +778,9 @@ def mrf_stages(gen, mel: tuple[int, int] | None = None) -> dict:
     H100's without a card); without it the width decides alone."""
     from visual_onoma_to_wave_tpu_torch.ops.mrf import SMS, mrf_route, sm_count
 
-    counts = {name: 0 for name in MRF_RECORD.values()}
     stages = getattr(gen, "_mrf", None)
+    amp = stages is not None and stages.act == "snakebeta_aa"
+    counts = {name: 0 for route, name in MRF_RECORD.items() if amp or route != "amp"}
     if stages is not None:
         n = gen.num_kernels
         sms = sm_count(torch.device("cuda", 0)) if torch.cuda.is_available() else SMS
@@ -769,8 +789,10 @@ def mrf_stages(gen, mel: tuple[int, int] | None = None) -> dict:
             batch, frames = (None, None) if mel is None else \
                 (mel[0], mel[1] * int(np.prod(gen.upsample_rates[:i + 1], dtype=np.int64)))
             route = mrf_route(C, gen.dtype, stages.kernel_sizes, stages.dilations, batch, frames,
-                              sms)
+                              sms, stages.act)
             counts[MRF_RECORD[route]] += 1
+        if amp:    # BigVGAN: 21 site launches a stage, and act_post
+            counts["amp_act"] = 21 * counts["mrf_stage_amp"] + 1
     return counts
 
 
@@ -2102,25 +2124,23 @@ def check_vocode(what: str, err: float, scale: float) -> None:
 @contextlib.contextmanager
 def plain_on_card(gen):
     """While the context lasts, `gen`'s MRF stages run as their ResBlock1
-    modules (cuDNN convs) and its ConvNeXt blocks as
-    `convnext_block_reference`, on the card: the plain path its kernels are
-    held against."""
+    or AMPBlock1 modules (cuDNN convs; BigVGAN's `act_post` too) and its
+    ConvNeXt blocks as `convnext_block_reference`, on the card: the plain
+    path its kernels are held against."""
     import visual_onoma_to_wave_tpu_torch.models.vocos as vocos
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block_reference
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
 
-    def plain_stage(i, blocks, x, fused=True):
-        acc = None
-        for block in blocks:
-            y = block(x)
-            acc = y if acc is None else acc + y
-        return acc / len(blocks)
+    class PlainStages(MRFStages):      # every stage as its modules
+        def runs_op(self, device, dtype, fused=True) -> bool:
+            return False
 
     def plain_block(x, *weights, packed=None, **kw):
         return convnext_block_reference(x, *weights, **kw)
 
     mrf, block = getattr(gen, "_mrf", None), vocos.convnext_block
     if mrf is not None:
-        gen._mrf = plain_stage
+        gen._mrf = PlainStages(mrf.kernel_sizes, mrf.dilations, mrf.act)
     vocos.convnext_block = plain_block
     try:
         yield
@@ -2204,17 +2224,19 @@ def phase_bigvgan(dev, card: str, hifigan: dict) -> dict:
     plain = plain.to(dev).eval()
     runs = {"anti_aliased": lambda: gen(mel), "no_anti_aliasing": lambda: plain(mel)}
     times = {k: [] for k in runs}
-    with torch.inference_mode():
+    # the AA's share and its FIRs' of the module path (the fused one runs no FIR)
+    with torch.inference_mode(), plain_on_card(gen):
         for order in (("anti_aliased", "no_anti_aliasing"), ("no_anti_aliasing", "anti_aliased")):
             for k in order:
                 times[k].append(time_cuda(runs[k], 3, warmup=1))
+        fir = aa_fir_times(gen, mel)
     aa_ms, plain_ms = (float(np.mean(times[k])) for k in runs)
-    fir = aa_fir_times(gen, mel)
     g = torch.Generator().manual_seed(0)
     small = (torch.randn(2, 64, 80, generator=g) - 4.0).to(dev)
     cpu = check_card_vs_cpu(phase, gen, small)
-    say(phase + " anti-aliasing", card=card, vocoder_ms=aa_ms,
-        vocoder_ms_without_aa=plain_ms, aa_share=1.0 - plain_ms / aa_ms, runs=times,
+    say(phase + " anti-aliasing", card=card, vocoder_ms_modules=aa_ms,
+        vocoder_ms_without_aa=plain_ms, aa_share=1.0 - plain_ms / aa_ms,
+        vocoder_ms_fused=served["vocoder_ms"], runs=times,
         **fir, card_vs_cpu=cpu,
         atol=VOCODE_ATOL)
     t0 = time.perf_counter()
@@ -2225,6 +2247,199 @@ def phase_bigvgan(dev, card: str, hifigan: dict) -> dict:
     say("14 bigvgan-large card vs cpu", card=card, card_vs_cpu=large_cpu, atol=VOCODE_ATOL,
         phase_s=time.perf_counter() - t0)
     return {"base": served, "large": large, "aa_share": 1.0 - plain_ms / aa_ms}
+
+
+# phase 14b: BigVGAN large's AMP stages in bf16 at the benchmark cell's
+# shape (`bigvgan_large.batch64_full`): 64 rows of 1000 frames, each stage's
+# width and the upsampling before it
+AMP_B, AMP_FRAMES = 64, 1000
+AMP_STAGES = ((768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256))
+# the AMP op against its plain version (`amp_stage_reference`: the same
+# roundings, cuDNN's sums in another order; 1.8e-3 - 4.5e-3 relative RMS on
+# the card at B 2 x 8192): within 1e-2. On the CPU, at C 24 / 96 and these
+# weights, one FIR of every site one tap off reads ~0.75 there, alpha 10%
+# high ~0.11
+AMP_STAGE_REL_RMS = 1e-2
+# a site against `amp_act_reference` (fp32 between operand and output, one
+# rounding): every element within one bf16 step of it (or of 1% of the
+# largest, near zero), at most this share of the elements apart at all
+AMP_SITE_DIFFER_SHARE = 0.02
+
+
+def bigvgan_cell_weights(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """BigVGAN weights at the cell's scales (`portbench/configs/
+    icassp_bigvgan_large.json` `init`): convs N(0, 1 / fan-in), transposed
+    convs N(0, 0.36 / (fan-in / stride)), conv_post N(0, 0.0225 / fan-in),
+    biases N(0, 0.05^2) (0 in the cell; here they reach the sums the sites
+    take), log alpha / beta U(-0.5, 0.5)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in module.named_modules():
+            if isinstance(mod, torch.nn.ConvTranspose1d):
+                gain, fan = 0.6, mod.in_channels * mod.kernel_size[0] / mod.stride[0]
+            elif isinstance(mod, torch.nn.Conv1d):
+                gain = 0.15 if name.endswith("conv_post") else 1.0
+                fan = mod.in_channels * mod.kernel_size[0]
+            else:
+                for pname, p in mod.named_parameters(recurse=False):
+                    if pname.startswith("log_"):
+                        p.copy_(torch.rand(p.shape, generator=g) - 0.5)
+                continue
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=g) * gain / fan ** 0.5)
+            mod.bias.copy_(torch.randn(mod.bias.shape, generator=g) * 0.05)
+    return module
+
+
+def amp_stage_cost(B_: int, C_: int, T_: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one bf16 AMP stage (`portbench/reference/bigvgan.py::
+    amp_stage_cost`): 18 convs of 2 k C^2 a position, 18 sites of 48 C FIR
+    FLOPs a position; x read and the output written in bf16, the bf16
+    weights, the fp32 biases and log parameters once."""
+    flops = B_ * T_ * (2.0 * 126 * C_ * C_ + 18 * 48.0 * C_)
+    return flops, 2.0 * B_ * C_ * T_ * 2 + 126 * C_ * C_ * 2 + 3 * 18 * C_ * 4
+
+
+def amp_site_gap(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """A bf16 site against its plain version (AMP_SITE_DIFFER_SHARE)."""
+    w = want.float()
+    step = torch.finfo(torch.bfloat16).eps * torch.maximum(w.abs(), 1e-2 * w.abs().max())
+    over = float(((got.float() - w).abs() / step).max())
+    share = float((got != want).float().mean())
+    del w, step
+    if got.shape != want.shape or got.dtype != want.dtype or over > 1.0 or \
+            share > AMP_SITE_DIFFER_SHARE:
+        raise AssertionError(f"{what}: site kernel != plain: {over:.3f} of a bf16 step at "
+                             f"most, {share:.4f} of the elements apart")
+    return {"max_of_bf16_step": over, "share_apart": share}
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    d, w = (got.float() - want.float()), want.float()
+    return float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(w))
+
+
+def phase_amp(dev, card: str) -> dict:
+    """BigVGAN large's AMP stages in bf16 at the cell's shape, B 64 x 1000
+    frames, weights of the cell's scales: at each of the six stage shapes
+    one site through `amp_act` against `amp_act_reference` on the same
+    operand (AMP_SITE_DIFFER_SHARE), and the stage through `MRFStages` (the
+    op `votw::mrf_stage_fused` of kind "snakebeta_aa", 21 site launches)
+    against `amp_stage_reference` (AMP_STAGE_REL_RMS); kernel, plain and
+    library (the bf16 modules) ms beside the bound. Then the whole bf16
+    generator: at B 8 every stage and `act_post` launched as `mrf_stages`
+    counts them, the waveform no further from the fp32 modules' than the
+    bf16 modules' is; at B 64 the fused forward against the bf16 modules."""
+    import copy
+
+    from visual_onoma_to_wave_tpu_torch.models import get_vocoder
+    from visual_onoma_to_wave_tpu_torch.models.bigvgan import AMPBlock1, SnakeAct
+    from visual_onoma_to_wave_tpu_torch.ops.amp import amp_act, amp_act_reference
+    from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages, amp_stage_reference
+
+    phase = "14b bigvgan-large bf16 amp"
+    ks, ds, bf16 = (3, 7, 11), ((1, 3, 5),) * 3, torch.bfloat16
+    stages, sites = {}, {}
+    for C_, up in AMP_STAGES:
+        T_ = AMP_FRAMES * up
+        blocks = bigvgan_cell_weights(torch.nn.ModuleList(
+            AMPBlock1(C_, k, d, dtype=bf16) for k, d in zip(ks, ds)), C_).to(dev).eval()
+        site = bigvgan_cell_weights(SnakeAct(C_, dtype=bf16), C_ + 1).to(dev).eval()
+        op = MRFStages(ks, ds, act="snakebeta_aa")
+        x = torch.randn(AMP_B, C_, T_, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(C_)).to(bf16)
+        with torch.inference_mode():
+            mats, biases, _, la, lb = op.packed(0, blocks, bf16)
+            zero_launch_counts()
+            got = amp_act(x, site.log_alpha, site.log_beta)
+            torch.cuda.synchronize()
+            expect_launches(f"{phase} site C={C_}", launch_counts(), {"amp_act": 1})
+            site_gap = amp_site_gap(f"{phase} C={C_} T={T_}", got,
+                                    amp_act_reference(x, site.log_alpha, site.log_beta))
+            del got
+            zero_launch_counts()
+            got = op(0, blocks, x)
+            torch.cuda.synchronize()
+            expect_launches(f"{phase} stage C={C_}", launch_counts(),
+                            {"mrf_stage_amp": 1, "amp_act": 21})
+            gap = rel_rms(got, amp_stage_reference(x, mats, biases, la, lb))
+            del got
+            if not gap <= AMP_STAGE_REL_RMS:
+                raise AssertionError(f"{phase}: AMP op != plain at C={C_} T={T_}: relative RMS "
+                                     f"{gap:.3e} (bound {AMP_STAGE_REL_RMS})")
+            torch.cuda.empty_cache()
+            runs = {"kernel": lambda: op(0, blocks, x),
+                    "plain": lambda: amp_stage_reference(x, mats, biases, la, lb),
+                    "library": lambda: sum(b(x) for b in blocks) / 3,
+                    "site_kernel": lambda: amp_act(x, site.log_alpha, site.log_beta),
+                    "site_plain": lambda: amp_act_reference(x, site.log_alpha, site.log_beta),
+                    "site_library": lambda: site(x)}
+            times = {n: [] for n in runs}
+            for order in (list(runs), list(runs)[::-1]):
+                for n in order:
+                    times[n].append(time_cuda(runs[n], 1, warmup=1))
+        ms = {n: float(np.mean(t)) for n, t in times.items()}
+        flops, moved = amp_stage_cost(AMP_B, C_, T_)
+        stage_bound = bound(flops, moved, PEAK_BF16_FLOPS)
+        site_bound = bound(48.0 * AMP_B * C_ * T_, 4.0 * AMP_B * C_ * T_)
+        key = f"C{C_}"
+        stages[key] = {"T": T_, "rel_rms_vs_plain": gap, "ms": ms["kernel"],
+                       "plain_ms": ms["plain"], "library_ms": ms["library"], **stage_bound,
+                       "share_of_bound": stage_bound["bound_ms"] / ms["kernel"],
+                       "vs_library": ms["library"] / ms["kernel"],
+                       "ms_runs": {n: times[n] for n in ("kernel", "plain", "library")}}
+        sites[key] = {"T": T_, **site_gap, "ms": ms["site_kernel"],
+                      "plain_ms": ms["site_plain"], "library_ms": ms["site_library"],
+                      **site_bound, "share_of_bound": site_bound["bound_ms"] / ms["site_kernel"]}
+        say(f"{phase} C={C_}", card=card, batch=AMP_B, stage=stages[key], site=sites[key])
+        del blocks, site, op, x, mats, biases, la, lb
+        torch.cuda.empty_cache()
+
+    gen = bigvgan_cell_weights(get_vocoder("BigVGAN-large", dtype=bf16), 24).to(dev).eval()
+    gen32 = copy.deepcopy(gen).train()      # the same weights, computing in fp32
+    for m in gen32.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float32
+    mels = torch.randn(AMP_B, AMP_FRAMES, 80, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(24)) * 1.02 + 0.11
+    small = mels[:8].contiguous()
+    with torch.inference_mode():
+        zero_launch_counts()
+        got = gen(small)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        expect_launches(f"{phase} generator", launches, mrf_stages(gen))
+        truth = gen32(small)
+        with plain_on_card(gen):
+            zero_launch_counts()
+            mods = gen(small)
+            torch.cuda.synchronize()
+            expect_launches(f"{phase} generator plain", launch_counts(), {})
+        gap, gap_mods = rel_rms(got, truth), rel_rms(mods, truth)
+        if not gap <= max(gap_mods, 1e-3):
+            raise AssertionError(f"{phase}: the fused generator is {gap:.3e} from the fp32 "
+                                 f"modules, the bf16 modules {gap_mods:.3e}")
+        del got, truth, mods, gen32
+        torch.cuda.empty_cache()
+        fused_ms = [time_cuda(lambda: gen(mels), 1, warmup=1) for _ in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        gen(mels)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        with plain_on_card(gen):
+            plain_ms = time_cuda(lambda: gen(mels), 1, warmup=0)
+    generator = {"launches": {k: launches[k] for k in ("mrf_stage_amp", "amp_act")},
+                 "rel_rms_vs_fp32_modules": gap, "bf16_modules_rel_rms_vs_fp32": gap_mods,
+                 "fused_ms_b64": fused_ms, "plain_ms_b64": plain_ms,
+                 "fused_over_plain": float(np.mean(fused_ms)) / plain_ms,
+                 "fused_peak_gb_b64": peak / 1e9}
+    say(f"{phase} generator", card=card, batch=(8, AMP_B), frames=AMP_FRAMES, **generator)
+    head = "C24"    # the last stage: the largest operand, 393 M elements a site
+    return {"site": {"shape": {"B": AMP_B, "C": 24, "T": sites[head]["T"]},
+                     "launches": generator["launches"]["amp_act"], **sites[head],
+                     "by_stage": sites},
+            "stage": {"shape": {"B": AMP_B, "C": 24, "T": stages[head]["T"]},
+                      "launches": generator["launches"]["mrf_stage_amp"], **stages[head],
+                      "by_stage": stages, "generator": generator}}
 
 
 def phase_chunked(dev, card: str, mel: torch.Tensor) -> dict:
@@ -2267,7 +2482,7 @@ def phase_chunked(dev, card: str, mel: torch.Tensor) -> dict:
         err = float((wav[:, h:-h] - full[:, h:-h]).abs().max())
         check_vocode(f"{phase} {family}: chunked interior vs the full forward", err,
                      float(full[:, h:-h].abs().max()))
-        plain_err = None      # BigVGAN runs no kernel: its path is the plain one
+        plain_err = None
         if any(want.values()):
             zero_launch_counts()
             with plain_on_card(gen):
@@ -3684,6 +3899,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train = phase_train(dev, probe["smi"], pathlib.Path(tmp))
         phase_bigvgan(dev, probe["smi"], full)
+        amp = phase_amp(dev, probe["smi"])
         phase_chunked(dev, probe["smi"], served["postnet_mel"])
         phase_quality_gate(dev, probe["smi"])
         phase_demo_server(dev, probe["smi"])
@@ -3729,6 +3945,11 @@ def main() -> int:
         {"name": "mrf_stage_unit", "route": "cuda", "source": source + "mrf.cu",
          "replaces": tpu + "pallas_mrf.py:164",
          "launches": served16["HiFi-GAN"]["launches"]["mrf_stage_unit"], **mrf["unit"]},
+        {"name": "amp_act", "route": "cuda", "source": source + "amp.cu",
+         "replaces": "none (XLA: visual_onoma_to_wave_tpu/models/bigvgan.py)", **amp["site"]},
+        {"name": "mrf_stage_amp", "route": "cuda",
+         "source": source + "amp.cu + cuDNN (ops/mrf.py::mrf_stage_amp)",
+         "replaces": "none (XLA: visual_onoma_to_wave_tpu/models/bigvgan.py)", **amp["stage"]},
     ]}
     print(probe["smi"])
     print(json.dumps(record))

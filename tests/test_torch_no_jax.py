@@ -416,9 +416,11 @@ assert [launches[v]["mrf_stage"] for v in launches] == [4, 1, 2, 0, 0, 0], launc
 assert [launches[v]["convnext_block"] for v in launches] == [0, 0, 0, 0, 8, 0], launches
 assert set(chip_smoke.launch_counts()) == {"flash_mha", "convnext_block", "convnext_trunk",
                                            "mel_frontend", "mrf_stage", "mrf_stage_onepass",
-                                           "mrf_stage_unit"}
+                                           "mrf_stage_unit", "mrf_stage_amp", "amp_act"}
 assert [launches[v]["mrf_stage_onepass"] for v in launches] == [0] * 6, launches
 assert [launches[v]["mrf_stage_unit"] for v in launches] == [0] * 6, launches
+assert [launches[v].get("mrf_stage_amp", 0) for v in launches] == [0, 0, 0, 0, 0, 4], launches
+assert [launches[v].get("amp_act", 0) for v in launches] == [0, 0, 0, 0, 0, 4 * 21 + 1]
 from visual_onoma_to_wave_tpu_torch.ops.mrf import mrf_stage_fused
 g = torch.Generator().manual_seed(0)
 mats, bias = chip_smoke.mrf_weights(32, g, "cpu")

@@ -265,7 +265,8 @@ def test_stats_report_synthesis_counts(server):
     """/v1/stats's "synth": the recorder's cumulative counts, which a
     request moves by its own row, characters, frames and copies."""
     keys = {"rows", "rows_padded", "chars", "chars_padded", "frames", "frames_vocoded",
-            "h2d_bytes", "d2h_bytes", "glyph_hits", "glyph_misses"}
+            "h2d_bytes", "d2h_bytes", "glyph_hits", "glyph_misses", "amp_sites",
+            "amp_sites_plain"}
     before = _request(server, "GET", "/v1/stats")[1]["synth"]
     status, r = _request(server, "POST", "/v1/synthesize", {"text": "パン", "audiotype": "drum"})
     assert status == 200
@@ -276,6 +277,7 @@ def test_stats_report_synthesis_counts(server):
     assert d["chars"] == 2 and d["chars_padded"] == 4      # padded to the 4-character bucket
     assert d["glyph_hits"] + d["glyph_misses"] == 2        # one cell lookup a character
     assert d["frames_vocoded"] >= d["frames"] and d["d2h_bytes"] > 0 and d["h2d_bytes"] > 0
+    assert d["amp_sites"] == d["amp_sites_plain"] == 0     # HiFi-GAN has no AMP sites
     server.reset_stats()     # the server's counters only; the recorder's are per process
     assert _request(server, "GET", "/v1/stats")[1]["synth"] == after
 

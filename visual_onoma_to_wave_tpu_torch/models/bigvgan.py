@@ -9,83 +9,52 @@ beta learned in log scale), each optionally anti-aliased, i.e. run at twice
 the local rate between a Kaiser-windowed-sinc upsampler and a lowpass
 decimator (Lee et al., arXiv:2206.04658).
 
-Internally (B, C, T). The anti-aliasing filters are numpy constants equal
-to the reference's; each activation holds them as (C, 1, K) contiguous
-buffers, so they reach the device once with the module and every
-depthwise conv gets contiguous weights. BigVGAN reaches no hand-written
-kernel: its convs, FIRs and snake run as PyTorch ops (cuDNN on the card),
-as the reference runs them through XLA. Module names: conv_pre, ups.i,
-resblocks.{i * n_kernels + j}.convs1|convs2.k, resblocks.r.acts1|acts2.k
-.log_alpha|log_beta, act_post, conv_post (`bridge.bigvgan_state_dict`).
+Internally (B, C, T). The anti-aliasing filters and resamplers live in
+`ops/amp.py` (numpy constants equal to the reference's); each activation
+holds the filters as (C, 1, K) contiguous buffers, so they reach the device
+once with the module and every depthwise conv gets contiguous weights. On
+the card, in `.eval()`, a generator with anti-aliased activations runs each
+stage through `MRFStages` as the op `votw::mrf_stage_fused` of activation
+kind "snakebeta_aa" (`ops/mrf.py`: every site one launch of the one-pass
+kernel of `csrc/amp.cu`, the convs cuDNN) and `act_post` through
+`ops/amp.py::amp_act`, as `HiFiGANGenerator` runs its stages through B2
+(a block layout the op does not take, other than three kernel sizes of
+three dilations, raises there); on the CPU, in `.train()` and without
+anti-aliasing its modules run, as the reference runs them through XLA.
+`MRFStages.runs_op` decides for the stages, `act_post` and `amp_site_plan`
+(how many activation sites a forward runs through the kernel and how many
+as modules) alike. Module
+names: conv_pre, ups.i, resblocks.{i * n_kernels + j}.convs1|convs2.k,
+resblocks.r.acts1|acts2.k.log_alpha|log_beta, act_post, conv_post
+(`bridge.bigvgan_state_dict`).
 
 `dtype` is the compute dtype (JAX bigvgan.py:83-172): in bfloat16 the convs
 and the anti-aliasing FIRs (their taps rounded to bf16) compute in bf16 with
 fp32 parameters (`precision.at_dtype`), snake takes exp of its fp32 log
 parameters and computes the rest in bf16, and conv_post and tanh stay fp32.
+Through the kernel a site computes in fp32 between its operand and its
+output, which it rounds once, and a stage keeps its streams in bf16 (the
+op's plain version, `ops/mrf.py::amp_stage_reference`, is that arithmetic).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from visual_onoma_to_wave_tpu_torch.models.hifigan import receptive_halo_frames
+from visual_onoma_to_wave_tpu_torch.ops.amp import (  # noqa: F401  (this module's names)
+    AA_KERNEL,
+    DOWN_FILTER,
+    UP_FILTER,
+    amp_act,
+    depthwise_filter,
+    downsample2,
+    kaiser_sinc_filter1d,
+    upsample2,
+)
+from visual_onoma_to_wave_tpu_torch.ops.mrf import MRFStages
 from visual_onoma_to_wave_tpu_torch.precision import at_dtype
-
-AA_KERNEL = 12  # K = int(6 * ratio / 2) * 2 at ratio 2
-
-
-def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> np.ndarray:
-    """Lowpass FIR: a windowed sinc with the Kaiser beta chosen from the
-    stopband attenuation this size and transition width allow; cutoff and
-    half_width in cycles per sample (Nyquist 0.5); unit DC gain."""
-    delta_f = 4.0 * half_width
-    a = 2.285 * (kernel_size - 1) * np.pi * delta_f + 7.95
-    if a > 50.0:
-        beta = 0.1102 * (a - 8.7)
-    elif a >= 21.0:
-        beta = 0.5842 * (a - 21.0) ** 0.4 + 0.07886 * (a - 21.0)
-    else:
-        beta = 0.0
-    window = np.kaiser(kernel_size, beta)
-    if kernel_size % 2 == 0:
-        time = np.arange(-kernel_size // 2, kernel_size // 2) + 0.5
-    else:
-        time = np.arange(kernel_size) - (kernel_size - 1) / 2
-    f = 2.0 * cutoff * window * np.sinc(2.0 * cutoff * time)
-    f /= f.sum()
-    return f.astype(np.float32)
-
-
-# the resamplers' filters: interpolation (gain 2) and lowpass
-UP_FILTER = 2.0 * kaiser_sinc_filter1d(0.25, 0.3, AA_KERNEL)
-DOWN_FILTER = kaiser_sinc_filter1d(0.25, 0.3, AA_KERNEL)
-
-
-def depthwise_filter(h: np.ndarray, channels: int) -> torch.Tensor:
-    """(channels, 1, K) contiguous: one FIR `h` for every channel."""
-    return torch.from_numpy(np.array(h, np.float32)).view(1, 1, -1).repeat(channels, 1, 1)
-
-
-def upsample2(x: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
-    """(B, C, T) -> (B, C, 2T): edge pad of K/2 - 1, a stride-2 depthwise
-    transposed conv with the gain-2 interpolation filter `w_up` (C, 1, K),
-    then the centre crop to 2T. The filter is symmetric, so the transposed
-    conv equals the reference's lhs-dilated correlation without a flip."""
-    c, t = x.shape[1], x.shape[2]
-    pad = AA_KERNEL // 2 - 1
-    y = F.conv_transpose1d(F.pad(x, (pad, pad), mode="replicate"), w_up.to(x.dtype), stride=2,
-                           groups=c)
-    lo = 2 * pad + (AA_KERNEL - 2) // 2
-    return y[:, :, lo:lo + 2 * t]
-
-
-def downsample2(x: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-    """(B, C, 2T) -> (B, C, T): edge pad (K/2 - 1, K/2), then a stride-2
-    depthwise conv with the lowpass filter `w_down` (C, 1, K)."""
-    xp = F.pad(x, (AA_KERNEL // 2 - 1, AA_KERNEL // 2), mode="replicate")
-    return F.conv1d(xp, w_down.to(x.dtype), stride=2, groups=x.shape[1])
 
 
 def snake(x: torch.Tensor, log_alpha: torch.Tensor) -> torch.Tensor:
@@ -200,6 +169,10 @@ class BigVGANGenerator(nn.Module):
         ch_last = ch0 // 2 ** len(upsample_rates)
         self.act_post = SnakeAct(ch_last, activation, anti_aliased, dtype)
         self.conv_post = nn.Conv1d(ch_last, 1, 7, padding=3)
+        # every anti-aliased layout goes to the op, which raises on the card
+        # for one it does not take
+        self._mrf = (MRFStages(resblock_kernel_sizes, resblock_dilations, act="snakebeta_aa")
+                     if anti_aliased else None)
         # the reference's initial distributions: weights N(0, 0.01), biases
         # and log-alpha / log-beta 0
         for name, p in self.named_parameters():
@@ -212,18 +185,40 @@ class BigVGANGenerator(nn.Module):
     def total_upsample(self) -> int:
         return int(np.prod(self.upsample_rates, dtype=np.int64))
 
+    def fused_on(self, device: torch.device) -> bool:
+        """Whether a forward on `device` runs its stages and `act_post`
+        through the AMP kernel: anti-aliased, in `.eval()`, and where the
+        stages' own rule (`MRFStages.runs_op`: off the CPU) sends them."""
+        return self._mrf is not None and self._mrf.runs_op(device, self.dtype, not self.training)
+
+    def amp_site_plan(self, device: torch.device) -> tuple[int, int]:
+        """(activation sites a forward on `device` runs through the AMP
+        kernel, sites it runs as modules): two a residual unit of every
+        stage, and `act_post`."""
+        sites = 2 * sum(len(d) for d in self.resblock_dilations) * len(self.ups) + 1
+        return (sites, 0) if self.fused_on(device) else (0, sites)
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = at_dtype(self.conv_pre, mel.transpose(1, 2), self.dtype)
         n = self.num_kernels
         for i, up in enumerate(self.ups):
             x = at_dtype(up, x, self.dtype)
+            blocks = self.resblocks[i * n:(i + 1) * n]
+            if self._mrf is not None:
+                x = self._mrf(i, blocks, x, fused=not self.training)
+                continue
             acc = None
-            for block in self.resblocks[i * n:(i + 1) * n]:
+            for block in blocks:
                 y = block(x)
                 acc = y if acc is None else acc + y
             x = acc / n
-        x = self.conv_post(self.act_post(x).float())
-        return torch.tanh(x)[:, 0, :]
+        post = self.act_post
+        if self.fused_on(x.device):
+            x = amp_act(x.to(self.dtype), post.log_alpha,
+                        post.log_alpha if post.log_beta is None else post.log_beta)
+        else:
+            x = post(x)
+        return torch.tanh(self.conv_post(x.float()))[:, 0, :]
 
     def receptive_halo_frames(self) -> int:
         """One-sided receptive field in input mel frames (chunked vocoding,

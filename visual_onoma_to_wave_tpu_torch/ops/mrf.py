@@ -54,6 +54,31 @@ enqueues its 4 launches).
 
 What bounds the kernels on the card, and their designs, is written in
 `csrc/mrf.cu`.
+
+The op takes an activation kind, `act`. "lrelu" (the default) is the stage
+above. "snakebeta_aa" is BigVGAN's AMP stage: the same chain of convs with
+every leaky ReLU replaced by an anti-aliased snake-beta site (`ops/amp.py`),
+each site with its own `log_alpha` and `log_beta`, passed as (18, C) fp32 in
+the convs' order (site 2j before conv j):
+
+    y = x
+    for d in dilations:
+        h = conv_k,d(A(y)) + bias
+        y = y + conv_k,1(A(h)) + bias
+    out = (y_0 + y_1 + y_2) / 3,      A = downsample2(snakebeta(upsample2(.)))
+
+In this kind the residual streams are in the operand type, as in
+`models/bigvgan.py::AMPBlock1`'s modules: on the card each site is one
+launch of `csrc/amp.cu`'s kernel (which also adds a conv's output and bias
+into its operand, writes the updated stream, and at the end the branches'
+mean) and each conv one cuDNN call without bias on the activated operand
+(`amp_conv`: a conv1d, or a conv2d for a far dilation at a wide C), 21
+kernel launches and 18 conv calls a stage, at any width C (the
+activation kernel works row by row, cuDNN takes any width: BigVGAN large's
+24-768 and base's 32-256 alike). `packed` there holds each branch's convs
+in Conv1d layout (6, C, C, k) of the operand type
+(`pack_amp_conv_weights`). `mrf_route` gives the kind's stages "amp", and
+`mrf_stage_amp.launches` counts them.
 """
 from __future__ import annotations
 
@@ -64,6 +89,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from visual_onoma_to_wave_tpu_torch.ops.amp import amp_act_reference, amp_launch, amp_operand
 from visual_onoma_to_wave_tpu_torch.ops.convnext import core_tiled, tf32_round
 from visual_onoma_to_wave_tpu_torch.ops.cuda_build import (
     check_inference,
@@ -75,6 +101,7 @@ HALO = 128          # the furthest one-sided reach of a stage the kernel takes, 
 KERNEL_SIZES = (3, 7, 11)
 DILATIONS = ((1, 3, 5),) * 3
 SLOPE = 0.1
+ACTS = ("lrelu", "snakebeta_aa")      # the activation kinds the op takes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (8, 16, 32, 64, 128, 256, 512)
 _MAX_K = 11
@@ -199,13 +226,18 @@ def design_items(design: str, C: int, batch: int, frames: int) -> int:
 
 
 def mrf_route(C: int, dtype: torch.dtype, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
-              batch: int | None = None, frames: int | None = None, sms: int = SMS) -> str:
+              batch: int | None = None, frames: int | None = None, sms: int = SMS,
+              act: str = "lrelu") -> str:
     """The design of `csrc/mrf.cu` a CUDA call on x (batch, C, frames) takes:
     "onepass" where the one-pass kernel takes the stage and C is 8, 16 or 32,
     "unit" where the unit design takes it and C is in `UNIT_WIDTHS`, each
     only with at least `MIN_ITEMS_PER_SM` of its work items per SM (`sms`,
     the card's count); else "chain". Without `batch` and `frames` the width
-    decides alone (a stage as large as the served ones)."""
+    decides alone (a stage as large as the served ones). An AMP stage
+    (`act` "snakebeta_aa") takes "amp" at every size."""
+    if act == "snakebeta_aa":
+        return "amp"
+
     def enough(design: str) -> bool:
         return batch is None or frames is None or \
             design_items(design, C, batch, frames) >= MIN_ITEMS_PER_SM[design] * sms
@@ -256,13 +288,82 @@ def kernel_weights_numel(C: int, k: int, dtype: torch.dtype) -> int:
     return 6 * k * C * kcp * (C // kc) * (2 if dtype == torch.float32 else 1)
 
 
+def pack_amp_params(resblocks) -> tuple[torch.Tensor, torch.Tensor]:
+    """One AMP stage's activation parameters (one `AMPBlock1` per branch):
+    (log_alpha, log_beta), each (3*6, C) fp32, site 2j the one before conv
+    j of `pack_mrf_weights`' order (acts1 before convs1, acts2 before
+    convs2). Plain snake (no beta) is snake-beta with log_beta = log_alpha."""
+    la, lb = [], []
+    with torch.no_grad():
+        for block in resblocks:
+            for a1, a2 in zip(block.acts1, block.acts2):
+                for act in (a1, a2):
+                    la.append(act.log_alpha.detach().float())
+                    beta = act.log_alpha if act.log_beta is None else act.log_beta
+                    lb.append(beta.detach().float())
+        return torch.stack(la).contiguous(), torch.stack(lb).contiguous()
+
+
+def pack_amp_conv_weights(mats, dtype: torch.dtype) -> list[torch.Tensor]:
+    """`pack_mrf_weights`' (6, C, k*C) matrices as the AMP stage's cuDNN
+    convs take them: per branch (6, C, C, k) of `dtype`, Conv1d layout."""
+    out = []
+    with torch.no_grad():
+        for a in mats:
+            C = a.shape[1]
+            k = a.shape[2] // C
+            out.append(a.detach().to(dtype).reshape(6, C, k, C).permute(0, 1, 3, 2).contiguous())
+    return out
+
+
+def amp_stage_reference(x: torch.Tensor, mats, biases: torch.Tensor, log_alpha: torch.Tensor,
+                        log_beta: torch.Tensor, kernel_sizes=KERNEL_SIZES,
+                        dilations=DILATIONS, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the AMP stage on the card: streams and conv
+    outputs rounded to `dtype` (x.dtype by default), each conv's products
+    summed in fp32 and rounded once, each site `amp_act_reference` on its
+    rounded operand, the mean of the branches in fp32 rounded once."""
+    if log_alpha is None or log_beta is None:
+        raise ValueError("mrf_stage_fused: the AMP stage needs log_alpha and log_beta")
+    dtype = dtype or x.dtype
+    C = x.shape[1]
+    bias = biases.reshape(-1, C).float()
+    la, lb = log_alpha.reshape(-1, C), log_beta.reshape(-1, C)
+    xr = x.to(dtype)
+    ys = []
+    for b, (mat, k, ds) in enumerate(zip(mats, kernel_sizes, dilations)):
+        w = mat.to(dtype).float().reshape(2 * len(ds), C, k, C).permute(0, 1, 3, 2).contiguous()
+        s0 = 2 * len(ds) * b
+        a, y = amp_act_reference(xr, la[s0], lb[s0]), xr
+        for i, d in enumerate(ds):
+            s = s0 + 2 * i
+            h = F.conv1d(a.float(), w[2 * i], padding=d * (k - 1) // 2, dilation=d).to(dtype)
+            a = amp_act_reference(amp_operand(h, bias=bias[s]), la[s + 1], lb[s + 1])
+            g = F.conv1d(a.float(), w[2 * i + 1], padding=(k - 1) // 2).to(dtype)
+            y = amp_operand(y, g, bias[s + 1])
+            if i + 1 < len(ds):
+                a = amp_act_reference(y, la[s + 2], lb[s + 2])
+        ys.append(y)
+    acc = ys[0].float()
+    for y in ys[1:]:
+        acc = acc + y.float()
+    return (acc * (1.0 / len(ys))).to(dtype)
+
+
 def mrf_stage_fused_reference(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor,
                               w11: torch.Tensor, biases: torch.Tensor,
                               kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
-                              dtype: torch.dtype | None = None) -> torch.Tensor:
+                              dtype: torch.dtype | None = None, act: str = "lrelu",
+                              log_alpha: torch.Tensor | None = None,
+                              log_beta: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the 18-conv chain in `F.conv1d`
     (tests/test_pallas_mrf.py::_xla_stage). Returns (B, C, T) in `dtype`
-    (x.dtype by default)."""
+    (x.dtype by default). `act` "snakebeta_aa": `amp_stage_reference`."""
+    if act == "snakebeta_aa":
+        return amp_stage_reference(x, (w3, w7, w11), biases, log_alpha, log_beta, kernel_sizes,
+                                   dilations, dtype)
+    if act != "lrelu":
+        raise ValueError(f"mrf_stage_fused: activation {act!r} is not one of {ACTS}")
     dtype = dtype or x.dtype
 
     def rnd(t: torch.Tensor) -> torch.Tensor:
@@ -288,20 +389,29 @@ def mrf_stage_fused_reference(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tenso
     return (acc / len(kernel_sizes)).to(dtype)
 
 
-def _checked(x, mats, biases, kernel_sizes, dilations, dtype, packed=None) -> None:
+def _check_layout(kernel_sizes, dilations) -> None:
+    if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or len(dilations) != 3:
+        raise ValueError("mrf_stage_fused kernel takes three branches of three dilations; got "
+                         f"kernel_sizes {kernel_sizes}, dilations {dilations}")
+
+
+def _checked(x, mats, biases, kernel_sizes, dilations, dtype, packed=None, act="lrelu",
+             log_alpha=None, log_beta=None) -> None:
     """Raise on what the kernel does not take; the device is checked last."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"mrf_stage_fused kernel takes float32/bfloat16; got {dtype}")
     if x.dim() != 3:
         raise ValueError(f"mrf_stage_fused takes x as (B, C, T); got {tuple(x.shape)}")
+    if act not in ACTS:
+        raise ValueError(f"mrf_stage_fused: activation {act!r} is not one of {ACTS}")
     C = x.shape[1]
-    if C not in _WIDTHS:
+    if act == "lrelu" and C not in _WIDTHS:
         raise ValueError(f"mrf_stage_fused kernel takes C in {_WIDTHS}; got {C}")
+    if act == "snakebeta_aa" and (C < 1 or x.shape[0] < 1 or x.shape[2] < 1):
+        raise ValueError(f"mrf_stage_fused: empty x {tuple(x.shape)}")
     if packed is not None and len(packed) != 3:
         raise ValueError(f"mrf_stage_fused: {len(packed)} packed branches, expected 3")
-    if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations) or len(dilations) != 3:
-        raise ValueError("mrf_stage_fused kernel takes three branches of three dilations; got "
-                         f"kernel_sizes {kernel_sizes}, dilations {dilations}")
+    _check_layout(kernel_sizes, dilations)
     if any(k % 2 == 0 or not 1 <= k <= _MAX_K for k in kernel_sizes):
         raise ValueError(f"mrf_stage_fused kernel takes odd kernel sizes up to {_MAX_K}; "
                          f"got {kernel_sizes}")
@@ -317,13 +427,24 @@ def _checked(x, mats, biases, kernel_sizes, dilations, dtype, packed=None) -> No
     if biases.numel() != 18 * C or biases.device != x.device:
         raise ValueError(f"mrf_stage_fused: biases {tuple(biases.shape)} on {biases.device} "
                          f"do not fit (18, {C}, 1)")
+    if act == "snakebeta_aa":
+        for name, t in (("log_alpha", log_alpha), ("log_beta", log_beta)):
+            if t is None or t.numel() != 18 * C or t.device != x.device:
+                raise ValueError(f"mrf_stage_fused: the AMP stage needs {name} as (18, {C}) on "
+                                 f"{x.device}; got "
+                                 f"{None if t is None else (tuple(t.shape), t.device)}")
     if packed is not None:
         for p, k in zip(packed, kernel_sizes):
-            if p.dtype != dtype or p.numel() != kernel_weights_numel(C, k, dtype) or \
-                    p.device != x.device or not p.is_contiguous():
+            if act == "snakebeta_aa":
+                fits = tuple(p.shape) == (6, C, C, k)
+                how = "pack_amp_conv_weights"
+            else:
+                fits = p.numel() == kernel_weights_numel(C, k, dtype)
+                how = "pack_mrf_kernel_weights"
+            if p.dtype != dtype or not fits or p.device != x.device or not p.is_contiguous():
                 raise ValueError(f"mrf_stage_fused: packed weights {tuple(p.shape)} {p.dtype} on "
                                  f"{p.device} do not fit C {C}, k {k}, {dtype} on {x.device} "
-                                 "(pack_mrf_kernel_weights)")
+                                 f"({how})")
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage_fused: unsupported device {x.device}")
 
@@ -347,24 +468,30 @@ def sm_count(device: torch.device) -> int:
 def mrf_stage_fused(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
                     biases: torch.Tensor, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS,
                     dtype: torch.dtype | None = None,
-                    packed: list[torch.Tensor] | None = None) -> torch.Tensor:
+                    packed: list[torch.Tensor] | None = None, act: str = "lrelu",
+                    log_alpha: torch.Tensor | None = None,
+                    log_beta: torch.Tensor | None = None) -> torch.Tensor:
     """One MRF stage. x: (B, C, T); weights from `pack_mrf_weights`; returns
     (B, C, T) in `dtype` (x.dtype by default), through the custom op: CPU
     tensors take `mrf_stage_fused_reference`; CUDA tensors launch the kernel
-    or raise. `packed`: the weights' `pack_mrf_kernel_weights(.., dtype)`,
-    packed here when not given. A CPU call that needs a gradient takes the
-    plain version directly (the op has no backward)."""
+    or raise. `packed`: the weights' `pack_mrf_kernel_weights(.., dtype)`
+    (AMP: `pack_amp_conv_weights`), packed here when not given. `act` the
+    activation kind, with the AMP sites' (18, C) `log_alpha` and `log_beta`
+    (`pack_amp_params`). A CPU call that needs a gradient takes the plain
+    version directly (the op has no backward)."""
+    params = tuple(t for t in (log_alpha, log_beta) if t is not None)
     if x.device.type == "cpu" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w3, w7, w11, biases)):
-        return mrf_stage_fused_reference(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype)
+            t.requires_grad for t in (x, w3, w7, w11, biases, *params)):
+        return mrf_stage_fused_reference(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype,
+                                         act, log_alpha, log_beta)
     kernel_sizes = [int(k) for k in kernel_sizes]
     dilations = [int(d) for ds in dilations for d in ds]
     if x.device.type != "cpu":
         _checked(x, (w3, w7, w11), biases, *_nested(kernel_sizes, dilations), dtype or x.dtype,
-                 packed)
-        check_inference("mrf_stage", x, w3, w7, w11, biases)
+                 packed, act, log_alpha, log_beta)
+        check_inference("mrf_stage", x, w3, w7, w11, biases, *params)
     return torch.ops.votw.mrf_stage_fused(x, w3, w7, w11, biases, kernel_sizes, dilations,
-                                          dtype, list(packed or ()))
+                                          dtype, list(packed or ()), act, log_alpha, log_beta)
 
 
 mrf_stage_fused.launches = 0
@@ -373,7 +500,9 @@ mrf_stage_fused.launches = 0
 @torch.library.custom_op("votw::mrf_stage_fused", mutates_args=())
 def _mrf_stage_op(x: torch.Tensor, w3: torch.Tensor, w7: torch.Tensor, w11: torch.Tensor,
                   biases: torch.Tensor, kernel_sizes: list[int], dilations: list[int],
-                  dtype: Optional[torch.dtype], packed: list[torch.Tensor]) -> torch.Tensor:
+                  dtype: Optional[torch.dtype], packed: list[torch.Tensor], act: str = "lrelu",
+                  log_alpha: Optional[torch.Tensor] = None,
+                  log_beta: Optional[torch.Tensor] = None) -> torch.Tensor:
     raise ValueError(f"mrf_stage_fused: unsupported device {x.device}")
 
 
@@ -386,28 +515,36 @@ def _nested(kernel_sizes, dilations):
 
 
 @_mrf_stage_op.register_fake
-def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
+def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed, act="lrelu",
+      log_alpha=None, log_beta=None):
     return x.new_empty(x.shape, dtype=dtype or x.dtype)
 
 
 @_mrf_stage_op.register_kernel("cpu")
-def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
+def _(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed, act="lrelu",
+      log_alpha=None, log_beta=None):
     return mrf_stage_fused_reference(x, w3, w7, w11, biases, *_nested(kernel_sizes, dilations),
-                                     dtype)
+                                     dtype, act, log_alpha, log_beta)
 
 
 @_mrf_stage_op.register_kernel("cuda")
-def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed):
+def _mrf_stage_cuda(x, w3, w7, w11, biases, kernel_sizes, dilations, dtype, packed,
+                    act="lrelu", log_alpha=None, log_beta=None):
     """The stage on the card, by `mrf_route` on x's shape: the one-pass
-    kernel, the unit design or the conv chain, with every check they need."""
+    kernel, the unit design or the conv chain (or the AMP stage), with every
+    check they need."""
     dtype = dtype or x.dtype
     kernel_sizes, dilations = _nested(kernel_sizes, dilations)
     packed = packed or None
-    _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype, packed)
-    if packed is None:
-        packed = pack_mrf_kernel_weights((w3, w7, w11), dtype)
+    _checked(x, (w3, w7, w11), biases, kernel_sizes, dilations, dtype, packed, act, log_alpha,
+             log_beta)
     xk = x.to(dtype).contiguous()
     bias = biases.float().contiguous()
+    if act == "snakebeta_aa":
+        return mrf_stage_amp(xk, packed or pack_amp_conv_weights((w3, w7, w11), dtype), bias,
+                             log_alpha, log_beta, kernel_sizes, dilations)
+    if packed is None:
+        packed = pack_mrf_kernel_weights((w3, w7, w11), dtype)
     B, C, T = x.shape
     route = mrf_route(C, dtype, kernel_sizes, dilations, B, T, sm_count(x.device))
     if route == "onepass":
@@ -537,6 +674,71 @@ def mrf_stage_unit(x: torch.Tensor, packed: list[torch.Tensor], biases: torch.Te
 mrf_stage_unit.launches = 0
 
 
+# cuDNN's bf16 conv1d falls to a slow algorithm on an H100 where a dilated
+# conv reaches far at a wide C (tools/amp_stage_ab_torch.py: at B 64, C 768,
+# k 11, d 5: 109 ms against 5.0 at d 1); such a conv runs as a conv2d over
+# the (B, C, T / d, d) view of its input, undilated along T / d (6.6 ms).
+# Below these the conv1d is as fast or faster.
+_FOLD_REACH, _FOLD_MIN_C = 30, 128
+
+
+def amp_conv(a: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """conv_k,d(a) with zero padding (k - 1) d / 2 and no bias, a (B, C, T),
+    w (C, C, k): where the reach (k - 1) d is at least `_FOLD_REACH` and C at
+    least `_FOLD_MIN_C`, the d phases of T as the conv2d's last axis (a
+    padded to a whole number of phases: zeros, as the conv's own padding),
+    else `F.conv1d`."""
+    k = w.shape[-1]
+    B, C, T = a.shape
+    if d == 1 or (k - 1) * d < _FOLD_REACH or C < _FOLD_MIN_C:
+        return F.conv1d(a, w, None, padding=d * (k - 1) // 2, dilation=d)
+    tq = -(-T // d)
+    if tq * d != T:
+        a = F.pad(a, (0, tq * d - T))
+    y = F.conv2d(a.view(B, C, tq, d), w.unsqueeze(-1), None,
+                 padding=((k - 1) // 2, 0)).view(B, w.shape[0], tq * d)
+    return y if tq * d == T else y[:, :, :T].contiguous()
+
+
+def mrf_stage_amp(x: torch.Tensor, convs: list[torch.Tensor], biases: torch.Tensor,
+                  log_alpha: torch.Tensor, log_beta: torch.Tensor, kernel_sizes=KERNEL_SIZES,
+                  dilations=DILATIONS) -> torch.Tensor:
+    """The AMP stage on the card: x (B, C, T) fp32 or bf16 contiguous,
+    `convs` its `pack_amp_conv_weights` in x's type, biases fp32 (18 * C),
+    the sites' (18, C) log parameters. Per branch one activation launch on
+    x, then per residual unit conv1 (cuDNN), one launch for h + bias
+    activated, conv2 (cuDNN), and one launch that writes the updated stream
+    y + g + bias and activates it for the next unit (the last unit writes
+    the stream only; the last branch's writes the three branches' mean):
+    7 launches and 6 convs a branch."""
+    C = x.shape[1]
+    bias = biases.reshape(-1, C)
+    la = log_alpha.float().reshape(-1, C).contiguous()
+    lb = log_beta.float().reshape(-1, C).contiguous()
+    n = len(kernel_sizes)
+    ys: list[torch.Tensor] = []
+    out = None
+    for b, (w, k, ds) in enumerate(zip(convs, kernel_sizes, dilations)):
+        s0 = 2 * len(ds) * b
+        a, y = amp_launch(x, la[s0], lb[s0])[1], x
+        for i, d in enumerate(ds):
+            s = s0 + 2 * i
+            h = amp_conv(a, w[2 * i], d)
+            a = amp_launch(h, la[s + 1], lb[s + 1], bias=bias[s])[1]
+            g = F.conv1d(a, w[2 * i + 1], None, padding=(k - 1) // 2)
+            if i + 1 < len(ds):
+                y, a, _ = amp_launch(y, la[s + 2], lb[s + 2], g=g, bias=bias[s + 1], y=True)
+            elif b + 1 < n:
+                ys.append(amp_launch(y, g=g, bias=bias[s + 1], y=True, act=False)[0])
+            else:
+                out = amp_launch(y, g=g, bias=bias[s + 1], act=False, mean=tuple(ys))[2]
+    mrf_stage_amp.launches += 1
+    return out
+
+
+mrf_stage_amp.launches = 0
+
+
 class MRFStages:
     """The MRF stages of a generator whose stages are `ResBlock1` branches:
     stage i of `blocks` runs through the op `mrf_stage_fused` (the kernel on
@@ -550,39 +752,60 @@ class MRFStages:
     branches run as modules and are averaged. In bf16 the modules are the JAX
     generators' bf16 chain (JAX hifigan.py:36-67: every conv output rounded
     once, the residual sums in bf16), which the kernel's plain version, kept
-    to the kernel's arithmetic (fp32 residual streams), is not."""
+    to the kernel's arithmetic (fp32 residual streams), is not.
 
-    def __init__(self, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS):
+    `act` "snakebeta_aa": the stages of BigVGAN's `AMPBlock1` branches, with
+    their sites' parameters packed beside the convs (`pack_amp_params`) and
+    the convs in Conv1d layout on the card (`pack_amp_conv_weights`); on the
+    CPU they always run as modules (JAX's BigVGAN's arithmetic). `runs_op`
+    is the one rule for which way a stage goes."""
+
+    def __init__(self, kernel_sizes=KERNEL_SIZES, dilations=DILATIONS, act: str = "lrelu"):
+        if act not in ACTS:
+            raise ValueError(f"MRFStages: activation {act!r} is not one of {ACTS}")
         self.kernel_sizes = tuple(kernel_sizes)
         self.dilations = tuple(tuple(ds) for ds in dilations)
-        self._packed: dict[int, tuple] = {}   # stage -> (identity, (mats, biases, packed))
+        self.act = act
+        # stage -> (identity, (mats, biases, packed, log_alpha, log_beta))
+        self._packed: dict[int, tuple] = {}
 
     @staticmethod
-    def pack(blocks, dtype: torch.dtype, device_type: str):
-        """(mats, biases, kernel stream or None on the CPU) of one stage."""
+    def pack(blocks, dtype: torch.dtype, device_type: str, act: str = "lrelu"):
+        """(mats, biases, kernel stream or None on the CPU, log_alpha,
+        log_beta (None but for AMP)) of one stage."""
         mats, biases = pack_mrf_weights(blocks)
+        if act == "snakebeta_aa":
+            return (mats, biases, pack_amp_conv_weights(mats, dtype) if device_type == "cuda"
+                    else None, *pack_amp_params(blocks))
         return mats, biases, (pack_mrf_kernel_weights(mats, dtype) if device_type == "cuda"
-                              else None)
+                              else None), None, None
 
     def packed(self, i: int, blocks, dtype: torch.dtype, device_type: str = "cuda"):
         params = list(blocks.parameters())
         if torch.compiler.is_exporting():    # fake tensors: no identity to key a cache on
-            return self.pack(blocks, dtype, device_type)
+            return self.pack(blocks, dtype, device_type, self.act)
         key = (dtype, device_type, tuple((p.data_ptr(), p._version) for p in params))
         cached = self._packed.get(i)
         if cached is None or cached[0] != key:
-            cached = (key, self.pack(blocks, dtype, device_type))
+            cached = (key, self.pack(blocks, dtype, device_type, self.act))
             self._packed[i] = cached
         return cached[1]
 
+    def runs_op(self, device: torch.device, dtype: torch.dtype, fused: bool = True) -> bool:
+        """Whether a stage of `dtype` on `device` runs through the op: with
+        `fused`, always off the CPU (where the op raises on what it does not
+        take); on the CPU only a three-branch fp32 leaky-ReLU stage (others,
+        and every AMP stage, run as modules)."""
+        return fused and (device.type != "cpu" or (len(self.kernel_sizes) == 3 and
+                                                   dtype == torch.float32 and
+                                                   self.act == "lrelu"))
+
     def __call__(self, i: int, blocks, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
-        # the op takes three branches; on the CPU a stage of another shape,
-        # or in bf16, runs as modules
-        if fused and (x.device.type != "cpu" or (len(self.kernel_sizes) == 3
-                                                 and x.dtype == torch.float32)):
-            mats, biases, packed = self.packed(i, blocks, x.dtype, x.device.type)
+        if self.runs_op(x.device, x.dtype, fused):
+            _check_layout(self.kernel_sizes, self.dilations)   # before the op's 3 weight slots
+            mats, biases, packed, la, lb = self.packed(i, blocks, x.dtype, x.device.type)
             return mrf_stage_fused(x, *mats, biases, self.kernel_sizes, self.dilations,
-                                   packed=packed)
+                                   packed=packed, act=self.act, log_alpha=la, log_beta=lb)
         acc = None
         for block in blocks:
             y = block(x)

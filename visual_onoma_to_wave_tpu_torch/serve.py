@@ -64,7 +64,8 @@ WIDTH_RATE_RANGE = (0.05, 8.0)   # glyph-stretch bounds
 CONTROL_RANGE = (0.05, 20.0)     # e/d control bounds
 # the recorder's cumulative counts that /v1/stats reports under "synth"
 SYNTH_COUNTS = ("rows", "rows_padded", "chars", "chars_padded", "frames", "frames_vocoded",
-                "h2d_bytes", "d2h_bytes", "glyph_hits", "glyph_misses")
+                "h2d_bytes", "d2h_bytes", "glyph_hits", "glyph_misses", "amp_sites",
+                "amp_sites_plain")
 
 
 def _in_range(v, lo: float, hi: float) -> bool:

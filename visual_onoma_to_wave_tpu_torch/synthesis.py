@@ -60,7 +60,11 @@ def make_fused_infer(model: VTTS, gen):
     d_control) -> outputs of model(...) plus "wav"`. `batch` holds
     audiotypes, texts, src_lens and, on the image path, image_cells, as
     tensors on the models' device; controls are scalars or per-item (B,).
-    The vocoder runs through `vocode` (MelGAN is fed mel / ln 10)."""
+    The vocoder runs through `vocode` (MelGAN is fed mel / ln 10). A
+    generator with anti-aliased activation sites (BigVGAN) has them counted
+    once a call from its route plan (`amp_site_plan`): `synth.amp_sites`
+    through the one-pass kernel, `synth.amp_sites_plain` as modules."""
+    plan = getattr(gen, "amp_site_plan", None)
 
     @torch.inference_mode()
     def fused(batch: dict, e_control=1.0, d_control=1.0) -> dict:
@@ -69,6 +73,10 @@ def make_fused_infer(model: VTTS, gen):
                         image_cells=batch.get("image_cells"),
                         e_control=e_control, d_control=d_control)
         with tracing.span("synth.vocoder"):
+            if plan is not None:       # BigVGAN: its activation sites by route, once a call
+                fused_sites, plain_sites = plan(out["postnet_mel"].device)
+                tracing.count("synth.amp_sites", fused_sites)
+                tracing.count("synth.amp_sites_plain", plain_sites)
             wav = vocode(gen, out["postnet_mel"])
         return {**out, "wav": wav}
 
