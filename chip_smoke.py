@@ -7,8 +7,9 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
 
   1. probe: torch / CUDA versions, the card and its power limit, TF32 flags;
      then every kernel source (`csrc/flash_mha.cu`, `csrc/convnext.cu`,
-     `csrc/mel_frontend.cu`, `csrc/mrf.cu`) is built with nvcc for sm_90a,
-     one nvcc process each, all at once;
+     `csrc/mel_frontend.cu`, `csrc/mrf.cu`, `csrc/amp.cu`,
+     `csrc/conv1d_tc.cu`) is built with nvcc for sm_90a, one nvcc process
+     each, all at once;
   2. kernel: holds the attention kernel against its plain PyTorch version
      over dk 64 / 128, fp32 / bf16, T 8 / 63 / 64 / 65 / 100 / 129 / 512 /
      1000 and key masks none / tail / full / holes (fully padded items exactly
@@ -35,6 +36,18 @@ Phases, each printing one or two lines; any failure raises and exits non-zero:
      max_mel_len 1000) with HiFi-GAN V1 (four MRF kernel launches a call),
      random weights from a seed, serving one padded batch of 16 requests;
      prints acoustic and synthesis rates;
+  4b. acoustic convs: ptxas's registers and spills of B7
+     (`csrc/conv1d_tc.cu`, one instantiation per output-channel tile); each
+     conv of the ICASSP model's conv FFNs (the encoder's at T 8, the
+     decoder's at T 1000) and PostNet at the benchmark cells' B 64 through
+     B7 against the same conv in float64 (1e-5 x max), cuDNN's (TF32 off)
+     and the plain version's distances beside it, the same launch with the
+     lo products made zero (1xTF32) outside that bound, one launch a call;
+     kernel, plain and cuDNN ms
+     beside the 3xTF32 and fp32 CUDA-core bounds, and their sums over a
+     call's 25 convs; then the whole acoustic model at B 64 x 1000 frames
+     with B7 against the same model through cuDNN (the same durations):
+     25 launches a call, postnet mel within 1e-5 x its max, ms of both;
   5. vocos golden: phase 3 with the demo Vocos (`config_vocos.json`,
      `vocoder_vocos.npz`) against `golden_vocos.npz`, and `apply_fused`
      (one trunk launch) against the served waveform;
@@ -358,6 +371,7 @@ def sass_mma_counts(library: pathlib.Path) -> dict | str:
 def _wrappers() -> dict:
     """Every kernel wrapper of the port by its record name."""
     from visual_onoma_to_wave_tpu_torch.ops.attention import attention_core
+    from visual_onoma_to_wave_tpu_torch.ops.conv1d import conv1d_tc
     from visual_onoma_to_wave_tpu_torch.ops.convnext import convnext_block, convnext_trunk
     from visual_onoma_to_wave_tpu_torch.ops.mel import mel_frontend
     from visual_onoma_to_wave_tpu_torch.ops.amp import amp_act
@@ -368,7 +382,7 @@ def _wrappers() -> dict:
             "convnext_trunk": convnext_trunk, "mel_frontend": mel_frontend,
             "mrf_stage": mrf_stage_fused, "mrf_stage_onepass": mrf_stage_onepass,
             "mrf_stage_unit": mrf_stage_unit, "mrf_stage_amp": mrf_stage_amp,
-            "amp_act": amp_act}
+            "amp_act": amp_act, "conv1d_tc": conv1d_tc}
 
 
 # the record name of each design `ops/mrf.py::mrf_route` picks
@@ -796,12 +810,29 @@ def mrf_stages(gen, mel: tuple[int, int] | None = None) -> dict:
     return counts
 
 
+def b7_convs(model) -> int:
+    """B7 launches of one forward of the acoustic model `model` in `.eval()`
+    on the card (`VTTS.acoustic_conv_plan`: 25 for the ICASSP model in fp32,
+    0 in bf16), whatever mode it is in now."""
+    was = model.training
+    model.eval()
+    n = model.acoustic_conv_plan(torch.device("cuda"))[0]
+    model.train(was)
+    return n
+
+
+def acoustic_launches(model, forwards: int) -> dict:
+    """Kernel launches of `forwards` eval forwards of the acoustic model:
+    one attention launch per FFT block, `b7_convs` conv launches."""
+    blocks = len(model.encoder.layer_stack) + len(model.decoder.layer_stack)
+    return {"flash_mha": forwards * blocks, "conv1d_tc": forwards * b7_convs(model)}
+
+
 def per_call_launches(model, gen, mel: tuple[int, int] | None = None) -> dict:
     """Kernel launches of one fused acoustic + vocoder call (`mel`: the
     (batch, frames) of the mel the vocoder is fed, see `mrf_stages`)."""
-    return {"flash_mha": len(model.encoder.layer_stack) + len(model.decoder.layer_stack),
-            "convnext_block": convnext_blocks(gen), "convnext_trunk": 0,
-            **mrf_stages(gen, mel)}
+    return {**acoustic_launches(model, 1), "convnext_block": convnext_blocks(gen),
+            "convnext_trunk": 0, **mrf_stages(gen, mel)}
 
 
 def phase_golden(dev, phase: str = "3 golden", config: str = "config.json",
@@ -971,6 +1002,210 @@ def phase_full(dev, card: str, phase: str = "4 full width", vocoder: str = "HiFi
         batch=B, chars=C, max_mel_len=MAX_MEL, mel_lens=mel_lens.tolist(),
         kernel_launches_per_call=launches, **result, **extra)
     return {"launches": launches, **result}, (gen, out)
+
+
+# phase 4b: B7 at the benchmark cells' shape (B 64 x 1000 frames; the
+# encoder's conv FFN at its 8 text positions), held to the same conv and
+# epilogue in float64 on the card within ATOL's 1e-5 x max |float64|. Not to
+# cuDNN: with TF32 off cuDNN (and cuBLAS) sum the 2560 products of a PostNet
+# conv in fp32 to 8.6e-6 of max |out| at its tanh outputs, B7 (3xTF32, a
+# fresh tensor-core sum per 16 input channels of a tap) to 2.4e-6, so the two
+# sit ~9e-6 apart (an NVIDIA H100 80GB HBM3 at 700 W); cuDNN's and
+# the plain version's distances are printed beside. The same launch with the
+# lo products made zero (1xTF32: the input rounded to TF32, the weights' lo
+# plane 0) must miss the bound, so that a build that drops them fails
+# (tests/test_torch_conv1d.py emulates both on the CPU). Each row: name, cin,
+# cout, k, activation, BatchNorm, T, convs of its shape in one ICASSP forward
+B7_B = 64
+B7_CONVS = (("encoder ffn w_1", 256, 1024, 9, "relu", False, C, 4),
+            ("encoder ffn w_2", 1024, 256, 1, "none", False, C, 4),
+            ("decoder ffn w_1", 256, 1024, 9, "relu", False, MAX_MEL, 6),
+            ("decoder ffn w_2", 1024, 256, 1, "none", False, MAX_MEL, 6),
+            ("postnet 0", 80, 512, 5, "tanh", True, MAX_MEL, 1),
+            ("postnet 1-3", 512, 512, 5, "tanh", True, MAX_MEL, 3),
+            ("postnet 4", 512, 80, 5, "none", True, MAX_MEL, 1))
+
+
+def conv1d_ptxas_report() -> dict:
+    """Registers, stack and spills of each B7 instantiation
+    (`conv1d_tc_kernel<NT>`) in the built library's ptxas.log."""
+    import re
+
+    from visual_onoma_to_wave_tpu_torch.ops.cuda_build import library_path
+
+    report, key = {}, None
+    for line in (library_path("conv1d_tc").parent / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"conv1d_tc_kernelILi(\d+)E", m.group(1))
+            key = f"NT{k.group(1)}" if k else None
+            continue
+        if key is None:
+            continue
+        entry = report.setdefault(key, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return report
+
+
+def b7_conv(cin: int, cout: int, k: int, gen, dev):
+    """A conv of the ICASSP model's init (lecun-normal weight) with a bias of
+    N(0, 0.1), and an eval BatchNorm with running statistics and affine away
+    from the identity, on `dev`."""
+    from visual_onoma_to_wave_tpu_torch.models.layers import BatchNorm1d, lecun_normal_
+
+    conv = torch.nn.Conv1d(cin, cout, k, padding="same").to(dev)
+    bn = BatchNorm1d(cout, eps=1e-5).to(dev).eval()
+    with torch.no_grad():
+        lecun_normal_(conv.weight, cin * k)
+        conv.bias.copy_(torch.randn(cout, generator=gen, device=dev) * 0.1)
+        bn.weight.copy_(torch.rand(cout, generator=gen, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn(cout, generator=gen, device=dev) * 0.1)
+        bn.running_mean.copy_(torch.randn(cout, generator=gen, device=dev) * 0.3)
+        bn.running_var.copy_(torch.rand(cout, generator=gen, device=dev) * 1.5 + 0.5)
+    return conv, bn
+
+
+def b7_exact(x: torch.Tensor, conv, bn, act: str, use_bn: bool) -> torch.Tensor:
+    """`conv` (SAME padding), the eval BatchNorm `bn` and `act` on x (B, T,
+    C) in float64: the answer the fp32 paths are held to."""
+    import torch.nn.functional as F
+
+    k = conv.weight.shape[-1]
+    v = F.conv1d(x.double().transpose(1, 2), conv.weight.double(), conv.bias.double(),
+                 padding=(k - 1) // 2)
+    if use_bn:
+        col = lambda t: t.double()[:, None]  # noqa: E731
+        v = (v - col(bn.running_mean)) / torch.sqrt(col(bn.running_var) + bn.eps) * \
+            col(bn.weight) + col(bn.bias)
+    v = {"relu": torch.relu, "tanh": torch.tanh, "none": lambda t: t}[act](v)
+    return v.transpose(1, 2)
+
+
+@contextlib.contextmanager
+def plain_convs():
+    """While the context lasts, the acoustic model's conv FFNs and PostNet
+    run as modules (cuDNN) on the card: the route `ops.conv1d.runs_kernel`
+    sends nothing to B7."""
+    import visual_onoma_to_wave_tpu_torch.models.layers as layers
+
+    route = layers.runs_kernel
+    layers.runs_kernel = lambda device, dtype, training: False
+    try:
+        yield
+    finally:
+        layers.runs_kernel = route
+
+
+def phase_conv1d(dev, card: str) -> dict:
+    from visual_onoma_to_wave_tpu_torch.ops.conv1d import (
+        conv1d_tc, conv1d_tc_reference, pack_conv1d_weight, tile_n)
+    from visual_onoma_to_wave_tpu_torch.ops.convnext import tf32_round
+
+    phase = "4b acoustic convs"
+    ptxas = conv1d_ptxas_report()
+    say(phase + " ptxas", card=card, **ptxas)
+    if not ptxas or any(e.get("spill_stores", 0) or e.get("spill_loads", 0)
+                        for e in ptxas.values()):
+        raise AssertionError(f"{phase}: B7 spills or was not found: {ptxas}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    acts = {"relu": torch.relu, "tanh": torch.tanh, "none": lambda v: v}
+    rows, call = {}, {"kernel_ms": 0.0, "cudnn_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "bound_cuda_cores_ms": 0.0}
+    for name, cin, cout, k, act, use_bn, T, per_call in B7_CONVS:
+        conv, bn = b7_conv(cin, cout, k, gen, dev)
+        x = torch.randn(B7_B, T, cin, generator=gen, device=dev)
+        if act == "none" and not use_bn:       # a conv FFN's second conv reads a ReLU's output
+            x = torch.relu(x)
+        stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var) if use_bn else None
+        with torch.inference_mode():
+            packed = pack_conv1d_weight(conv.weight)
+            single_w = packed.clone().reshape(-1, 2, tile_n(cout) * 16)
+            single_w[:, 1] = 0.0
+            single_w = single_w.reshape(-1)
+            x_tf32 = tf32_round(x)
+            runs = {
+                "kernel": lambda: conv1d_tc(x, conv.weight, conv.bias, act, stats, bn.eps,
+                                            packed),
+                "cudnn": lambda: acts[act](bn(conv(x.transpose(1, 2))) if use_bn
+                                           else conv(x.transpose(1, 2))).transpose(1, 2),
+                "plain": lambda: conv1d_tc_reference(x, conv.weight, conv.bias, act, stats,
+                                                     bn.eps)}
+            zero_launch_counts()
+            got = runs["kernel"]()
+            torch.cuda.synchronize()
+            expect_launches(f"{phase} {name}", launch_counts(), {"conv1d_tc": 1})
+            want, plain = runs["cudnn"](), runs["plain"]()
+            single = conv1d_tc(x_tf32, conv.weight, conv.bias, act, stats, bn.eps, single_w)
+            exact = b7_exact(x, conv, bn, act, use_bn)
+            scale = float(exact.abs().max())
+            of_max = lambda t: float((t.double() - exact).abs().max()) / scale  # noqa: E731
+            err, err_single = of_max(got), of_max(single)
+            errs = {"cudnn_err_of_max": of_max(want), "plain_err_of_max": of_max(plain),
+                    "b7_vs_cudnn_of_max": float((got - want).abs().max()) / scale}
+            del exact
+            times = {key: [] for key in runs}
+            for order in (("kernel", "cudnn", "plain"), ("plain", "cudnn", "kernel")):
+                for key in order:
+                    times[key].append(time_cuda(runs[key], 10, warmup=2))
+        if not err <= ATOL[torch.float32]:
+            raise AssertionError(f"{phase} {name}: B7 is {err:.3e} of max |float64| from the "
+                                 f"float64 conv (bound {ATOL[torch.float32]}; {errs})")
+        if not err_single > ATOL[torch.float32]:
+            raise AssertionError(f"{phase} {name}: 1xTF32 reads {err_single:.3e} of max |float64|, "
+                                 f"inside the bound {ATOL[torch.float32]}: it cannot tell 3xTF32")
+        flops = 2.0 * B7_B * T * cin * k * cout
+        moved = nbytes(x, got, conv.weight, conv.bias)
+        ms = {f"{key}_ms": float(np.mean(v)) for key, v in times.items()}
+        rows[name] = {"cin": cin, "cout": cout, "k": k, "T": T, "act": act, "batchnorm": use_bn,
+                      "per_call": per_call, "err_of_max": err, **errs,
+                      "err_1xtf32_of_max": err_single, **ms, "runs_ms": times,
+                      **bound(3.0 * flops, moved, PEAK_TF32_FLOPS),
+                      "bound_cuda_cores_ms": bound(flops, moved)["bound_ms"],
+                      "tflops_3xtf32_counted_once": flops / ms["kernel_ms"] / 1e9}
+        for key in ("kernel_ms", "cudnn_ms", "plain_ms", "bound_ms", "bound_cuda_cores_ms"):
+            call[key] += per_call * rows[name][key]
+        del conv, bn, x, got, want, plain, single, packed, single_w, x_tf32
+        torch.cuda.empty_cache()
+    call["share_of_bound"] = call["bound_ms"] / call["kernel_ms"]
+    say(phase, card=card, batch=B7_B, atol_of_max=ATOL[torch.float32], convs=rows, per_call=call)
+
+    # the whole acoustic model at the cells' shape: phase 4's model and batch x 4
+    model, batch = icassp_acoustic(dev)
+    batch = {key: torch.cat([v] * (B7_B // B)) for key, v in batch.items()}
+    with torch.inference_mode():
+        d = model(**batch)["duration_rounded"]
+        forward = lambda: model(**batch, duration_targets=d)["postnet_mel"]  # noqa: E731
+        zero_launch_counts()
+        got = forward()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        expect_launches(phase + " model", launches, acoustic_launches(model, 1))
+        with plain_convs():
+            want = forward()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        times = {"b7": [], "cudnn": []}
+        for order in (("b7", "cudnn"), ("cudnn", "b7")):
+            for key in order:
+                if key == "cudnn":
+                    with plain_convs():
+                        times[key].append(time_cuda(forward, 5, warmup=2))
+                else:
+                    times[key].append(time_cuda(forward, 5, warmup=2))
+    if not err <= ATOL[torch.float32]:
+        raise AssertionError(f"{phase} model: postnet mel {err:.3e} of its max from cuDNN's")
+    model_ms = {key: float(np.mean(v)) for key, v in times.items()}
+    say(phase + " model", card=card, batch=B7_B, max_mel_len=MAX_MEL,
+        kernel_launches_per_call=launches, postnet_mel_err_of_max=err,
+        acoustic_ms=model_ms, acoustic_ms_runs=times)
+    return {"launches": launches["conv1d_tc"], "per_call": call, "convs": rows,
+            "acoustic_ms": model_ms, "postnet_mel_err_of_max": err}
 
 
 def phase_vocos_full(dev, card: str, hifigan: dict) -> dict:
@@ -2062,7 +2297,10 @@ def phase_train(dev, card: str, work: pathlib.Path) -> dict:
     if b1["train"] != 0 or per_evaluate == 0 or b1["evaluate"] != n_val * per_evaluate:
         raise AssertionError(f"{phase}: attention kernel launches {b1} with {per_evaluate} "
                              f"per evaluate: expected none in the train steps")
-    expect_launches(phase + " train", train_launches, {"flash_mha": b1["evaluate"]})
+    model = trainer.state.model
+    blocks = len(model.encoder.layer_stack) + len(model.decoder.layer_stack)
+    expect_launches(phase + " train", train_launches,
+                    acoustic_launches(model, b1["evaluate"] // blocks))
     say(phase, card=card, params=trainer.n_params(), clips=len(trainer.train_ds),
         steps=trainer.state.step, corpus_kernel_launches=corpus_launches,
         first_step=first, step_ms_median=float(np.median(step_ms)),
@@ -2097,7 +2335,7 @@ def phase_train(dev, card: str, work: pathlib.Path) -> dict:
         raise AssertionError(f"{phase}: synthesis from the checkpoint gave mel "
                              f"{result.mel.shape} with launches {synth_launches}")
     expect_launches(phase + " synthesis", synth_launches,
-                    {"flash_mha": synth_launches["flash_mha"]})
+                    acoustic_launches(synth.model, synth_launches["flash_mha"] // blocks))
     say(phase, resumed_step=resumed.state.step, restored_bit_exact=same,
         synth_mel_frames=int(result.mel.shape[0]), synth_kernel_launches=synth_launches)
     return {"step_ms": float(np.median(step_ms)), "cfg": cfg}
@@ -2642,6 +2880,14 @@ def gate_tool():
     return eval_quality_demo_torch
 
 
+def gate_model(cfg):
+    """The acoustic model `cfg` builds, on the CPU: its widths and compute
+    dtype give B7's launches a forward (`b7_convs`)."""
+    from visual_onoma_to_wave_tpu_torch.models import VTTS
+
+    return VTTS.from_config(cfg)
+
+
 def phase_quality_gate(dev, card: str) -> dict:
     """The gate's three paths on the card, each with its launches counted:
     the corpus build (B3), the acoustic model's `evaluate(metrics=True)` (B1)
@@ -2680,8 +2926,8 @@ def phase_quality_gate(dev, card: str) -> dict:
         card_means = gate.acoustic_quality(cfg_dict, DEMO / "torch" / "acoustic.npz", str(dev))
         evaluate = launch_counts()
         val_batches = len(OnomaDataset("val.txt", cfg).batch_plan(1, shuffle=False))
-        blocks = cfg.model.transformer.encoder_layer + cfg.model.transformer.decoder_layer
-        expect_launches(phase + " evaluate", evaluate, {"flash_mha": 2 * blocks * val_batches})
+        expect_launches(phase + " evaluate", evaluate,
+                        acoustic_launches(gate_model(cfg), 2 * val_batches))
         logmel = gate.make_logmel(cfg.audio, str(dev))
         gt = gate.ground_truth(work / "card" / "preprocessed", cfg.audio.stft.hop_length, logmel)
         card_means["vocoders"], vocoder_launches = {}, {}
@@ -2968,7 +3214,7 @@ def vocoder_pairs(dev, train_cfg) -> dict:
     pairs = teacher_forced_pairs(trainer)
     torch.cuda.synchronize()
     launches = launch_counts()
-    expect_launches(phase, launches, {"flash_mha": batches * blocks})
+    expect_launches(phase, launches, acoustic_launches(model, batches))
     if not pairs or not all(len(a) == m.shape[0] * HOP and np.isfinite(m).all()
                             for a, m in pairs):
         raise AssertionError(f"{phase}: {len(pairs)} pairs, not frame-aligned or not finite")
@@ -3652,9 +3898,7 @@ def surface_checkpoint(dev, card: str, cfg, work: pathlib.Path) -> dict:
     zero_launch_counts()
     got = synth.synthesize_batch(list(SURFACE_TEXTS), types)
     launches = launch_counts()
-    expect_launches(phase, launches,
-                    {"flash_mha": len(synth.model.encoder.layer_stack)
-                     + len(synth.model.decoder.layer_stack)})
+    expect_launches(phase, launches, acoustic_launches(synth.model, 1))
     want = given.synthesize_batch(list(SURFACE_TEXTS), types)
     same = all(np.array_equal(a.mel, b.mel) and np.array_equal(a.durations, b.durations)
                for a, b in zip(got, want))
@@ -3809,8 +4053,7 @@ def surface_trainer(dev, card: str, cfg, work: pathlib.Path) -> dict:
     torch.cuda.synchronize(dev)
     launches = launch_counts()
     model = trainer.state.model
-    expect_launches(phase, launches, {"flash_mha": len(model.encoder.layer_stack)
-                                      + len(model.decoder.layer_stack)})
+    expect_launches(phase, launches, acoustic_launches(model, 1))
     trace = trainer.profile_trace
     events = json.loads(trace.read_text())["traceEvents"] if trace else []
     kernels = sorted((e for e in events if e.get("cat") == "kernel"),
@@ -3884,6 +4127,7 @@ def main() -> int:
     convnext = phase_convnext(dev, probe["smi"])
     phase_golden(dev)
     full, (_, served) = phase_full(dev, probe["smi"])
+    b7 = phase_conv1d(dev, probe["smi"])
     time_attention(dev, attn, "served", served["mel_lens"])   # the decoder's key lengths
     phase_vocos_golden(dev)
     vocos = phase_vocos_full(dev, probe["smi"], full)
@@ -3947,6 +4191,11 @@ def main() -> int:
          "launches": served16["HiFi-GAN"]["launches"]["mrf_stage_unit"], **mrf["unit"]},
         {"name": "amp_act", "route": "cuda", "source": source + "amp.cu",
          "replaces": "none (XLA: visual_onoma_to_wave_tpu/models/bigvgan.py)", **amp["site"]},
+        {"name": "conv1d_tc", "route": "cuda", "source": source + "conv1d_tc.cu",
+         "replaces": "none (XLA: visual_onoma_to_wave_tpu/models/layers.py)",
+         "launches": full["launches"]["conv1d_tc"],
+         "launches_bf16": served16["HiFi-GAN"]["launches"]["conv1d_tc"],
+         **{k: v for k, v in b7.items() if k != "launches"}},
         {"name": "mrf_stage_amp", "route": "cuda",
          "source": source + "amp.cu + cuDNN (ops/mrf.py::mrf_stage_amp)",
          "replaces": "none (XLA: visual_onoma_to_wave_tpu/models/bigvgan.py)", **amp["stage"]},

@@ -307,6 +307,9 @@ class _Mels(torch.nn.Module):
                 d_control=1.0):
         return {"postnet_mel": texts}
 
+    def acoustic_conv_plan(self, device):
+        return 0, 0       # no conv FFN, no PostNet
+
 
 def test_fused_call_counts_the_plan_once_a_call():
     """`make_fused_infer` counts `synth.amp_sites` / `synth.amp_sites_plain`

@@ -336,7 +336,7 @@ for vocoder, mrf, onepass, unit, blocks in (("HiFi-GAN", 2, 1, 1, 0), ("iSTFTNet
     model16, gen16, _ = chip_smoke.icassp_bf16("cpu", vocoder)
     assert model16.dtype == gen16.dtype == torch.bfloat16
     want = {"flash_mha": 10, "convnext_block": blocks, "convnext_trunk": 0, "mrf_stage": mrf,
-            "mrf_stage_onepass": onepass, "mrf_stage_unit": unit}
+            "mrf_stage_onepass": onepass, "mrf_stage_unit": unit, "conv1d_tc": 0}
     assert chip_smoke.per_call_launches(model16, gen16) == want
     assert chip_smoke.per_call_launches(model16, gen16, (16, 1000)) == want
     short = chip_smoke.per_call_launches(model16, gen16, (1, 8))
@@ -416,7 +416,9 @@ assert [launches[v]["mrf_stage"] for v in launches] == [4, 1, 2, 0, 0, 0], launc
 assert [launches[v]["convnext_block"] for v in launches] == [0, 0, 0, 0, 8, 0], launches
 assert set(chip_smoke.launch_counts()) == {"flash_mha", "convnext_block", "convnext_trunk",
                                            "mel_frontend", "mrf_stage", "mrf_stage_onepass",
-                                           "mrf_stage_unit", "mrf_stage_amp", "amp_act"}
+                                           "mrf_stage_unit", "mrf_stage_amp", "amp_act",
+                                           "conv1d_tc"}
+assert [launches[v]["conv1d_tc"] for v in launches] == [25] * 6, launches
 assert [launches[v]["mrf_stage_onepass"] for v in launches] == [0] * 6, launches
 assert [launches[v]["mrf_stage_unit"] for v in launches] == [0] * 6, launches
 assert [launches[v].get("mrf_stage_amp", 0) for v in launches] == [0, 0, 0, 0, 0, 4], launches

@@ -85,6 +85,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_ptx.cuh"
+
 namespace {
 
 constexpr int TILE = 64;                    // frames per tile: wgmma's M
@@ -161,84 +163,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- shared-memory barriers, bulk copies, wgmma ---------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one contiguous copy from device memory to shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+// ---- the consumers' barrier, wgmma with A in registers ---------------------
+// (barriers, bulk copies, fences and descriptors: hopper_ptx.cuh)
 
 // consumers only (the producer warpgroup does not take part): named barrier 1
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across a wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand without swizzle: 8-row
-// x 16-byte core matrices of 128 contiguous bytes, `lbo` bytes apart along K
-// and 128 bytes apart along N.
-__device__ __forceinline__ uint64_t desc_of(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-
 // wgmma m64nNk8 (tf32) and m64nNk16 (bf16), A from registers, B from shared
 // memory (K-major), fp32 accumulators d[N / 2]: d = A B^T + (scale_d ? d : 0).
 template <int N>
-struct Wgmma;
+struct WgmmaRS;
 template <>
-struct Wgmma<32> {
+struct WgmmaRS<32> {
   static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t desc,
                                          int scale_d) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -265,7 +203,7 @@ struct Wgmma<32> {
   }
 };
 template <>
-struct Wgmma<64> {
+struct WgmmaRS<64> {
   static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t desc,
                                          int scale_d) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -300,7 +238,7 @@ struct Wgmma<64> {
   }
 };
 template <>
-struct Wgmma<128> {
+struct WgmmaRS<128> {
   static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t desc,
                                          int scale_d) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -407,14 +345,14 @@ __device__ __forceinline__ void load_frag(const float* p, int ld, FragBF16& f) {
 template <int N>
 __device__ __forceinline__ void mma(float* d, const FragTF32& a, uint32_t b, uint32_t lbo,
                                     int scale_d) {
-  Wgmma<N>::tf32(d, a.hi, desc_of(b + PLANE_BYTES, lbo), scale_d);  // hi * lo
-  Wgmma<N>::tf32(d, a.lo, desc_of(b, lbo), 1);                      // lo * hi
-  Wgmma<N>::tf32(d, a.hi, desc_of(b, lbo), 1);                      // hi * hi
+  WgmmaRS<N>::tf32(d, a.hi, desc_of(b + PLANE_BYTES, lbo), scale_d);  // hi * lo
+  WgmmaRS<N>::tf32(d, a.lo, desc_of(b, lbo), 1);                      // lo * hi
+  WgmmaRS<N>::tf32(d, a.hi, desc_of(b, lbo), 1);                      // hi * hi
 }
 template <int N>
 __device__ __forceinline__ void mma(float* d, const FragBF16& a, uint32_t b, uint32_t lbo,
                                     int scale_d) {
-  Wgmma<N>::bf16(d, a.v, desc_of(b, lbo), scale_d);
+  WgmmaRS<N>::bf16(d, a.v, desc_of(b, lbo), scale_d);
 }
 
 // d (64 x N of this warpgroup) = A[:, 0:KS] B^T over one stage of the ring,

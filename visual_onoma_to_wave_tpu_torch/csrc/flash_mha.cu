@@ -137,6 +137,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_ptx.cuh"
+
 namespace {
 
 constexpr int BLOCK_M = 128;  // queries per CTA: two warpgroups of 64 (wgmma's M)
@@ -174,42 +176,8 @@ struct Geom {
   static_assert(DK % SLAB == 0 && (DK / Op::E) % 4 == 0, "dk");
 };
 
-// ---- shared-memory fences, wgmma -------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// this thread's st.shared become visible to the tensor cores' (async proxy)
-// reads; the barrier that follows makes them visible to every warpgroup
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across a wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand without swizzle: 8-row
-// x 16-byte core matrices of 128 contiguous bytes, `lbo` bytes apart along K
-// and 128 bytes apart along N.
-__device__ __forceinline__ uint64_t desc_of(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
+// ---- wgmma with A in registers ----------------------------------------------
+// (fences and descriptors: hopper_ptx.cuh)
 
 // wgmma m64n64k8 (tf32), A from registers, B from shared memory (K-major),
 // fp32 accumulators d[32]: d = A B^T + (scale_d ? d : 0).
@@ -502,7 +470,7 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     cp_async_wait_all();
     __syncthreads();
     split_tile<T, DK>(k_planes, v_planes, v_raw);
-    fence_proxy_async();
+    fence_async_shared();
     __syncthreads();
   }
 
@@ -593,7 +561,7 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     __syncthreads();  // the V planes are read; the next tile's copies have landed
     if (more) {
       split_tile<T, DK>(k_planes, v_planes, v_raw);
-      fence_proxy_async();
+      fence_async_shared();
     }
     __syncthreads();  // the next tile's planes are in place
     cur = next;

@@ -16,10 +16,12 @@ Each program holds the acoustic and vocoder weights once: its batch and text
 dimensions are dynamic (`torch.export.Dim`; the text length a multiple of
 `text_bucket`), so every (batch, text) bucket of the manifest runs the one
 program. The kernels are custom ops (`votw::attention_core`,
-`votw::mrf_stage_fused`, `votw::convnext_block`) that the graph calls by
-name: a `cuda` program launches them on the card, a `cpu` program runs their
-plain versions. The packing of the MRF and ConvNeXt weights for the kernels
-is traced into the graph. `ExportedSynthesizer.load(dir)` is a drop-in
+`votw::mrf_stage_fused`, `votw::convnext_block`, `votw::conv1d_tc`) that the
+graph calls by name: a `cuda` program launches them on the card, a `cpu`
+program runs their plain versions. The packing of the MRF and ConvNeXt
+weights for the kernels is traced into the graph; the acoustic convs'
+weights for `votw::conv1d_tc` are packed before the trace and held as
+buffers. `ExportedSynthesizer.load(dir)` is a drop-in
 `Synthesizer` (`synthesize`, `synthesize_batch`, `batch_signature`, so
 `serve.BatchingServer` and `cli serve --exported` take it unchanged) that
 needs no checkpoint and no model code: only the package's custom ops, which
@@ -130,6 +132,7 @@ def export_synthesizer(synth: Synthesizer, out_dir: str | pathlib.Path, *, max_b
             shapes["texts"] = {0: batch}
             if synth.use_image:
                 shapes["image_cells"] = {0: batch}
+        step.model.pack_kernel_weights(dev)    # B7's weights go in as buffers
         with torch.no_grad():
             program = torch.export.export(step, args, kwargs, dynamic_shapes=shapes)
         torch.export.save(program, out / _program_name(device))

@@ -15,6 +15,13 @@ layout; convolutions transpose to PyTorch's (B, C, T) internally. Parameter
 names follow the reference state_dict layout that
 `visual_onoma_to_wave_tpu/models/convert_acoustic.py` reads.
 
+Under `.eval()` on the card at fp32 compute, the conv FFN's two convolutions
+and the PostNet's five run on the tensor-core kernel B7 (`ops/conv1d.py`)
+on the (B, T, C) layout, each with its bias, BatchNorm and activation in the
+same launch; `.train()`, the bf16 compute dtype and the CPU keep the modules
+(`ops.conv1d.runs_kernel`, the one rule; `kernel_convs` lists what it sends).
+A conv of widths B7 does not take raises there rather than fall back.
+
 Compute dtype (`dtype`, the JAX modules' field of that name): in bfloat16
 the attention's projections, its product with V and its output projection,
 the conv FFN and the PostNet's first four convolutions run in bf16 with fp32
@@ -42,6 +49,7 @@ from visual_onoma_to_wave_tpu_torch.ops.attention import (
     attention_core,
     attention_core_reference,
 )
+from visual_onoma_to_wave_tpu_torch.ops.conv1d import conv1d_module, runs_kernel
 from visual_onoma_to_wave_tpu_torch.precision import at_dtype
 
 
@@ -224,8 +232,17 @@ class MultiHeadAttention(nn.Module):
         return self.layer_norm(out.float() + x.float())
 
 
-class PositionwiseFeedForward(nn.Module):
-    """Conv FFN: k=9 expand -> ReLU -> k=1 project, post-LN."""
+class _KernelConvs:
+    """A module whose convs (`convs()`) go to B7 together or not at all."""
+
+    def kernel_convs(self, device: torch.device) -> list[nn.Conv1d]:
+        """The convs a forward on `device` runs on B7 (`ops.conv1d.runs_kernel`)."""
+        return self.convs() if runs_kernel(device, self.dtype, self.training) else []
+
+
+class PositionwiseFeedForward(_KernelConvs, nn.Module):
+    """Conv FFN: k=9 expand -> ReLU -> k=1 project, post-LN. Its two convs run
+    on B7 where `ops.conv1d.runs_kernel` sends them (module docstring)."""
 
     def __init__(self, d_in: int, d_hid: int, kernel_size=(9, 1), dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
@@ -236,7 +253,13 @@ class PositionwiseFeedForward(nn.Module):
         self.layer_norm = nn.LayerNorm(d_in, eps=1e-5)
         self.dropout = Dropout(dropout)
 
+    def convs(self) -> list[nn.Conv1d]:
+        return [self.w_1, self.w_2]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel_convs(x.device):
+            h = conv1d_module(conv1d_module(x, self.w_1, "relu"), self.w_2)
+            return self.layer_norm(h + x)
         h = at_dtype(self.w_1, x.transpose(1, 2), self.dtype)
         h = at_dtype(self.w_2, torch.relu(h), self.dtype).transpose(1, 2)
         return self.layer_norm(self.dropout(h).float() + x.float())
@@ -280,11 +303,12 @@ class VariancePredictor(nn.Module):
         return self.linear_layer(h)[..., 0].masked_fill(pad_mask, 0.0)
 
 
-class PostNet(nn.Module):
+class PostNet(_KernelConvs, nn.Module):
     """5-layer conv PostNet: [conv -> BatchNorm -> tanh -> dropout] x 4,
     conv -> BatchNorm -> dropout (the reference drops after the last layer too).
     In bf16 the first convolutions run in bf16 and the last in fp32; every
-    BatchNorm normalises an fp32 input."""
+    BatchNorm normalises an fp32 input. On B7 each conv's eval BatchNorm and
+    tanh run in its launch."""
 
     def __init__(self, n_mel_channels: int = 80, embedding_dim: int = 512,
                  kernel_size: int = 5, n_convolutions: int = 5, dropout: float = 0.5,
@@ -298,10 +322,18 @@ class PostNet(nn.Module):
             for i in range(n_convolutions))
         self.dropout = Dropout(dropout)
 
+    def convs(self) -> list[nn.Conv1d]:
+        return [conv.conv for conv, _ in self.convolutions]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        last = len(self.convolutions) - 1
+        if self.kernel_convs(x.device):
+            h = x
+            for i, (conv, bn) in enumerate(self.convolutions):
+                h = conv1d_module(h, conv.conv, "tanh" if i < last else "none", bn)
+            return h
         # x: (B, T, n_mels); BatchNorm1d wants channels second
         h = x.transpose(1, 2)
-        last = len(self.convolutions) - 1
         for i, (conv, bn) in enumerate(self.convolutions):
             h = bn(at_dtype(conv.conv, h, self.dtype if i < last else torch.float32).float())
             if i < last:

@@ -14,6 +14,11 @@ in bfloat16 the encoder and decoder FFT stacks and the PostNet compute in
 bf16 (`models/layers.py`), while the VFE, the embeddings, the variance
 adaptor and `mel_linear` compute in fp32 on fp32 inputs, and the parameters
 stay fp32, as in the JAX model (its vtts.py:205-253).
+
+On the card in `.eval()` at fp32 the conv FFNs' and the PostNet's 25 convs
+(ICASSP) run on B7 (`models/layers.py`, `ops/conv1d.py`);
+`acoustic_conv_plan` says how many a forward sends where, and
+`pack_kernel_weights` packs their weights before `torch.export`.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from visual_onoma_to_wave_tpu_torch.models.layers import (
 )
 from visual_onoma_to_wave_tpu_torch.models.variance_adaptor import VarianceAdaptor
 from visual_onoma_to_wave_tpu_torch.models.vfe import VisualFeatureExtractor
+from visual_onoma_to_wave_tpu_torch.ops.conv1d import kernel_weight
 from visual_onoma_to_wave_tpu_torch.ops.length_regulator import get_mask_from_lengths
 from visual_onoma_to_wave_tpu_torch.precision import compute_dtype
 
@@ -167,6 +173,29 @@ class VTTS(nn.Module):
             kwargs["energy_stats"] = (e.min, e.max, e.mean, e.std)
             kwargs["kurtosis_stats"] = (k.min, k.max, k.mean, k.std)
         return cls(**kwargs)
+
+    def _conv_groups(self) -> list[nn.Module]:
+        """The conv FFNs of both stacks and the PostNet: the groups whose
+        convs `ops.conv1d.runs_kernel` routes."""
+        return [*(b.pos_ffn for b in self.encoder.layer_stack),
+                *(b.pos_ffn for b in self.decoder.layer_stack), self.postnet]
+
+    def acoustic_conv_plan(self, device: torch.device) -> tuple[int, int]:
+        """(convs of the conv FFNs and the PostNet a forward on `device` runs
+        on B7, those it runs as modules): 25 a forward of the ICASSP model."""
+        kernel = plain = 0
+        for group in self._conv_groups():
+            n = len(group.kernel_convs(device))
+            kernel += n
+            plain += len(group.convs()) - n
+        return kernel, plain
+
+    def pack_kernel_weights(self, device: torch.device) -> None:
+        """Pack the weights of every conv that a forward on `device` runs on
+        B7 (`ops.conv1d.kernel_weight`): what `torch.export` then holds."""
+        for group in self._conv_groups():
+            for conv in group.kernel_convs(device):
+                kernel_weight(conv)
 
     def forward(self, audiotypes: torch.Tensor, texts: torch.Tensor, src_lens: torch.Tensor,
                 image_cells: torch.Tensor | None = None, e_control=1.0, d_control=1.0,

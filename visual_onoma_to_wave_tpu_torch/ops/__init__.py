@@ -2,6 +2,10 @@ from visual_onoma_to_wave_tpu_torch.ops.attention import (
     attention_core,
     attention_core_reference,
 )
+from visual_onoma_to_wave_tpu_torch.ops.conv1d import (
+    conv1d_tc,
+    conv1d_tc_reference,
+)
 from visual_onoma_to_wave_tpu_torch.ops.convnext import (
     convnext_block,
     convnext_block_reference,
@@ -28,6 +32,8 @@ from visual_onoma_to_wave_tpu_torch.ops.mrf import (
 __all__ = [
     "attention_core",
     "attention_core_reference",
+    "conv1d_tc",
+    "conv1d_tc_reference",
     "convnext_block",
     "convnext_block_reference",
     "convnext_trunk",

@@ -2,7 +2,8 @@
 
 Every source is compiled the same way: `nvcc` for sm_90a into a shared
 library with a plain C interface, under `build/kernels/<hash>/` at the
-repository root (gitignored), where the hash covers the source and the
+repository root (gitignored), where the hash covers the source, the headers
+it may include (`csrc/*.cuh`, the PTX helpers the kernels share) and the
 flags, with ptxas's register and spill report (`ptxas.log`) beside the
 `.so`. The library is built at first use and loaded with ctypes. A failed
 build raises; nothing falls back to another implementation.
@@ -29,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_mha", "convnext", "mel_frontend", "mrf", "amp")
+SOURCES = ("flash_mha", "convnext", "mel_frontend", "mrf", "amp", "conv1d_tc")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where `csrc/<name>.cu` builds to (keyed by a hash of source + flags)."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where `csrc/<name>.cu` builds to (keyed by a hash of source, shared
+    headers and flags)."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / key / f"lib{name}.so"
 
 

@@ -63,12 +63,18 @@ def make_fused_infer(model: VTTS, gen):
     The vocoder runs through `vocode` (MelGAN is fed mel / ln 10). A
     generator with anti-aliased activation sites (BigVGAN) has them counted
     once a call from its route plan (`amp_site_plan`): `synth.amp_sites`
-    through the one-pass kernel, `synth.amp_sites_plain` as modules."""
+    through the one-pass kernel, `synth.amp_sites_plain` as modules. The
+    acoustic model's conv FFN and PostNet convs are counted the same way
+    (`acoustic_conv_plan`): `synth.acoustic_convs` on B7,
+    `synth.acoustic_convs_plain` as modules."""
     plan = getattr(gen, "amp_site_plan", None)
 
     @torch.inference_mode()
     def fused(batch: dict, e_control=1.0, d_control=1.0) -> dict:
         with tracing.span("synth.acoustic"):
+            kernel_convs, plain_convs = model.acoustic_conv_plan(batch["texts"].device)
+            tracing.count("synth.acoustic_convs", kernel_convs)
+            tracing.count("synth.acoustic_convs_plain", plain_convs)
             out = model(batch["audiotypes"], batch["texts"], batch["src_lens"],
                         image_cells=batch.get("image_cells"),
                         e_control=e_control, d_control=d_control)
